@@ -1,0 +1,103 @@
+"""Dispatch for the probe kernels.
+
+A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
+launches a kernel (``kernels/neighbor_lookup.py``) or raises — there is no
+fallback from one to the other.  On the card the batch is padded to the
+block size and the outputs sliced back.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import neighbor_lookup as _nl
+from repro_torch.kernels import ref as _ref
+
+BLOCK_Q = 256
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` (default ``"cuda"``) as a ``torch.device``; raises when it
+    names CUDA and no card is present, so nothing silently runs on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch path")
+    return device
+
+
+def pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """uint32 [N] -> [N rounded up to mult], zero-filled."""
+    rem = (-x.shape[0]) % mult
+    if not rem:
+        return x
+    return torch.nn.functional.pad(x.view(torch.int32), (0, rem)) \
+        .view(torch.uint32)
+
+
+def probe_group(group: _nl.TableGroup, q_hi: torch.Tensor,
+                q_lo: torch.Tensor, seg: Sequence[int]) -> torch.Tensor:
+    """One grouped probe: table t of ``group`` answers ``q[seg[t]:seg[t+1]]``.
+    Returns uint32 [3, N] (found, payload_hi, payload_lo).  On the card the
+    group is staged in shared memory when it fits, else read from device
+    memory."""
+    if group.device.type == "cpu":
+        return _ref.probe_group(group, q_hi, q_lo, seg)
+    kernel = _nl.probe_smem if group.smem_bytes <= _nl.SMEM_LIMIT \
+        else _nl.probe_lines
+    n = q_hi.shape[0]
+    return kernel(group, pad_to(q_hi, BLOCK_Q), pad_to(q_lo, BLOCK_Q),
+                  seg)[:, :n]
+
+
+def table_group(key_hi, key_lo, val_hi, val_lo, *, max_probes: int,
+                home_capacity: Optional[int] = None, host_check: bool = True,
+                next_idx=None, device) -> _nl.TableGroup:
+    """One SoA table (numpy arrays or tensors) as a one-table group on
+    ``device``, line-packed where the arrays lie: tensors already on
+    ``device`` never pass through the host.  ``next_idx`` None follows the
+    inline offsets."""
+    arrays = dict(key_hi=key_hi, key_lo=key_lo, val_hi=val_hi, val_lo=val_lo)
+    if next_idx is not None:
+        arrays["next_idx"] = next_idx
+    capacity = key_hi.shape[0]
+    return _nl.TableGroup([_nl.device_table(
+        arrays, capacity=capacity, home_capacity=home_capacity or capacity,
+        host_check=host_check, max_probes=max_probes,
+        device=resolve_device(device))])
+
+
+def probe_table_group(group: _nl.TableGroup, q_hi, q_lo):
+    """A one-table group's probe of (numpy or tensor) queries, moved to the
+    group's device -> (found u32[N], payload_hi u32[N], payload_lo u32[N])."""
+    q_hi, q_lo = (_query_words(q, group.device) for q in (q_hi, q_lo))
+    out = probe_group(group, q_hi, q_lo, [0, q_hi.shape[0]])
+    return out[0], out[1], out[2]
+
+
+def _query_words(q, device) -> torch.Tensor:
+    """uint32 queries (array or tensor) as a contiguous uint32 tensor on
+    ``device``."""
+    if not isinstance(q, torch.Tensor):
+        q = np.asarray(q).astype(np.uint32, copy=False)
+    return _nl.int32_words(q).to(device).contiguous().view(torch.uint32)
+
+
+def neighbor_lookup(key_hi, key_lo, val_hi, val_lo, q_hi, q_lo, *,
+                    max_probes: int, home_capacity: Optional[int] = None,
+                    host_check: bool = True, next_idx=None, device=None):
+    """Batched NeighborHash probe of one SoA table -> (found u32[N],
+    payload_hi u32[N], payload_lo u32[N]) on ``device``: by default the
+    device of ``q_hi`` when it is a tensor, else ``"cuda"``.  The table is
+    line-packed for this one call; to probe a table many times, make its
+    group once with ``table_group`` (``core/lookup.make_lookup_fn`` does).
+    ``next_idx`` None follows the inline offsets."""
+    if device is None and isinstance(q_hi, torch.Tensor):
+        device = q_hi.device
+    group = table_group(key_hi, key_lo, val_hi, val_lo,
+                        max_probes=max_probes, home_capacity=home_capacity,
+                        host_check=host_check, next_idx=next_idx,
+                        device=device)
+    return probe_table_group(group, q_hi, q_lo)
