@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the probe kernels (``src/repro_torch/csrc/probe.cu``) with nvcc, then
-runs two phases through ``FeatureClient(EngineBackend(MultiTableEngine))``:
+Builds the kernels (``src/repro_torch/csrc/probe.cu`` and ``fused_fm.cu``)
+with nvcc, one compiler per source, all at once, then runs three phases.
+Two send batch queries through ``FeatureClient(EngineBackend(
+MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
   rows, hot fraction 0.1, LF 0.8, 4 GB shards), cut in item count only: a
@@ -13,13 +15,27 @@ runs two phases through ``FeatureClient(EngineBackend(MultiTableEngine))``:
 * **B** — the ``bili-feature-store-smoke`` config: 20k keys in 256 KB
   shards, two shards of ~200 KB, so ``probe_smem`` runs.
 
-Each phase sends 64 zipf-skewed batches of 4096 keys (10% absent), one
-64-key delta midway, then a read-your-writes query.  Every grouped launch is
-held bitwise against the plain PyTorch probe on the card, every answer
-against the written data and the host ``HashTable.lookup_host_batch``, and
-every batch against the version it reports.  Then each kernel is timed at
-the shapes the main path gave it, beside its plain version, the RA gather
-(one ``torch.index_select`` of the home line) and its bound.
+Each sends 64 zipf-skewed batches of 4096 keys (10% absent), one 64-key
+delta midway, then a read-your-writes query.  Every grouped launch is held
+bitwise against the plain PyTorch probe on the card, every answer against
+the written data and the host ``HashTable.lookup_host_batch``, and every
+batch against the version it reports.
+
+* **C** — DeepFM CTR serving (``configs/deepfm.CONFIG``, full published
+  width: a 1.56 GB field table on the card) behind the launcher's feature
+  engine in the deployment's 4 GB shards, through
+  ``serve_step.recsys_score_fn``: 64 requests of 512 rows after one
+  warm-up, an ``item_pop`` delta after request 32, one ``min_version(2)``
+  request, then one more request traced by ``torch.profiler`` for the
+  card's busy share.  Every ``fused_fm`` launch is held against the plain
+  FM on the same tensor, every request's probabilities against the same
+  model with the plain FM, and the spliced features against the rows as
+  written.
+
+Then each kernel is timed at the shapes the main path gave it, beside its
+plain version, a library call where one computes the same function (the RA
+gather, ``torch.take`` of the home value word, for the probe; none for the
+FM term) and its bound.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 repository around it.  The last line of a passing run is
@@ -27,11 +43,14 @@ repository around it.  The last line of a passing run is
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,22 +58,38 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import api  # noqa: E402
+from repro_torch.configs import deepfm  # noqa: E402
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import hashcore as hc  # noqa: E402
 from repro_torch.core import neighborhash as nh  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fused_fm as fm  # noqa: E402
 from repro_torch.kernels import neighbor_lookup as nl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import recsys as rec  # noqa: E402
+from repro_torch.serve import serve_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate, H100 SXM
+FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores, H100 SXM
 OPS_PER_PROBE_STEP = 40        # hash / compare / decode: integer ops, rough
 N_BATCHES, BATCH_KEYS, ABSENT = 64, 4096, 0.10
 DELTA_KEYS = 64
 ZIPF_A = 1.1
+# phase C: DeepFM serving
+C_ITEMS, C_REQUESTS, C_ROWS, C_ABSENT = 200_000, 64, 512, 0.10
+FM_TOL = 1e-5                  # kernel vs plain FM, both fp32 sums
+FM_BULK = (262_144, 39, 10)    # the serve_bulk cell's batch, DeepFM widths
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
-            "probe_smem": "src/repro/kernels/neighbor_lookup.py:106"}
-SOURCE = "src/repro_torch/csrc/probe.cu"
+            "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
+            "fused_fm": "src/repro/kernels/fused_fm.py:31"}
+LIBRARIES = {"probe": "src/repro_torch/csrc/probe.cu",
+             "fused_fm": "src/repro_torch/csrc/fused_fm.cu"}
+SOURCE = {"probe_lines": LIBRARIES["probe"],
+          "probe_smem": LIBRARIES["probe"],
+          "fused_fm": LIBRARIES["fused_fm"]}
 
 
 def fail(msg: str) -> None:
@@ -142,27 +177,30 @@ class LaunchLog:
 
 
 class LayerClock:
-    """Host-clock time spent in each layer below the client, summed over a
-    phase: the engine's host half (``_stage``), its device half
-    (``_launch``: copies and launches enqueued), the hybrid store's gather,
-    and the wait for a batch's device work in ``finish``."""
+    """Host-clock time spent in each layer, summed over a phase: by default
+    the layers below the client — the engine's host half (``_stage``), its
+    device half (``_launch``: copies and launches enqueued), the hybrid
+    store's gather, and the wait for a batch's device work in ``finish``.
+    ``spans`` names other (owner, attribute, layer) triples; several may
+    add to one layer."""
 
     SPANS = ((eng.MultiTableEngine, "_stage", "stage"),
              (eng.MultiTableEngine, "_launch", "launch"),
              (eng.HybridKVStore, "get_batch", "store"),
              (torch.cuda.Event, "synchronize", "device_wait"))
 
-    def __init__(self):
-        self.seconds = dict.fromkeys([s[2] for s in self.SPANS], 0.0)
-        self.orig = [getattr(cls, attr) for cls, attr, _ in self.SPANS]
+    def __init__(self, spans=SPANS):
+        self.spans = spans
+        self.seconds = dict.fromkeys([s[2] for s in spans], 0.0)
+        self.orig = [getattr(cls, attr) for cls, attr, _ in spans]
 
     def __enter__(self):
-        for (cls, attr, name), fn in zip(self.SPANS, self.orig):
+        for (cls, attr, name), fn in zip(self.spans, self.orig):
             setattr(cls, attr, self._timed(fn, name))
         return self
 
     def __exit__(self, *exc):
-        for (cls, attr, _), fn in zip(self.SPANS, self.orig):
+        for (cls, attr, _), fn in zip(self.spans, self.orig):
             setattr(cls, attr, fn)
 
     def _timed(self, fn, name):
@@ -394,7 +432,7 @@ def measure(name, launch, engines, log, flush):
     # read once; hash + compares per bucket read on the integer units
     t_bytes = (n * (8 + 12) + lines * 128) / HBM_BYTES_PER_S * 1e3
     t_ops = reads * OPS_PER_PROBE_STEP / INT_OPS_PER_S * 1e3
-    return {"name": name, "route": "cuda", "source": SOURCE,
+    return {"name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": None, "max_abs_err": log.max_err[name],
             "ms": ms, "kernel_ms": k_ms, "host_ms": h_ms, "plain_ms": plain_ms,
@@ -428,6 +466,281 @@ def saturation(engine, flush, n, seed=7):
 
 
 # ---------------------------------------------------------------------------
+# phase C: DeepFM CTR serving behind the FeatureClient
+# ---------------------------------------------------------------------------
+class FMLog:
+    """Wraps ``ops.fm_interaction`` while the main path runs and keeps each
+    call's input and output, checked after its request against the plain
+    FM on the same tensor."""
+
+    def __init__(self):
+        self.orig = ops.fm_interaction
+        self.pending = []
+        self.last = None                # the last launch's input
+        self.max_err = 0.0
+
+    def __enter__(self):
+        ops.fm_interaction = self._record
+        return self
+
+    def __exit__(self, *exc):
+        ops.fm_interaction = self.orig
+
+    def _record(self, emb):
+        out = self.orig(emb)
+        self.pending.append((emb, out))
+        return out
+
+    def check_pending(self) -> None:
+        with torch.inference_mode():
+            for emb, out in self.pending:
+                want = ref.fused_fm(emb)
+                err = float((out - want).abs().max()) if out.numel() else 0.
+                self.max_err = max(self.max_err, err)
+                if not torch.allclose(out, want, rtol=FM_TOL, atol=FM_TOL):
+                    fail(f"fused_fm differs from the plain FM on "
+                         f"{tuple(emb.shape)} (max abs err {err})")
+                self.last = emb
+        self.pending.clear()
+
+
+class Uploads:
+    """Keeps the host batch each request hands to ``serve_step._upload``:
+    its dense columns are the spliced features."""
+
+    def __init__(self):
+        self.orig = serve_step._upload
+        self.last = None
+
+    def __enter__(self):
+        serve_step._upload = self._record
+        return self
+
+    def __exit__(self, *exc):
+        serve_step._upload = self.orig
+
+    def _record(self, batch, device):
+        self.last = (batch, self.orig(batch, device))
+        return self.last[1]
+
+
+def check_request(probs, batch, uploads, model, feats, pop, n_items, what):
+    """The request's probabilities against the same model with the plain FM
+    on the same device batch, and its spliced features against the rows as
+    written, times found."""
+    host, dev = uploads.last
+    rows = len(batch["item_id"])
+    if probs.shape != (rows,) or not bool(probs.isfinite().all()):
+        fail(f"{what}: probabilities are not finite of shape ({rows},)")
+    kernel_fm, ops.fm_interaction = ops.fm_interaction, ref.fused_fm
+    try:
+        want = rec.recsys_score(model, dev)
+    finally:
+        ops.fm_interaction = kernel_fm
+    err = float((probs - want).abs().max())
+    if not torch.allclose(probs, want, rtol=FM_TOL, atol=FM_TOL):
+        fail(f"{what}: probabilities differ from the plain-FM model "
+             f"(max abs err {err})")
+    ids = batch["item_id"]
+    found = (ids >= 1) & (ids <= n_items)
+    i = np.where(found, ids - 1, 0)
+    dense = host["dense"]
+    if not (np.array_equal(dense[:, :8], feats[i] * found[:, None])
+            and np.array_equal(dense[:, 8],
+                               pop[i].astype(np.float32) * found)
+            and np.array_equal(dense[:, 9:], batch["dense"][:, 9:])):
+        fail(f"{what}: spliced features differ from the rows as written")
+    got_dense = dev["dense"].cpu().numpy()
+    if not np.array_equal(got_dense, dense):
+        fail(f"{what}: the batch on the card differs from the host batch")
+    return err
+
+
+def c_request(rng, cfg, n_items):
+    batch = launch_serve.request_batch(rng, cfg, C_ROWS, n_items)
+    absent = rng.random(C_ROWS) < C_ABSENT
+    batch["item_id"][absent] += n_items      # keys the tables do not hold
+    return batch
+
+
+def device_busy_ms(prof) -> tuple[float, int]:
+    """(ms, events): the union of the card's kernel, copy and memset
+    intervals in a profiler trace."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3, len(spans)
+
+
+def run_phase_c(device, log, fm_log, cfg=deepfm.CONFIG, n_items=C_ITEMS):
+    """DeepFM (by default at full published width) behind the launcher's
+    feature engine; returns the phase's metrics."""
+    t0 = time.perf_counter()
+    model = rec.recsys_init(cfg, seed=0, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[C] {cfg.name}: {model.param_bytes()} parameter bytes on the "
+          f"card ({cfg.n_sparse_fields} fields x {cfg.field_vocab} ids x "
+          f"{cfg.embed_dim}, mlp {cfg.mlp}), drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    engine, keys, feats, pop = launch_serve.feature_engine(
+        n_items, CONFIG.max_shard_bytes, device=device)
+    build_s = time.perf_counter() - t0
+    print(f"[C] feature engine: {n_items} items, item_pop + item_feats "
+          f"(8 x float32) in {engine.window.get(None)[2].n_shards} "
+          f"shard(s), built in {build_s:.1f} s", flush=True)
+    backend = api.EngineBackend(engine)
+    step = serve_step.recsys_score_fn(
+        cfg, model, feature_client=api.FeatureClient(backend),
+        feature_fields=launch_serve.FEATURE_FIELDS)
+    clock = LayerClock((
+        (api.FeatureClient, "query", "feature_query"),
+        (serve_step, "_splice", "splice_h2d"),
+        (serve_step, "_upload", "splice_h2d"),
+        (rec, "recsys_score", "forward")))
+    rng = np.random.default_rng(3)
+    lat, wait, max_err, scored = [], [], 0.0, 0
+
+    def score(step, batch, timed, prof=contextlib.nullcontext()):
+        nonlocal max_err, scored
+        # the clock wraps _upload first, so Uploads sees the timed call
+        with clock if timed else contextlib.nullcontext(), \
+                Uploads() as uploads, prof:
+            t0 = time.perf_counter()
+            probs = step(batch)
+            t1 = time.perf_counter()
+            probs.cpu()                             # waits for the card
+            t2 = time.perf_counter()
+        if timed:
+            lat.append(t2 - t0)
+            wait.append(t2 - t1)
+        scored += 1
+        log.check_pending()
+        fm_log.check_pending()
+        what = f"[C] request {scored}"
+        max_err = max(max_err, check_request(probs, batch, uploads, model,
+                                             feats, pop, n_items, what))
+        return (t2 - t0) * 1e3
+
+    first_ms = score(step, c_request(rng, cfg, n_items), timed=False)
+    for r in range(C_REQUESTS):
+        if r == C_REQUESTS // 2:
+            k = keys[rng.choice(n_items, DELTA_KEYS, replace=False)]
+            p = rng.integers(0, 1 << 20, DELTA_KEYS).astype(np.uint64)
+            api.FeatureClient(backend).update(
+                2, upserts={"item_pop": (k, p)})
+            pop = pop.copy()
+            pop[(k - 1).astype(np.int64)] = p
+            v2 = serve_step.recsys_score_fn(
+                cfg, model, feature_fields=launch_serve.FEATURE_FIELDS,
+                feature_client=api.FeatureClient(
+                    backend,
+                    default_consistency=api.Consistency.min_version(2)))
+            batch = c_request(rng, cfg, n_items)
+            batch["item_id"][:DELTA_KEYS] = k.astype(np.int64)
+            score(v2, batch, timed=False)
+        score(step, c_request(rng, cfg, n_items), timed=True)
+    # one more request of the timed kind, traced: the card's kernels and
+    # copies over the request's host time (the profiler slows the host, so
+    # the share is also given over the untraced p50)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    traced_ms = score(step, c_request(rng, cfg, n_items), timed=False,
+                      prof=prof)
+    busy_ms, busy_events = device_busy_ms(prof)
+    lat_ms = np.array(lat) * 1e3
+    n = len(lat)
+    split = {k: v * 1e3 / n for k, v in clock.seconds.items()}
+    split["wait"] = float(np.sum(wait)) * 1e3 / n
+    return {"phase": "C", "model": cfg.name, "rows": C_ROWS,
+            "requests_scored": scored, "requests_timed": n,
+            "first_request_ms": first_ms,
+            "request_p50_ms": float(np.percentile(lat_ms, 50)),
+            "request_p99_ms": float(np.percentile(lat_ms, 99)),
+            "rows_per_s": C_ROWS * n / float(np.sum(lat)),
+            "max_abs_err_probs": max_err,
+            "max_abs_err_fm": fm_log.max_err,
+            "max_abs_err_probe": max(log.max_err.values()),
+            "param_bytes": model.param_bytes(), "build_s": build_s,
+            "shards": engine.window.get(None)[2].n_shards,
+            "host_ms_per_request": split,
+            "traced_request": {
+                "ms": traced_ms, "device_busy_ms": busy_ms,
+                "device_events": busy_events,
+                "busy_share": busy_ms / traced_ms,
+                "busy_share_of_p50": busy_ms / float(np.percentile(lat_ms,
+                                                                   50))}}
+
+
+def fm_bound_ms(shape):
+    """(bound ms, bound by) of fp32 [B, F, D]: each input element read once
+    and used for one add and one fma, each output written once."""
+    b, f, d = shape
+    t_bytes = (b * f * d * 4 + b * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * b * f * d + 3 * b * d) / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def measure_fm(fm_log, flush):
+    """fused_fm at the main path's shape (the last launch's input) and at
+    the serve_bulk batch, beside the plain FM."""
+    emb = fm_log.last
+    kernel = functools.partial(fm.fused_fm, emb)
+    bound, by = fm_bound_ms(tuple(emb.shape))
+    row = {"name": "fused_fm", "route": "cuda",
+           "source": SOURCE["fused_fm"], "replaces": REPLACES["fused_fm"],
+           "launches": None, "max_abs_err": fm_log.max_err,
+           "shape": list(emb.shape),
+           "ms": time_ms(kernel, 50, flush),
+           "kernel_ms": kernel_ms(kernel, "fused_fm_kernel", 50, flush),
+           "host_ms": host_ms(kernel, 50),
+           "plain_ms": time_ms(lambda: ref.fused_fm(emb), 50, flush),
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "library_note": "no single PyTorch call computes the FM term"}
+    g = torch.Generator(device=emb.device).manual_seed(11)
+    bulk = torch.randn(FM_BULK, generator=g, device=emb.device).mul_(0.05)
+    got, want = fm.fused_fm(bulk), ref.fused_fm(bulk)
+    bulk_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=FM_TOL, atol=FM_TOL):
+        fail(f"fused_fm differs from the plain FM at {FM_BULK} "
+             f"(max abs err {bulk_err})")
+    bound, by = fm_bound_ms(FM_BULK)
+    kernel = functools.partial(fm.fused_fm, bulk)
+    row["bulk"] = {"shape": list(FM_BULK), "max_abs_err": bulk_err,
+                   "ms": time_ms(kernel, 20, flush),
+                   "kernel_ms": kernel_ms(kernel, "fused_fm_kernel", 20,
+                                          flush),
+                   "plain_ms": time_ms(lambda: ref.fused_fm(bulk), 5, flush),
+                   "bound_ms": bound, "bound_by": by}
+    return row
+
+
+def build_kernels() -> None:
+    """One nvcc per source, all started together."""
+    def timed(name):
+        t0 = time.perf_counter()
+        return build.build_library(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        futures = {name: pool.submit(timed, name) for name in LIBRARIES}
+    for name, fut in futures.items():
+        so, secs = fut.result()
+        print(f"built {os.path.relpath(so)} from {LIBRARIES[name]} in "
+              f"{secs:.1f} s", flush=True)
+        with open(so + ".log") as f:
+            for line in f:
+                if "registers" in line or "Compiling entry" in line:
+                    print("  ptxas: " + line.strip())
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -436,20 +749,16 @@ def main() -> int:
     torch.cuda.set_device(device)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    t0 = time.perf_counter()
-    so = nl.build_library()
-    print(f"built {os.path.relpath(so)} from {SOURCE} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    with open(so + ".log") as f:
-        for line in f:
-            if "registers" in line or "Compiling entry" in line:
-                print("  ptxas: " + line.strip())
+    build_kernels()
 
     n_a, emb_a = 4_000_000, 200_000
     print(f"reduced: n_items {CONFIG.n_items}->{n_a} (the host builder "
           f"inserts one key at a time, ~28 us a key)")
     print(f"reduced: emb rows {CONFIG.n_items}->{emb_a} (the embedding "
           f"store is host memory and memmap only)")
+    print(f"reduced: phase C feature items {CONFIG.n_items}->{C_ITEMS} (the "
+          f"host builder inserts one key at a time, ~23-28 us a key); "
+          f"shards stay {CONFIG.max_shard_bytes} B")
 
     for k in nl.launches:
         nl.launches[k] = 0
@@ -475,12 +784,29 @@ def main() -> int:
         fail(f"kernel launches {counts} disagree with the engines' counts "
              f"A={m_a['launches']} B={m_b['launches']}")
 
+    for k in nl.launches:
+        nl.launches[k] = 0
+    fm.launches["fused_fm"] = 0
+    with LaunchLog() as log_c, FMLog() as fm_log:
+        m_c = run_phase_c(device, log_c, fm_log)
+    c_counts = {**nl.launches, **fm.launches}
+    m_c["launches"] = c_counts
+    print("[C] " + json.dumps(m_c), flush=True)
+    if c_counts["fused_fm"] != m_c["requests_scored"]:
+        fail(f"fused_fm launched {c_counts['fused_fm']} times for "
+             f"{m_c['requests_scored']} requests")
+    if not any(c_counts[k] for k in nl.launches):
+        fail("no probe kernel was launched on phase C's feature queries")
+
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     kernels = []
     for name in ("probe_lines", "probe_smem"):
         row = measure(name, log.last[name], (eng_a, eng_b), log, flush)
         row["launches"] = counts[name]
         kernels.append(row)
+    row = measure_fm(fm_log, flush)
+    row["launches"] = c_counts["fused_fm"]
+    kernels.append(row)
     # the same small group through the device-memory kernel, for contrast
     group, q_hi, q_lo, seg = log.last["probe_smem"]
     qh, ql = ops.pad_to(q_hi, ops.BLOCK_Q), ops.pad_to(q_lo, ops.BLOCK_Q)

@@ -17,19 +17,16 @@ tables' query segments, passed by value, tell each query which table it
 probes, so a batch over several tables is one launch and copies nothing.
 
 The library is compiled with ``nvcc`` at first use, from the source in this
-package, into ``build/repro_torch/`` at the repository root.  A wrapper
-launches its kernel on a CUDA tensor or raises; it never falls back to the
-plain version (``kernels/ref.py``) — ``kernels/ops.py`` picks that for CPU
-tensors.  ``launches`` counts each kernel's launches.
+package, into ``build/repro_torch/`` at the repository root
+(``kernels/build.py``).  A wrapper launches its kernel on a CUDA tensor or
+raises; it never falls back to the plain version (``kernels/ref.py``) —
+``kernels/ops.py`` picks that for CPU tensors.  ``launches`` counts each
+kernel's launches.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from typing import Optional, Sequence
 
@@ -37,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashcore as hc
+from repro_torch.kernels import build as _build
 
 BUCKETS_PER_LINE = hc.GPU_BUCKETS_PER_LINE      # the kernels' line layout
 SMEM_LIMIT = 232_448          # shared memory of one block: kSmemLimit
@@ -48,13 +46,7 @@ DESC_FIELDS = ("lines", "next_idx", "capacity", "home_capacity",
 
 launches = {"probe_lines": 0, "probe_smem": 0}
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "probe.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))))),
-    "build", "repro_torch")
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+_lock = threading.Lock()
 _n_sm: dict = {}              # device index -> SM count, once probe_init ran
 
 
@@ -188,60 +180,23 @@ def device_table(arrays: dict, *, capacity: int, home_capacity: int,
 
 
 # ---------------------------------------------------------------------------
-# build + bind
+# bind
 # ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the probe "
-                           "kernels build from csrc/probe.cu at first use")
-    return found
-
-
-def build_library() -> str:
-    """Compile ``csrc/probe.cu`` for sm_90a unless a library built from the
-    same source exists; returns the ``.so`` path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"libprobe-{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SRC]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    with open(out + ".log", "w") as f:          # ptxas register/smem report
-        f.write(r.stderr)
-    os.replace(tmp, out)
-    return out
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    seg = ctypes.POINTER(ll)
+    lib.repro_probe_lines.argtypes = [vp, ctypes.c_int, seg, vp, vp, vp, ll,
+                                      vp]
+    lib.repro_probe_smem.argtypes = [vp, ctypes.c_int, seg, ll, ctypes.c_int,
+                                     vp, vp, vp, ll, vp]
+    lib.repro_probe_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.repro_probe_init.restype = ctypes.c_int
+    lib.repro_probe_lines.restype = ctypes.c_int
+    lib.repro_probe_smem.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            vp, ll = ctypes.c_void_p, ctypes.c_longlong
-            seg = ctypes.POINTER(ll)
-            lib.repro_probe_lines.argtypes = [vp, ctypes.c_int, seg, vp, vp,
-                                              vp, ll, vp]
-            lib.repro_probe_smem.argtypes = [vp, ctypes.c_int, seg, ll,
-                                             ctypes.c_int, vp, vp, vp, ll,
-                                             vp]
-            lib.repro_probe_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.repro_probe_init.restype = ctypes.c_int
-            lib.repro_probe_lines.restype = ctypes.c_int
-            lib.repro_probe_smem.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return _build.library("probe", _bind)
 
 
 def _sm_count(lib: ctypes.CDLL, device: torch.device) -> int:
@@ -249,7 +204,7 @@ def _sm_count(lib: ctypes.CDLL, device: torch.device) -> int:
     on a device also raises probe_smem's shared-memory limit there to
     ``SMEM_LIMIT``, so a launch sets no attribute."""
     index = device.index              # a CUDA tensor's device has one
-    with _lib_lock:
+    with _lock:
         if index not in _n_sm:
             n = ctypes.c_int(0)
             with torch.cuda.device(index):

@@ -1,9 +1,9 @@
-"""Dispatch for the probe kernels.
+"""Dispatch for the port's kernels: the probe and the FM term.
 
 A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
-launches a kernel (``kernels/neighbor_lookup.py``) or raises — there is no
-fallback from one to the other.  On the card the batch is padded to the
-block size and the outputs sliced back.
+launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``)
+or raises — there is no fallback from one to the other.  On the card the
+probe's batch is padded to the block size and the outputs sliced back.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import fused_fm as _fm
 from repro_torch.kernels import neighbor_lookup as _nl
 from repro_torch.kernels import ref as _ref
 
@@ -101,3 +102,11 @@ def neighbor_lookup(key_hi, key_lo, val_hi, val_lo, q_hi, q_lo, *,
                         host_check=host_check, next_idx=next_idx,
                         device=device)
     return probe_table_group(group, q_hi, q_lo)
+
+
+def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
+    """FM second-order term of ``emb`` [B, F, D] -> fp32 [B]: the plain
+    version for a CPU tensor, the ``fused_fm`` kernel for a CUDA one."""
+    if emb.device.type == "cpu":
+        return _ref.fused_fm(emb)
+    return _fm.fused_fm(emb)

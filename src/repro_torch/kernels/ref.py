@@ -1,11 +1,16 @@
-"""Plain PyTorch versions of the probe kernels in ``neighbor_lookup.py``.
+"""Plain PyTorch versions of the port's kernels.
 
-They take the same inputs as the kernels (line-packed tables, uint32
-queries, query segments) and return the same uint32 ``[3, N]``.  The whole
-batch advances one chain step per iteration under an active-lane mask, as
-the JAX package's ``core/lookup.lookup`` does.  ``kernels/ops.py`` runs them
-for CPU tensors; the tests and ``chip_smoke.py`` hold the kernels against
-them on the card.
+* ``probe_table`` / ``probe_group``, of the probe kernels in
+  ``neighbor_lookup.py``: they take the same inputs as the kernels
+  (line-packed tables, uint32 queries, query segments) and return the same
+  uint32 ``[3, N]``.  The whole batch advances one chain step per iteration
+  under an active-lane mask, as the JAX package's ``core/lookup.lookup``
+  does.
+* ``fused_fm``, of the FM kernel in ``fused_fm.py``: the JAX package's
+  ``kernels/ref.fused_fm``.
+
+``kernels/ops.py`` runs them for CPU tensors; the tests and
+``chip_smoke.py`` hold the kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -89,3 +94,13 @@ def probe_group(group, q_hi: torch.Tensor, q_lo: torch.Tensor,
                 host_check=t.host_check,
                 max_probes=t.max_probes).view(torch.int32)
     return out.view(torch.uint32)
+
+
+def fused_fm(emb: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fused_fm.fused_fm``: emb [B, F, D] -> fp32 [B],
+    ``0.5 * sum_d[(sum_f x)^2 - sum_f x^2]``, accumulated in fp32 whatever
+    the input dtype."""
+    x = emb.to(torch.float32)
+    s = x.sum(dim=1)                                   # [B, D]
+    ss = (x * x).sum(dim=1)                            # [B, D]
+    return 0.5 * (s * s - ss).sum(dim=-1)              # [B]

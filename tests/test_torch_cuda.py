@@ -1,7 +1,10 @@
-"""The hand-written probe kernels on the card, each held bitwise against its
-plain PyTorch version (kernels/ref.py) on the same inputs.  No JAX here:
-the parity with the JAX package is pinned on the CPU by test_torch_lookup.py
-and test_torch_engine.py.  Run on a CUDA machine with
+"""The hand-written kernels on the card, each held against its plain PyTorch
+version (kernels/ref.py) on the same inputs: the probe kernels bitwise, the
+FM kernel at the JAX package's kernel-test tolerances; and DeepFM serving on
+the card against the same model on the CPU.  No JAX here: the parity with
+the JAX package is pinned on the CPU by test_torch_lookup.py,
+test_torch_engine.py, test_torch_fused_fm.py and test_torch_recsys.py.  Run
+on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -13,8 +16,14 @@ from repro_torch.core import engine as eng
 from repro_torch.core import hashcore as hc
 from repro_torch.core import lookup as lk
 from repro_torch.core import neighborhash as nh
+from repro_torch.configs import deepfm
+from repro_torch.data import synthetic
+from repro_torch.kernels import build
+from repro_torch.kernels import fused_fm as fm
 from repro_torch.kernels import neighbor_lookup as nl
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import recsys as rec
 
 pytestmark = [
     pytest.mark.cuda,
@@ -190,3 +199,95 @@ def test_engine_on_card_matches_engine_on_cpu():
     np.testing.assert_array_equal(a["item_attr"].payloads,
                                   b["item_attr"].payloads)
     assert on_card.stats.launches == on_cpu.stats.launches
+
+
+# ---------------------------------------------------------------------------
+# fused_fm
+# ---------------------------------------------------------------------------
+FM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _fm_check(shape, dtype, tol, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda").to(FM_DTYPES[dtype])
+    before = fm.launches["fused_fm"]
+    got = ops.fm_interaction(x)
+    assert fm.launches["fused_fm"] == before + 1
+    want = ref.fused_fm(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (shape[0],)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(FM_DTYPES))
+@pytest.mark.parametrize("shape", [(64, 39, 10), (130, 7, 16), (8, 2, 4),
+                                   (512, 39, 10), (33, 3, 256)])
+def test_fused_fm_kernel_matches_plain(dtype, shape):
+    """test_kernels.py's shapes and tolerances, DeepFM's request and a
+    width of 256, past one lane per d."""
+    _fm_check(shape, dtype, 1e-4 if dtype == "float32" else 5e-2)
+
+
+@pytest.mark.parametrize("dtype", list(FM_DTYPES))
+@pytest.mark.parametrize("n_b", [1, 127, 128, 129])
+def test_fused_fm_kernel_any_batch(dtype, n_b):
+    """B around the TPU kernel's block of 128; no padding on the card."""
+    _fm_check((n_b, 13, 8), dtype, 1e-5, seed=n_b)
+
+
+def test_fused_fm_kernel_degenerate_shapes():
+    assert fm.fused_fm(torch.zeros(0, 39, 10, device="cuda")).shape == (0,)
+    out = fm.fused_fm(torch.ones(5, 0, 10, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros(5, device="cuda"))
+
+
+def test_fused_fm_rejects_what_it_does_not_take():
+    x = torch.randn(39, 64, 10, device="cuda").transpose(0, 1)
+    assert not x.is_contiguous()
+    before = fm.launches["fused_fm"]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fm_interaction(x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fm.fused_fm(torch.zeros(4, 3, 2, device="cuda", dtype=torch.float16))
+    with pytest.raises(ValueError):
+        fm.fused_fm(torch.zeros(4, 3, device="cuda"))
+    assert fm.launches["fused_fm"] == before
+    _fm_check((64, 39, 10), "float32", 1e-4)        # contiguous: launches
+
+
+def test_fm_interaction_raises_when_the_library_cannot_load(monkeypatch):
+    def no_library(name, bind):
+        raise OSError(f"cannot load lib{name}")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    monkeypatch.setattr(build, "library", no_library)
+    monkeypatch.setattr(ref, "fused_fm", boom)
+    with pytest.raises(OSError, match="libfused_fm"):
+        ops.fm_interaction(torch.zeros(8, 39, 10, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# DeepFM serving on the card
+# ---------------------------------------------------------------------------
+def test_deepfm_on_card_matches_deepfm_on_cpu():
+    on_cpu = rec.recsys_init(deepfm.SMOKE, seed=0, device="cpu")
+    on_card = rec.recsys_init(deepfm.SMOKE, seed=0, device="cpu").to("cuda")
+    assert on_card.device.type == "cuda"
+    batch = synthetic.recsys_batch(np.random.default_rng(0), deepfm.SMOKE,
+                                   512)
+    before = fm.launches["fused_fm"]
+    got = rec.recsys_score(on_card, batch)
+    assert fm.launches["fused_fm"] == before + 1
+    want = rec.recsys_score(on_cpu, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_serve_launcher_on_card():
+    before = fm.launches["fused_fm"]
+    out = launch_serve.main(["--arch", "deepfm", "--smoke", "--requests",
+                             "3", "--batch", "256"])
+    assert out["device"].startswith("cuda") and out["finite"]
+    assert fm.launches["fused_fm"] == before + 4     # warm-up + 3
