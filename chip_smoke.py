@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the kernels (``src/repro_torch/csrc/probe.cu`` and ``fused_fm.cu``)
-with nvcc, one compiler per source, all at once, then runs three phases.
-Two send batch queries through ``FeatureClient(EngineBackend(
+Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
+``embedding_bag.cu``) with nvcc, one library after the other, then runs four
+phases.  Two send batch queries through ``FeatureClient(EngineBackend(
 MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -31,11 +31,19 @@ batch against the version it reports.
   FM on the same tensor, every request's probabilities against the same
   model with the plain FM, and the spliced features against the rows as
   written.
+* **D** — two-tower user-tower serving (``configs/two_tower_retrieval.
+  CONFIG``, full published width: 30.8 GB of tables on the card) as the
+  ``serve_p99`` cell serves it, through ``serve_step.recsys_score_fn`` with
+  no feature source: one warm-up and 64 timed requests of 512 rows, then one
+  more traced.  Every ``embedding_bag`` launch is held against the plain
+  bag lookup on the same tensors, every request's user vectors against the
+  same model with the plain bag lookup, and their norms against 1.
 
-Then each kernel is timed at the shapes the main path gave it, beside its
-plain version, a library call where one computes the same function (the RA
-gather, ``torch.take`` of the home value word, for the probe; none for the
-FM term) and its bound.
+Then each kernel is timed at the shapes the main path gave it (and the bulk
+kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
+version, a library call where one computes the same function (the RA
+gather, ``torch.take`` of the home value word, for the probe;
+``F.embedding_bag`` for the bag; none for the FM term) and its bound.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 repository around it.  The last line of a passing run is
@@ -45,12 +53,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -58,16 +66,19 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import api  # noqa: E402
-from repro_torch.configs import deepfm  # noqa: E402
+from repro_torch.configs import deepfm, two_tower_retrieval  # noqa: E402
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import hashcore as hc  # noqa: E402
 from repro_torch.core import neighborhash as nh  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import embedding_bag as bagk  # noqa: E402
 from repro_torch.kernels import fused_fm as fm  # noqa: E402
 from repro_torch.kernels import neighbor_lookup as nl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import embedding_service as es  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
 from repro_torch.serve import serve_step  # noqa: E402
 
@@ -82,14 +93,21 @@ ZIPF_A = 1.1
 C_ITEMS, C_REQUESTS, C_ROWS, C_ABSENT = 200_000, 64, 512, 0.10
 FM_TOL = 1e-5                  # kernel vs plain FM, both fp32 sums
 FM_BULK = (262_144, 39, 10)    # the serve_bulk cell's batch, DeepFM widths
+# phase D: two-tower user-tower serving
+D_REQUESTS, D_ROWS = 64, 512   # the serve_p99 cell's batch
+BAG_TOL = 1e-5                 # kernel vs plain bag, both fp32 sums
+BAG_BULK_ROWS = 262_144        # the serve_bulk cell's batch
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
-            "fused_fm": "src/repro/kernels/fused_fm.py:31"}
+            "fused_fm": "src/repro/kernels/fused_fm.py:31",
+            "embedding_bag": "src/repro/kernels/embedding_bag.py:79"}
 LIBRARIES = {"probe": "src/repro_torch/csrc/probe.cu",
-             "fused_fm": "src/repro_torch/csrc/fused_fm.cu"}
+             "fused_fm": "src/repro_torch/csrc/fused_fm.cu",
+             "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu"}
 SOURCE = {"probe_lines": LIBRARIES["probe"],
           "probe_smem": LIBRARIES["probe"],
-          "fused_fm": LIBRARIES["fused_fm"]}
+          "fused_fm": LIBRARIES["fused_fm"],
+          "embedding_bag": LIBRARIES["embedding_bag"]}
 
 
 def fail(msg: str) -> None:
@@ -468,40 +486,71 @@ def saturation(engine, flush, n, seed=7):
 # ---------------------------------------------------------------------------
 # phase C: DeepFM CTR serving behind the FeatureClient
 # ---------------------------------------------------------------------------
-class FMLog:
-    """Wraps ``ops.fm_interaction`` while the main path runs and keeps each
-    call's input and output, checked after its request against the plain
-    FM on the same tensor."""
+class OpLog:
+    """Wraps the kernel dispatch ``ops.<op>`` while the main path runs and
+    keeps each call's inputs and output, checked after its request against
+    ``plain_op`` on the same inputs (within ``atol`` + ``rtol`` x |plain|).
+    """
 
-    def __init__(self):
-        self.orig = ops.fm_interaction
+    def __init__(self, op, plain_op, atol, rtol):
+        self.op, self.plain_op = op, plain_op
+        self.atol, self.rtol = atol, rtol
+        self.orig = getattr(ops, op)
         self.pending = []
-        self.last = None                # the last launch's input
+        self.last = None                # the last launch's inputs
         self.max_err = 0.0
 
     def __enter__(self):
-        ops.fm_interaction = self._record
+        setattr(ops, self.op, self._record)
         return self
 
     def __exit__(self, *exc):
-        ops.fm_interaction = self.orig
+        setattr(ops, self.op, self.orig)
 
-    def _record(self, emb):
-        out = self.orig(emb)
-        self.pending.append((emb, out))
+    @contextlib.contextmanager
+    def plain(self):
+        """``ops.<op>`` is the plain version inside the block."""
+        current = getattr(ops, self.op)
+        setattr(ops, self.op, self.plain_op)
+        try:
+            yield
+        finally:
+            setattr(ops, self.op, current)
+
+    def _record(self, *args, **kw):
+        out = self.orig(*args, **kw)
+        self.pending.append((args, kw, out))
         return out
 
     def check_pending(self) -> None:
         with torch.inference_mode():
-            for emb, out in self.pending:
-                want = ref.fused_fm(emb)
+            for args, kw, out in self.pending:
+                want = self.plain_op(*args, **kw)
                 err = float((out - want).abs().max()) if out.numel() else 0.
                 self.max_err = max(self.max_err, err)
-                if not torch.allclose(out, want, rtol=FM_TOL, atol=FM_TOL):
-                    fail(f"fused_fm differs from the plain FM on "
-                         f"{tuple(emb.shape)} (max abs err {err})")
-                self.last = emb
+                if not torch.allclose(out, want, rtol=self.rtol,
+                                      atol=self.atol):
+                    fail(f"{self.op} differs from its plain version on "
+                         f"{[tuple(a.shape) for a in args if a is not None]}"
+                         f" (max abs err "
+                         f"{err})")
+                self.last = args
         self.pending.clear()
+
+
+class FMLog(OpLog):
+    """Every ``fused_fm`` launch against the plain FM."""
+
+    def __init__(self):
+        super().__init__("fm_interaction", ref.fused_fm, FM_TOL, FM_TOL)
+
+
+class BagLog(OpLog):
+    """Every ``embedding_bag`` launch against the plain bag lookup, to
+    BAG_TOL absolute."""
+
+    def __init__(self):
+        super().__init__("embedding_bag", ref.embedding_bag, BAG_TOL, 0.0)
 
 
 class Uploads:
@@ -524,7 +573,8 @@ class Uploads:
         return self.last[1]
 
 
-def check_request(probs, batch, uploads, model, feats, pop, n_items, what):
+def check_request(probs, batch, uploads, model, fm_log, feats, pop, n_items,
+                  what):
     """The request's probabilities against the same model with the plain FM
     on the same device batch, and its spliced features against the rows as
     written, times found."""
@@ -532,11 +582,8 @@ def check_request(probs, batch, uploads, model, feats, pop, n_items, what):
     rows = len(batch["item_id"])
     if probs.shape != (rows,) or not bool(probs.isfinite().all()):
         fail(f"{what}: probabilities are not finite of shape ({rows},)")
-    kernel_fm, ops.fm_interaction = ops.fm_interaction, ref.fused_fm
-    try:
+    with fm_log.plain():
         want = rec.recsys_score(model, dev)
-    finally:
-        ops.fm_interaction = kernel_fm
     err = float((probs - want).abs().max())
     if not torch.allclose(probs, want, rtol=FM_TOL, atol=FM_TOL):
         fail(f"{what}: probabilities differ from the plain-FM model "
@@ -561,6 +608,15 @@ def c_request(rng, cfg, n_items):
     absent = rng.random(C_ROWS) < C_ABSENT
     batch["item_id"][absent] += n_items      # keys the tables do not hold
     return batch
+
+
+def request_profiler(device):
+    """A profiler of the host, and of the card where the request runs on
+    one."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 def device_busy_ms(prof) -> tuple[float, int]:
@@ -624,7 +680,8 @@ def run_phase_c(device, log, fm_log, cfg=deepfm.CONFIG, n_items=C_ITEMS):
         fm_log.check_pending()
         what = f"[C] request {scored}"
         max_err = max(max_err, check_request(probs, batch, uploads, model,
-                                             feats, pop, n_items, what))
+                                             fm_log, feats, pop, n_items,
+                                             what))
         return (t2 - t0) * 1e3
 
     first_ms = score(step, c_request(rng, cfg, n_items), timed=False)
@@ -648,10 +705,7 @@ def run_phase_c(device, log, fm_log, cfg=deepfm.CONFIG, n_items=C_ITEMS):
     # one more request of the timed kind, traced: the card's kernels and
     # copies over the request's host time (the profiler slows the host, so
     # the share is also given over the untraced p50)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
+    prof = request_profiler(device)
     traced_ms = score(step, c_request(rng, cfg, n_items), timed=False,
                       prof=prof)
     busy_ms, busy_events = device_busy_ms(prof)
@@ -691,7 +745,7 @@ def fm_bound_ms(shape):
 def measure_fm(fm_log, flush):
     """fused_fm at the main path's shape (the last launch's input) and at
     the serve_bulk batch, beside the plain FM."""
-    emb = fm_log.last
+    (emb,) = fm_log.last
     kernel = functools.partial(fm.fused_fm, emb)
     bound, by = fm_bound_ms(tuple(emb.shape))
     row = {"name": "fused_fm", "route": "cuda",
@@ -722,18 +776,188 @@ def measure_fm(fm_log, flush):
     return row
 
 
-def build_kernels() -> None:
-    """One nvcc per source, all started together."""
-    def timed(name):
-        t0 = time.perf_counter()
-        return build.build_library(name), time.perf_counter() - t0
+# ---------------------------------------------------------------------------
+# phase D: two-tower user-tower serving (serve_p99)
+# ---------------------------------------------------------------------------
+def check_user_vectors(vecs, batch, uploads, model, bag_log, what):
+    """The request's user vectors against the same model with the plain bag
+    lookup on the same device batch, and their norms against 1; returns
+    (max abs err, max norm err)."""
+    host, dev = uploads.last
+    rows = len(batch["user_id"])
+    if vecs.shape != (rows, model.cfg.tower_mlp[-1]) \
+            or not bool(vecs.isfinite().all()):
+        fail(f"{what}: user vectors are not finite of shape "
+             f"({rows}, {model.cfg.tower_mlp[-1]})")
+    for k in model.inputs:
+        if not np.array_equal(dev[k].cpu().numpy(), batch[k]):
+            fail(f"{what}: {k} on the card differs from the request's")
+    with bag_log.plain():
+        want = rec.recsys_score(model, dev)
+    err = float((vecs - want).abs().max())
+    if not err <= BAG_TOL:
+        fail(f"{what}: user vectors differ from the plain-bag model "
+             f"(max abs err {err})")
+    norm_err = float((torch.linalg.vector_norm(vecs, dim=-1) - 1).abs().max())
+    if not norm_err <= BAG_TOL:
+        fail(f"{what}: user vector norms are off 1 by {norm_err}")
+    return err, norm_err
 
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        futures = {name: pool.submit(timed, name) for name in LIBRARIES}
-    for name, fut in futures.items():
-        so, secs = fut.result()
-        print(f"built {os.path.relpath(so)} from {LIBRARIES[name]} in "
-              f"{secs:.1f} s", flush=True)
+
+def run_phase_d(device, bag_log, cfg=two_tower_retrieval.CONFIG,
+                requests=D_REQUESTS):
+    """Two-tower user-tower serving (by default at full published width)
+    through ``recsys_score_fn`` with no feature source, as the JAX
+    launcher's serve_p99 cell serves it; returns the phase's metrics."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = rec.recsys_init(cfg, seed=0, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[D] {cfg.name}: {model.param_bytes()} parameter bytes on the "
+          f"card (users {cfg.user_vocab}, items {cfg.item_vocab}, cats "
+          f"{cfg.cat_vocab} x {cfg.embed_dim}; towers {cfg.tower_mlp}), "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    step = serve_step.recsys_score_fn(cfg, model)
+    clock = LayerClock((
+        (serve_step, "_upload", "upload"),
+        (es, "embed_lookup", "gathers_bag"),
+        (es, "embed_bag", "gathers_bag"),
+        (rec, "_mlp_apply", "mlp_enqueue")))
+    rng = np.random.default_rng(4)
+    lat, wait, errs, scored = [], [], [0.0, 0.0], 0
+
+    def score(batch, timed, prof=contextlib.nullcontext()):
+        nonlocal scored
+        # the clock wraps _upload first, so Uploads sees the timed call
+        with clock if timed else contextlib.nullcontext(), \
+                Uploads() as uploads, prof:
+            t0 = time.perf_counter()
+            vecs = step(batch)
+            t1 = time.perf_counter()
+            vecs.cpu()                              # waits for the card
+            t2 = time.perf_counter()
+        if timed:
+            lat.append(t2 - t0)
+            wait.append(t2 - t1)
+        scored += 1
+        bag_log.check_pending()
+        e = check_user_vectors(vecs, batch, uploads, model, bag_log,
+                               f"[D] request {scored}")
+        errs[:] = [max(a, b) for a, b in zip(errs, e)]
+        return (t2 - t0) * 1e3
+
+    first_ms = score(synthetic.recsys_batch(rng, cfg, D_ROWS), timed=False)
+    for _ in range(requests):
+        score(synthetic.recsys_batch(rng, cfg, D_ROWS), timed=True)
+    # one more request of the timed kind, traced for the card's busy share
+    prof = request_profiler(device)
+    traced_ms = score(synthetic.recsys_batch(rng, cfg, D_ROWS), timed=False,
+                      prof=prof)
+    busy_ms, busy_events = device_busy_ms(prof)
+    lat_ms = np.array(lat) * 1e3
+    n = len(lat)
+    split = {k: v * 1e3 / n for k, v in clock.seconds.items()}
+    split["wait"] = float(np.sum(wait)) * 1e3 / n
+    return {
+        "phase": "D", "model": cfg.name, "rows": D_ROWS,
+        "requests_scored": scored, "requests_timed": n,
+        "first_request_ms": first_ms,
+        "request_p50_ms": float(np.percentile(lat_ms, 50)),
+        "request_p99_ms": float(np.percentile(lat_ms, 99)),
+        "rows_per_s": D_ROWS * n / float(np.sum(lat)),
+        "max_abs_err_user_vectors": errs[0], "max_norm_err": errs[1],
+        "max_abs_err_bag": bag_log.max_err,
+        "param_bytes": model.param_bytes(),
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+        "host_ms_per_request": split,
+        "traced_request": {
+            "ms": traced_ms, "device_busy_ms": busy_ms,
+            "device_events": busy_events,
+            "busy_share": busy_ms / traced_ms,
+            "busy_share_of_p50": busy_ms / float(np.percentile(lat_ms, 50))}}
+
+
+def bag_bound(ids, dim, elt_bytes):
+    """The least time of a bag lookup of ``ids`` over a [V, dim] table on
+    this card: each distinct row the batch touches read once (a row read
+    again hits in L2), the indices read and the fp32 output written once;
+    one fma per valid entry and element.  Also the bytes with every valid
+    entry's row counted."""
+    valid = ids[ids >= 0]
+    entries, rows = int(valid.numel()), int(torch.unique(valid).numel())
+    io = ids.numel() * 4 + ids.shape[0] * dim * 4
+    t_bytes = (rows * dim * elt_bytes + io) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * entries * dim / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "distinct_rows": rows, "valid_entries": entries,
+            "bytes": rows * dim * elt_bytes + io,
+            "bytes_per_entry": entries * dim * elt_bytes + io,
+            "bound_per_entry_ms": (entries * dim * elt_bytes + io)
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def bag_timing(table, ids, flush, iters, plain_iters):
+    """``embedding_bag`` (mean, as the user tower calls it) on ``ids`` by
+    events and by profiler, cold L2, beside the plain version and
+    ``F.embedding_bag`` on the same rows (the -1 entries compacted away
+    outside the timed window)."""
+    kernel = functools.partial(bagk.embedding_bag, table, ids, mode="mean")
+    plain = functools.partial(ref.embedding_bag, table, ids, None, "mean")
+    with torch.inference_mode():
+        got, want = kernel(), plain()
+        err = float((got - want).abs().max())
+        if not err <= BAG_TOL:
+            fail(f"embedding_bag differs from the plain bag on "
+                 f"{tuple(ids.shape)} (max abs err {err})")
+        del want
+        valid = ids >= 0
+        flat = ids[valid].long()
+        offsets = torch.zeros(ids.shape[0], dtype=torch.long,
+                              device=ids.device)
+        offsets[1:] = valid.sum(dim=1).cumsum(0)[:-1]
+        library = functools.partial(torch.nn.functional.embedding_bag, flat,
+                                    table, offsets, mode="mean")
+        library_diff = float((library() - got).abs().max())
+        row = {"shape": list(ids.shape), "max_abs_err": err,
+               "ms": time_ms(kernel, iters, flush),
+               "kernel_ms": kernel_ms(kernel, "embedding_bag_kernel", iters,
+                                      flush),
+               "host_ms": host_ms(kernel, iters),
+               "plain_ms": time_ms(plain, plain_iters, flush),
+               "library_ms": time_ms(library, iters, flush),
+               "library_max_abs_diff": library_diff}
+    row.update(bag_bound(ids, table.shape[1], table.element_size()))
+    return row
+
+
+def measure_bag(bag_log, flush):
+    """embedding_bag at the main path's shape (the last launch's input) and
+    at the serve_bulk batch of CONFIG's zipf histories over the same item
+    table."""
+    table, ids, *_ = bag_log.last
+    row = {"name": "embedding_bag", "route": "cuda",
+           "source": SOURCE["embedding_bag"],
+           "replaces": REPLACES["embedding_bag"], "launches": None,
+           **bag_timing(table, ids, flush, 50, 20),
+           "max_abs_err": bag_log.max_err}
+    batch = synthetic.recsys_batch(np.random.default_rng(12),
+                                   two_tower_retrieval.CONFIG, BAG_BULK_ROWS)
+    bulk = torch.from_numpy(batch["hist_items"]).to(table.device)
+    row["bulk"] = bag_timing(table, bulk, flush, 20, 3)
+    return row
+
+
+def build_kernels() -> None:
+    """One nvcc per source, one after the other."""
+    for name, src in LIBRARIES.items():
+        t0 = time.perf_counter()
+        so = build.build_library(name)
+        print(f"built {os.path.relpath(so)} from {src} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         with open(so + ".log") as f:
             for line in f:
                 if "registers" in line or "Compiling entry" in line:
@@ -821,6 +1045,27 @@ def main() -> int:
     for n in (1 << 16, 1 << 20):
         print("probe_saturation " + json.dumps(saturation(eng_a, flush, n)),
               flush=True)
+
+    # Phase C's model (1.72 GB) went with run_phase_c's frame; give its
+    # cached blocks back, so that the two-tower tables (30.8 GB) and the
+    # plain bag lookup's two [262144, 50, 256] fp32 intermediates at
+    # serve_bulk (13.4 GB each) fit the card's 80 GB together.
+    gc.collect()
+    torch.cuda.empty_cache()
+    for counts in (nl.launches, fm.launches, bagk.launches):
+        for k in counts:
+            counts[k] = 0
+    with BagLog() as bag_log:
+        m_d = run_phase_d(device, bag_log)
+    d_counts = {**nl.launches, **fm.launches, **bagk.launches}
+    m_d["launches"] = d_counts
+    print("[D] " + json.dumps(m_d), flush=True)
+    if d_counts["embedding_bag"] != m_d["requests_scored"]:
+        fail(f"embedding_bag launched {d_counts['embedding_bag']} times for "
+             f"{m_d['requests_scored']} requests")
+    row = measure_bag(bag_log, flush)
+    row["launches"] = d_counts["embedding_bag"]
+    kernels.append(row)
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -45,6 +45,41 @@ def table_from_reference(arrays: dict[str, np.ndarray], *, variant: str,
     return nh._Builder.wrap(table).finish()
 
 
+def _mlp_shapes(name: str, dims) -> dict:
+    """Shapes of a list of ``{"w", "b"}`` layers from ``dims[0]`` to
+    ``dims[-1]``, by flattened name (``mlp.0.w``)."""
+    out = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        out[f"{name}.{i}.w"], out[f"{name}.{i}.b"] = (a, b), (b,)
+    return out
+
+
+def _checked(params: dict, want: dict, cfg, device) -> dict:
+    """The reference's parameter tree (numpy leaves, MLPs as lists of
+    ``{"w", "b"}``) flattened by name and checked against ``want``'s
+    names and shapes -> tensors of ``cfg``'s dtype on ``device``."""
+    got = {}
+    for k, v in params.items():
+        if isinstance(v, (list, tuple)):
+            for i, layer in enumerate(v):
+                got[f"{k}.{i}.w"], got[f"{k}.{i}.b"] = layer["w"], layer["b"]
+        else:
+            got[k] = v
+    if set(got) != set(want):
+        raise ValueError(f"{cfg.name} needs parameters {sorted(want)}, got "
+                         f"{sorted(got)}")
+    for k, shape in want.items():
+        if tuple(np.shape(got[k])) != shape:
+            raise ValueError(f"{k} has shape {tuple(np.shape(got[k]))}, "
+                             f"{cfg.name} needs {shape}")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(
+        device=device, dtype=cfg.torch_dtype) for k, v in got.items()}
+
+
+def _layers(t: dict, name: str, n: int) -> list:
+    return [(t[f"{name}.{i}.w"], t[f"{name}.{i}.b"]) for i in range(n)]
+
+
 def deepfm_from_reference(params: dict, cfg, device):
     """The JAX package's unboxed DeepFM parameters (``field_table``,
     ``w1_table``, ``dense_w1``, ``mlp`` as a list of ``{"w", "b"}`` and
@@ -55,28 +90,34 @@ def deepfm_from_reference(params: dict, cfg, device):
     rows = cfg.field_vocab * cfg.n_sparse_fields
     dims = (cfg.n_sparse_fields * cfg.embed_dim + cfg.n_dense,) \
         + tuple(cfg.mlp) + (1,)
-    want = {"field_table": (rows, cfg.embed_dim), "w1_table": (rows, 1),
-            "dense_w1": (cfg.n_dense, 1), "bias": ()}
-    if len(params["mlp"]) != len(dims) - 1:
-        raise ValueError(f"mlp has {len(params['mlp'])} layers, "
-                         f"{cfg.name} has {len(dims) - 1}")
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        want[f"mlp.{i}.w"], want[f"mlp.{i}.b"] = (a, b), (b,)
-    got = {k: params[k] for k in ("field_table", "w1_table", "dense_w1",
-                                  "bias")}
-    for i, layer in enumerate(params["mlp"]):
-        got[f"mlp.{i}.w"], got[f"mlp.{i}.b"] = layer["w"], layer["b"]
-    for k, shape in want.items():
-        if tuple(np.shape(got[k])) != shape:
-            raise ValueError(f"{k} has shape {tuple(np.shape(got[k]))}, "
-                             f"{cfg.name} needs {shape}")
-
-    def tensor(k):
-        return torch.from_numpy(np.array(got[k], dtype=np.float32)).to(
-            device=device, dtype=cfg.torch_dtype)
-
+    t = _checked(params, {"field_table": (rows, cfg.embed_dim),
+                          "w1_table": (rows, 1),
+                          "dense_w1": (cfg.n_dense, 1), "bias": (),
+                          **_mlp_shapes("mlp", dims)}, cfg, device)
     return recsys.DeepFM(
-        cfg, field_table=tensor("field_table"), w1_table=tensor("w1_table"),
-        dense_w1=tensor("dense_w1"), bias=tensor("bias"),
-        mlp=[(tensor(f"mlp.{i}.w"), tensor(f"mlp.{i}.b"))
-             for i in range(len(dims) - 1)])
+        cfg, field_table=t["field_table"], w1_table=t["w1_table"],
+        dense_w1=t["dense_w1"], bias=t["bias"],
+        mlp=_layers(t, "mlp", len(dims) - 1))
+
+
+def two_tower_from_reference(params: dict, cfg, device):
+    """The JAX package's unboxed two-tower parameters (``user_table``,
+    ``item_table``, ``cat_table``, ``user_mlp`` and ``item_mlp`` as lists
+    of ``{"w", "b"}``, every leaf a numpy array) -> the port's ``TwoTower``
+    of ``cfg`` on ``device``.  Raises on any shape that ``cfg`` does not
+    give."""
+    if cfg.arch != "two_tower":
+        raise ValueError(f"{cfg.name} is a {cfg.arch} config, not two_tower")
+    d, tower = cfg.embed_dim, tuple(cfg.tower_mlp)
+    t = _checked(params, {"user_table": (cfg.user_vocab, d),
+                          "item_table": (cfg.item_vocab, d),
+                          "cat_table": (cfg.cat_vocab, d),
+                          **_mlp_shapes("user_mlp",
+                                        (2 * d + cfg.n_dense,) + tower),
+                          **_mlp_shapes("item_mlp", (2 * d,) + tower)},
+                 cfg, device)
+    return recsys.TwoTower(
+        cfg, user_table=t["user_table"], item_table=t["item_table"],
+        cat_table=t["cat_table"],
+        user_mlp=_layers(t, "user_mlp", len(tower)),
+        item_mlp=_layers(t, "item_mlp", len(tower)))

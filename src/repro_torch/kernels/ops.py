@@ -1,9 +1,11 @@
-"""Dispatch for the port's kernels: the probe and the FM term.
+"""Dispatch for the port's kernels: the probe, the FM term and the bag
+lookup.
 
 A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
-launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``)
-or raises — there is no fallback from one to the other.  On the card the
-probe's batch is padded to the block size and the outputs sliced back.
+launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``,
+``kernels/embedding_bag.py``) or raises — there is no fallback from one to
+the other.  On the card the probe's batch is padded to the block size and
+the outputs sliced back.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import fused_fm as _fm
 from repro_torch.kernels import neighbor_lookup as _nl
 from repro_torch.kernels import ref as _ref
@@ -110,3 +113,15 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     if emb.device.type == "cpu":
         return _ref.fused_fm(emb)
     return _fm.fused_fm(emb)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None, *,
+                  mode: str = "sum") -> torch.Tensor:
+    """Bag lookup of ``indices`` [B, L] (negative = padding) in ``table``
+    [V, D] -> fp32 [B, D] (``kernels/ref.embedding_bag`` says what it
+    computes): the plain version for a CPU table, the ``embedding_bag``
+    kernel for a CUDA one."""
+    if table.device.type == "cpu":
+        return _ref.embedding_bag(table, indices, weights, mode)
+    return _bag.embedding_bag(table, indices, weights, mode=mode)

@@ -8,6 +8,8 @@
   does.
 * ``fused_fm``, of the FM kernel in ``fused_fm.py``: the JAX package's
   ``kernels/ref.fused_fm``.
+* ``embedding_bag``, of the bag kernel in ``embedding_bag.py``: what the
+  JAX package's Pallas kernel computes (fp32 accumulation and output).
 
 ``kernels/ops.py`` runs them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
@@ -104,3 +106,29 @@ def fused_fm(emb: torch.Tensor) -> torch.Tensor:
     s = x.sum(dim=1)                                   # [B, D]
     ss = (x * x).sum(dim=1)                            # [B, D]
     return 0.5 * (s * s - ss).sum(dim=-1)              # [B]
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None,
+                  mode: str = "sum") -> torch.Tensor:
+    """Plain version of ``embedding_bag.embedding_bag``: table [V, D] (fp32
+    or bf16), int indices [B, L] (negative = padding), optional weights
+    [B, L] -> fp32 [B, D], accumulated in fp32.  ``sum`` is the weighted
+    sum of the valid rows; ``mean`` divides it by the count of valid
+    entries (at least 1), never by the sum of the weights.  A fully padded
+    bag (or L = 0) gives zeros; an id >= V makes its whole bag NaN, as
+    ``jnp.take``'s fill mode does in the JAX package's oracle.  The rows
+    are gathered into a [B, L, D] intermediate."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be sum|mean, got {mode!r}")
+    ids = indices.long()
+    valid = ids >= 0
+    rows = table[ids.clamp(0, table.shape[0] - 1)].to(torch.float32)
+    mask = valid.to(torch.float32)
+    if weights is not None:
+        mask = mask * weights.to(torch.float32)
+    out = (rows * mask[..., None]).sum(dim=1)                  # [B, D]
+    if mode == "mean":
+        out = out / valid.sum(dim=1).clamp(min=1)[:, None]
+    return out.masked_fill((ids >= table.shape[0]).any(dim=1)[:, None],
+                           float("nan"))

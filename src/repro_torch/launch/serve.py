@@ -1,19 +1,27 @@
-"""Serving launcher for the port: DeepFM CTR scoring behind the ported
-``FeatureClient``, on the card.
+"""Serving launcher for the port, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \
-        [--smoke] [--requests 20] [--batch 512] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepfm|two-tower-retrieval [--smoke] [--requests 20] \
+        [--batch 512] [--device cuda|cpu]
 
-Builds a feature engine as the JAX package's launcher does for its feature
-server (the ``bili-feature-store-smoke`` item count and shard size;
-``item_feats``: 8 float32 per item, ``item_pop``: a scalar per item, keyed
-by ``item_id = sparse_ids[:, 0] % n_items + 1``), the model at its
-published width (``configs/deepfm.CONFIG``; ``--smoke`` takes ``SMOKE``)
-with random weights from a seed, and scores ``--requests`` batches of
-``--batch`` rows through ``serve_step.recsys_score_fn``, one client in
-sequence, printing the request latency's p50 and p99.  The model and the
-probe run on ``--device`` (default ``cuda``; there is no fallback to the
-CPU).
+Builds the model at its published width (``configs/deepfm.CONFIG`` or
+``configs/two_tower_retrieval.CONFIG``; ``--smoke`` takes ``SMOKE``) with
+random weights from a seed and scores ``--requests`` synthetic batches of
+``--batch`` rows (512: the ``serve_p99`` cell) through
+``serve_step.recsys_score_fn``, one client in sequence, printing the
+request latency's p50 and p99.
+
+* ``deepfm`` scores CTR behind the ported ``FeatureClient``, over a
+  feature engine built as the JAX package's launcher builds it for its
+  feature server (the ``bili-feature-store-smoke`` item count and shard
+  size; ``item_feats``: 8 float32 per item, ``item_pop``: a scalar per
+  item, keyed by ``item_id = sparse_ids[:, 0] % n_items + 1``).
+* ``two-tower-retrieval`` serves the user tower with no feature source, as
+  the JAX launcher's ``serve_p99`` cell does for this arch: each request's
+  answer is its L2-normalised user vectors.
+
+The model (and the probe) run on ``--device`` (default ``cuda``; there is
+no fallback to the CPU).
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ import numpy as np
 
 from repro_torch.api.backends import EngineBackend
 from repro_torch.api.client import FeatureClient
-from repro_torch.configs import bili_feature_store, deepfm
+from repro_torch.configs import (bili_feature_store, deepfm,
+                                 two_tower_retrieval)
 from repro_torch.core import hashcore as hc
 from repro_torch.core.engine import (EmbeddingTable, MultiTableEngine,
                                      ScalarTable)
@@ -34,6 +43,7 @@ from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
 
 FEATURE_FIELDS = (("item_feats", "item_id"), ("item_pop", "item_id"))
+ARCHS = {"deepfm": deepfm, "two-tower-retrieval": two_tower_retrieval}
 
 
 def feature_engine(n_items: int, max_shard_bytes: int, *, device):
@@ -73,32 +83,42 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.requests < 1 or args.batch < 1:
         ap.error("--requests and --batch must be at least 1")
-    if args.arch != "deepfm":
+    if args.arch not in ARCHS:
         raise SystemExit(f"--arch {args.arch}: "
                          + rec.NOT_PORTED.format(arch=args.arch))
     device = ops.resolve_device(args.device)
-    cfg = deepfm.SMOKE if args.smoke else deepfm.CONFIG
-    fs = bili_feature_store.SMOKE
-    n_items = fs.n_items
-    engine, *_ = feature_engine(n_items, fs.max_shard_bytes, device=device)
+    configs = ARCHS[args.arch]
+    cfg = configs.SMOKE if args.smoke else configs.CONFIG
     model = rec.recsys_init(cfg, seed=0, device=device)
-    step = serve_step.recsys_score_fn(
-        cfg, model, feature_client=FeatureClient(EngineBackend(engine)),
-        feature_fields=FEATURE_FIELDS)
+    if cfg.arch == "deepfm":
+        fs = bili_feature_store.SMOKE
+        engine, *_ = feature_engine(fs.n_items, fs.max_shard_bytes,
+                                    device=device)
+        step = serve_step.recsys_score_fn(
+            cfg, model, feature_client=FeatureClient(EngineBackend(engine)),
+            feature_fields=FEATURE_FIELDS)
+
+        def request(rng):
+            return request_batch(rng, cfg, args.batch, fs.n_items)
+    else:
+        step = serve_step.recsys_score_fn(cfg, model)
+
+        def request(rng):
+            return synthetic.recsys_batch(rng, cfg, args.batch)
 
     rng = np.random.default_rng(100)
-    step(request_batch(rng, cfg, args.batch, n_items)).cpu()   # warm-up
+    step(request(rng)).cpu()                    # warm-up
     lat = []
     for _ in range(args.requests):
-        batch = request_batch(rng, cfg, args.batch, n_items)
+        batch = request(rng)
         t0 = time.perf_counter()
-        probs = step(batch).cpu()               # waits for the card
+        scores = step(batch).cpu()              # waits for the card
         lat.append((time.perf_counter() - t0) * 1e3)
     out = {"arch": cfg.name, "device": str(device), "rows": args.batch,
            "requests": args.requests,
            "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)),
-           "finite": bool(probs.isfinite().all())}
+           "finite": bool(scores.isfinite().all())}
     print(f"{cfg.name}/serve: {args.requests} requests of {args.batch} rows "
           f"on {device}, p50={out['p50_ms']:.2f}ms "
           f"p99={out['p99_ms']:.2f}ms")

@@ -2,18 +2,20 @@
 ``models/embedding_service.py``.
 
 The port holds a table whole on one card, so a lookup is a local gather
-(the JAX package's 'xla' path without the sharding constraint).
-``embed_bag``, ``embed_bag_psum`` and ``embed_lookup_a2a`` come with the
-``embedding_bag`` kernel and the port's sharding (ROADMAP queue 2, item c;
-queue 1, item 13).
+(the JAX package's 'xla' path without the sharding constraint), and a bag
+lookup runs on the ``embedding_bag`` CUDA kernel there.
+``embed_bag_psum`` and ``embed_lookup_a2a`` come with the port's sharding
+(ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch.core import hashcore as hc
+from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 
 
@@ -49,3 +51,10 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = table[ids.clamp(0, table.shape[0] - 1)]
     out = out.masked_fill((ids >= table.shape[0])[..., None], float("nan"))
     return out.masked_fill((ids < 0)[..., None], 0)
+
+
+def embed_bag(table: torch.Tensor, ids: torch.Tensor,
+              weights: Optional[torch.Tensor], mode: str) -> torch.Tensor:
+    """Multi-hot bag lookup: ids int32 [B, L] (-1 pad) -> fp32 [B, D]
+    (``ops.embedding_bag``: the kernel on the card)."""
+    return ops.embedding_bag(table, ids, weights, mode=mode)

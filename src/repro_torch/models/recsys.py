@@ -1,14 +1,22 @@
-"""Recsys models, from the JAX package's ``models/recsys.py``: DeepFM.
+"""Recsys models, from the JAX package's ``models/recsys.py``: DeepFM and
+the two-tower user tower.
 
 DeepFM scores a request of ``sparse_ids`` [B, F] (one id per field) and
 ``dense`` [B, n_dense] features: an FM branch over the fields' embeddings,
 whose second-order term runs on the ``fused_fm`` CUDA kernel on the card
 (``kernels/ops.fm_interaction``), beside a deep MLP over the same
-embeddings and the dense features.  The port runs one card: every table
-lives whole on it.
+embeddings and the dense features.
 
-DIN, BST and two-tower wait for the ``embedding_bag`` kernel (ROADMAP
-queue 1, items 10-11; queue 2, item c): their entry points here raise
+Two-tower serving scores a request of ``user_id`` [B], ``hist_items``
+[B, L] (-1 pad) and ``dense`` [B, n_dense] with the user tower: the user's
+row, the mean of the history's item rows (the ``embedding_bag`` CUDA kernel
+on the card, ``embedding_service.embed_bag``) and the dense features
+through an MLP, L2-normalised.  The item tower and retrieval wait (ROADMAP
+queue 1).
+
+The port runs one card: every table lives whole on it.  DIN and BST wait
+for their own layers (DIN's target-attention pooling, BST's transformer
+block), not for a kernel: their entry points here raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -23,8 +31,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import embedding_service as es
 
-NOT_PORTED = ("only deepfm is ported; {arch} waits for the embedding_bag "
-              "kernel (ROADMAP queue 1, items 10-11; queue 2, item c)")
+NOT_PORTED = ("{arch} is not ported: the port serves deepfm and two_tower; "
+              "DIN waits for its target-attention pooling and BST for its "
+              "transformer block (ROADMAP queue 1, item 11)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,12 +70,45 @@ def _mlp_apply(layers: Sequence[tuple[torch.Tensor, torch.Tensor]],
     return x
 
 
-class DeepFM(nn.Module):
+def _mlp_init(dims: Sequence[int], **kw) -> list:
+    """The JAX package's ``_mlp_init``: per layer a 1/sqrt(in)-scaled
+    weight and a zero bias."""
+    return [(cm.dense_param(i, o, **kw),
+             torch.zeros(o, dtype=kw["dtype"], device=kw["device"]))
+            for i, o in zip(dims[:-1], dims[1:])]
+
+
+class _Recsys(nn.Module):
+    """What the port's models share: frozen parameters on one device, and
+    ``inputs``, the batch columns ``forward`` takes, in order."""
+
+    inputs: tuple = ()
+
+    @staticmethod
+    def _param(t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t, requires_grad=False)
+
+    @classmethod
+    def _mlp(cls, layers) -> tuple[nn.ParameterList, nn.ParameterList]:
+        return (nn.ParameterList([cls._param(w) for w, _ in layers]),
+                nn.ParameterList([cls._param(b) for _, b in layers]))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def param_bytes(self) -> int:
+        return sum(p.numel() * p.element_size() for p in self.parameters())
+
+
+class DeepFM(_Recsys):
     """DeepFM's parameters on one device, as the JAX package's
     ``deepfm_init`` lays them out: ``field_table`` [V·F, D] and ``w1_table``
     [V·F, 1] (one table for all fields, field f's ids offset by f·V),
     ``dense_w1`` [n_dense, 1], the MLP's ``(w [in, out], b [out])`` layers
     from F·D + n_dense to 1, and the scalar ``bias``."""
+
+    inputs = ("sparse_ids", "dense")
 
     def __init__(self, cfg: RecsysConfig, *, field_table: torch.Tensor,
                  w1_table: torch.Tensor, dense_w1: torch.Tensor,
@@ -74,25 +116,13 @@ class DeepFM(nn.Module):
                  bias: torch.Tensor):
         super().__init__()
         self.cfg = cfg
-
-        def param(t):
-            return nn.Parameter(t, requires_grad=False)
-
-        self.field_table = param(field_table)
-        self.w1_table = param(w1_table)
-        self.dense_w1 = param(dense_w1)
-        self.mlp_w = nn.ParameterList([param(w) for w, _ in mlp])
-        self.mlp_b = nn.ParameterList([param(b) for _, b in mlp])
-        self.bias = param(bias)
+        self.field_table = self._param(field_table)
+        self.w1_table = self._param(w1_table)
+        self.dense_w1 = self._param(dense_w1)
+        self.mlp_w, self.mlp_b = self._mlp(mlp)
+        self.bias = self._param(bias)
         self.register_buffer("field_offset", torch.arange(
             cfg.n_sparse_fields, device=field_table.device) * cfg.field_vocab)
-
-    @property
-    def device(self) -> torch.device:
-        return self.bias.device
-
-    def param_bytes(self) -> int:
-        return sum(p.numel() * p.element_size() for p in self.parameters())
 
     def forward(self, sparse_ids: torch.Tensor,
                 dense: torch.Tensor) -> torch.Tensor:
@@ -120,35 +150,92 @@ def deepfm_init(cfg: RecsysConfig, *, generator: torch.Generator,
     w1_table = es.table_init(es.TableCfg(
         "fields_w1", cfg.field_vocab * f, 1), **kw)
     dense_w1 = cm.dense_param(cfg.n_dense, 1, **kw)
-    dims = (f * d + cfg.n_dense,) + tuple(cfg.mlp) + (1,)
-    mlp = [(cm.dense_param(i, o, **kw),
-            torch.zeros(o, dtype=dt, device=device))
-           for i, o in zip(dims[:-1], dims[1:])]
+    mlp = _mlp_init((f * d + cfg.n_dense,) + tuple(cfg.mlp) + (1,), **kw)
     return DeepFM(cfg, field_table=field_table, w1_table=w1_table,
                   dense_w1=dense_w1, mlp=mlp,
                   bias=torch.zeros((), dtype=dt, device=device))
 
 
+class TwoTower(_Recsys):
+    """Two-tower parameters on one device, as the JAX package's
+    ``two_tower_init`` lays them out: ``user_table`` [user_vocab, D],
+    ``item_table`` [item_vocab, D], ``cat_table`` [cat_vocab, D], and the
+    ``(w [in, out], b [out])`` layers of ``user_mlp`` (2·D + n_dense ->
+    tower_mlp) and ``item_mlp`` (2·D -> tower_mlp).  ``forward`` is the
+    user tower; ``cat_table`` and ``item_mlp`` serve the item tower, which
+    is not ported yet (ROADMAP queue 1)."""
+
+    inputs = ("user_id", "hist_items", "dense")
+
+    def __init__(self, cfg: RecsysConfig, *, user_table: torch.Tensor,
+                 item_table: torch.Tensor, cat_table: torch.Tensor,
+                 user_mlp: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 item_mlp: Sequence[tuple[torch.Tensor, torch.Tensor]]):
+        super().__init__()
+        self.cfg = cfg
+        self.user_table = self._param(user_table)
+        self.item_table = self._param(item_table)
+        self.cat_table = self._param(cat_table)
+        self.user_mlp_w, self.user_mlp_b = self._mlp(user_mlp)
+        self.item_mlp_w, self.item_mlp_b = self._mlp(item_mlp)
+
+    def forward(self, user_id: torch.Tensor, hist_items: torch.Tensor,
+                dense: torch.Tensor) -> torch.Tensor:
+        """user_id [B], hist_items [B, L] (-1 pad; int32 on the card),
+        dense [B, n_dense] -> the L2-normalised user vector
+        [B, tower_mlp[-1]]: the JAX package's ``user_tower`` ('xla'
+        lookups)."""
+        u = es.embed_lookup(self.user_table, user_id)               # [B, D]
+        hist = es.embed_bag(self.item_table, hist_items.to(torch.int32),
+                            None, "mean")                            # [B, D]
+        x = torch.cat([u, hist.to(u.dtype), dense], dim=-1)
+        v = _mlp_apply(list(zip(self.user_mlp_w, self.user_mlp_b)), x)
+        return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp(
+            min=1e-6)
+
+
+def two_tower_init(cfg: RecsysConfig, *, generator: torch.Generator,
+                   device) -> TwoTower:
+    """Random two-tower weights drawn on ``device`` (the JAX package's
+    ``two_tower_init``: tables at scale 0.05, dense weights at
+    1/sqrt(in), zero biases)."""
+    d = cfg.embed_dim
+    kw = dict(generator=generator, device=device, dtype=cfg.torch_dtype)
+    return TwoTower(
+        cfg,
+        user_table=es.table_init(es.TableCfg("user", cfg.user_vocab, d), **kw),
+        item_table=es.table_init(es.TableCfg("item", cfg.item_vocab, d), **kw),
+        cat_table=es.table_init(es.TableCfg("cat", cfg.cat_vocab, d), **kw),
+        user_mlp=_mlp_init((2 * d + cfg.n_dense,) + tuple(cfg.tower_mlp),
+                           **kw),
+        item_mlp=_mlp_init((2 * d,) + tuple(cfg.tower_mlp), **kw))
+
+
+INIT = {"deepfm": deepfm_init, "two_tower": two_tower_init}
+
+
 def recsys_init(cfg: RecsysConfig, *, seed: int = 0,
-                device=None) -> DeepFM:
+                device=None) -> _Recsys:
     """The model of ``cfg`` with random weights from ``seed``, on
     ``device`` (default ``"cuda"``; raises without a card)."""
-    if cfg.arch != "deepfm":
+    if cfg.arch not in INIT:
         raise NotImplementedError(NOT_PORTED.format(arch=cfg.arch))
     device = ops.resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    return deepfm_init(cfg, generator=generator, device=device)
+    return INIT[cfg.arch](cfg, generator=generator, device=device)
 
 
 def recsys_score(model: nn.Module, batch: dict) -> torch.Tensor:
-    """Serving: CTR probability [B] of a batch holding ``sparse_ids`` and
-    ``dense`` (tensors on the model's device, or arrays, which are moved
-    there)."""
-    if not isinstance(model, DeepFM):
+    """Serving, as the JAX package's ``recsys_score``: DeepFM's CTR
+    probability [B], or two-tower's L2-normalised user vector
+    [B, tower_mlp[-1]] (not a probability).  ``batch`` holds the model's
+    ``inputs`` as tensors on its device, or arrays, which are moved
+    there."""
+    if not isinstance(model, (DeepFM, TwoTower)):
         raise NotImplementedError(NOT_PORTED.format(
             arch=type(model).__name__))
-    dev = model.device
-    ids = torch.as_tensor(batch["sparse_ids"], device=dev)
-    dense = torch.as_tensor(batch["dense"], device=dev)
+    cols = [torch.as_tensor(batch[k], device=model.device)
+            for k in model.inputs]
     with torch.inference_mode():
-        return torch.sigmoid(model(ids, dense))
+        out = model(*cols)
+    return torch.sigmoid(out) if isinstance(model, DeepFM) else out

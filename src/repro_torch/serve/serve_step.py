@@ -1,10 +1,11 @@
 """The recsys scoring step, from the JAX package's ``serve/serve_step.py``.
 
-With a feature source, a request's feature columns are resolved in ONE
-fused, version-pinned ``FeatureClient`` query over the port's
-``MultiTableEngine`` (whose probe runs on the card), spliced into the
-batch's dense columns on the host, and the batch crosses to the card in one
-copy; the model then scores it there (paper Fig 2's query side in front of
+The step serves both ported archs (DeepFM, the two-tower user tower).  The
+columns the model reads cross to the card in one copy and the model scores
+them there.  With a feature source, a request's feature columns are first
+resolved in ONE fused, version-pinned ``FeatureClient`` query over the
+port's ``MultiTableEngine`` (whose probe runs on the card) and spliced into
+the batch's dense columns on the host (paper Fig 2's query side in front of
 the model).
 """
 from __future__ import annotations
@@ -20,21 +21,29 @@ from repro_torch.models import recsys as rec
 
 
 def _upload(batch: dict, device: torch.device) -> dict:
-    """The model's inputs (``sparse_ids``, ``dense``) on ``device`` in one
-    host-to-device copy: both are 4-byte columns, packed side by side as
-    int32 words and split again on the card."""
-    ids = np.asarray(batch["sparse_ids"])
-    dense = np.asarray(batch["dense"], dtype=np.float32)
-    if ids.dtype != np.int32:
-        if ids.size and (ids.min() < np.iinfo(np.int32).min
-                         or ids.max() > np.iinfo(np.int32).max):
-            raise ValueError("sparse_ids must fit in int32")
-        ids = ids.astype(np.int32)
-    n_ids = ids.shape[1]
+    """The batch's columns on ``device`` in one host-to-device copy: each is
+    a 4-byte column (integer ids, checked to fit int32, or float32), laid
+    end to end as int32 words and split again on the card, so every column
+    arrives contiguous."""
+    cols = {}
+    for name, a in batch.items():
+        a = np.asarray(a)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32, copy=False)
+        elif a.dtype != np.int32:
+            if a.size and (a.min() < np.iinfo(np.int32).min
+                           or a.max() > np.iinfo(np.int32).max):
+                raise ValueError(f"{name} must fit in int32")
+            a = a.astype(np.int32)
+        cols[name] = a
     words = torch.from_numpy(np.concatenate(
-        [ids, dense.view(np.int32)], axis=1)).to(device)
-    return {"sparse_ids": words[:, :n_ids],
-            "dense": words[:, n_ids:].view(torch.float32)}
+        [a.reshape(-1).view(np.int32) for a in cols.values()])).to(device)
+    out, at = {}, 0
+    for name, a in cols.items():
+        t = words[at:at + a.size].view(a.shape)
+        out[name] = t.view(torch.float32) if a.dtype == np.float32 else t
+        at += a.size
+    return out
 
 
 def _splice(fields: Sequence[tuple], res, dense) -> np.ndarray:
@@ -63,8 +72,9 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
                     feature_fields: Optional[Sequence[tuple]] = None,
                     feature_qos="RANKING",
                     feature_budget_s: Optional[float] = None):
-    """Scoring step ``step(batch) -> CTR probabilities [B]`` on the model's
-    device.  With a feature source the step first resolves
+    """Scoring step ``step(batch)`` on the model's device: ``recsys_score``
+    of the batch (DeepFM's CTR probabilities [B], two-tower's user vectors
+    [B, tower_mlp[-1]]).  With a feature source the step first resolves
     ``feature_fields`` — ``(table_name, batch_field)`` pairs — in one fused
     batch query and splices the returned float32 rows into the batch's
     dense columns before the model runs.
@@ -79,12 +89,13 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
             "feature_server needs the QueryServer, which is not ported yet "
             "(ROADMAP queue 1, item 9); pass feature_client or "
             "feature_engine")
-    if cfg.arch != "deepfm":
+    if cfg.arch not in rec.INIT:
         raise NotImplementedError(rec.NOT_PORTED.format(arch=cfg.arch))
     device = model.device
 
     def step(batch):
-        return rec.recsys_score(model, _upload(batch, device))
+        return rec.recsys_score(model, _upload(
+            {k: batch[k] for k in model.inputs}, device))
 
     sources = [s for s in (feature_engine, feature_client) if s is not None]
     if len(sources) > 1:

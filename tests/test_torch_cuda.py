@@ -1,10 +1,11 @@
 """The hand-written kernels on the card, each held against its plain PyTorch
 version (kernels/ref.py) on the same inputs: the probe kernels bitwise, the
-FM kernel at the JAX package's kernel-test tolerances; and DeepFM serving on
-the card against the same model on the CPU.  No JAX here: the parity with
-the JAX package is pinned on the CPU by test_torch_lookup.py,
-test_torch_engine.py, test_torch_fused_fm.py and test_torch_recsys.py.  Run
-on a CUDA machine with
+FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM
+and two-tower serving on the card against the same models on the CPU.  No
+JAX here: the parity with the JAX package is pinned on the CPU by
+test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
+test_torch_embedding_bag.py, test_torch_recsys.py and
+test_torch_two_tower.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -16,9 +17,10 @@ from repro_torch.core import engine as eng
 from repro_torch.core import hashcore as hc
 from repro_torch.core import lookup as lk
 from repro_torch.core import neighborhash as nh
-from repro_torch.configs import deepfm
+from repro_torch.configs import deepfm, two_tower_retrieval
 from repro_torch.data import synthetic
 from repro_torch.kernels import build
+from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import fused_fm as fm
 from repro_torch.kernels import neighbor_lookup as nl
 from repro_torch.kernels import ops, ref
@@ -291,3 +293,171 @@ def test_serve_launcher_on_card():
                              "3", "--batch", "256"])
     assert out["device"].startswith("cuda") and out["finite"]
     assert fm.launches["fused_fm"] == before + 4     # warm-up + 3
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag
+# ---------------------------------------------------------------------------
+BAG_TOL = 1e-5          # rtol, and atol for N(0,1) rows summed in two
+BAG_L = 50              # orders over up to seq_len's 50 entries a bag
+
+
+def _bag_atol(ids):
+    """Two fp32 sums of the same L rows in other orders drift apart about
+    linearly in L (each add rounds at the size of its partial sum), so past
+    the served length the absolute tolerance grows with L."""
+    return BAG_TOL * max(1.0, ids.shape[1] / BAG_L)
+
+
+def _bag_inputs(b, n, v, d, dtype, seed, weighted):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randn(v, d, generator=g, device="cuda").to(dtype)
+    ids = torch.randint(-1, v, (b, n), generator=g, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand(b, n, generator=g, device="cuda") if weighted else None
+    return table, ids, w
+
+
+def _bag_check(table, ids, w, mode):
+    before = bag.launches["embedding_bag"]
+    got = ops.embedding_bag(table, ids, w, mode=mode)
+    launched = int(ids.shape[0] > 0 and table.shape[1] > 0)
+    assert bag.launches["embedding_bag"] == before + launched
+    want = ref.embedding_bag(table, ids, w, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert got.shape == (ids.shape[0], table.shape[1])
+    torch.testing.assert_close(got, want, rtol=BAG_TOL, atol=_bag_atol(ids),
+                               equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [10, 18, 32, 256])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_kernel_matches_plain(dtype, d, mode, weighted):
+    """test_kernels.py's widths (10/18/32) and two-tower's 256, with vector
+    loads (D % 4 == 0) and without; B = 37 is a multiple of nothing."""
+    table, ids, w = _bag_inputs(37, 50, 5000, d, dtype, seed=d,
+                                weighted=weighted)
+    ids[0] = -1                                     # a fully padded bag
+    ids[1, :3] = torch.tensor([0, 4999, -1], dtype=torch.int32)
+    out = _bag_check(table, ids, w, mode)
+    assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("b,n", [(0, 50), (1, 1), (7, 5), (513, 50),
+                                 (5, 0), (3, 1000)])
+def test_embedding_bag_kernel_any_batch_and_length(b, n):
+    """No padding on the card: any B (0 launches nothing), any L (0 gives
+    zeros, 1000 runs past the unrolled loads many times)."""
+    table, ids, w = _bag_inputs(b, n, 3000, 256, torch.float32, seed=b,
+                                weighted=True)
+    for mode in ("sum", "mean"):
+        out = _bag_check(table, ids, w, mode)
+    if n == 0:
+        assert bool((out == 0).all())
+
+
+def test_embedding_bag_id_past_the_table_gives_nan():
+    table, ids, _ = _bag_inputs(6, 8, 100, 32, torch.float32, seed=1,
+                                weighted=False)
+    ids[2, 5] = 100
+    ids[4, 0] = 2**31 - 1
+    out = _bag_check(table, ids, None, "mean")
+    assert bool(out[[2, 4]].isnan().all())
+    assert not bool(out[[0, 1, 3, 5]].isnan().any())
+
+
+def test_embedding_bag_unaligned_table_takes_scalar_loads():
+    """A table view 4 bytes off a 16-byte boundary: D % 4 == 0, but the
+    kernel must not issue 16-byte loads on it."""
+    v, d = 500, 32
+    flat = torch.randn(v * d + 1, device="cuda")
+    table = flat[1:].view(v, d)
+    assert table.data_ptr() % 16 == 4 and table.is_contiguous()
+    _, ids, w = _bag_inputs(9, 20, v, d, torch.float32, seed=2,
+                            weighted=True)
+    _bag_check(table, ids, w, "sum")
+
+
+def test_embedding_bag_addresses_rows_past_2_pow_31_elements():
+    """8,400,000 x 256 fp32 (2.15e9 elements, 8.6 GB): every bag reads rows
+    whose element offset row * D passes 2^31 - 1, where a 32-bit index
+    reads the wrong place."""
+    v, d = 8_400_000, 256
+    assert v * d > 2**31 - 1
+    g = torch.Generator(device="cuda").manual_seed(5)
+    table = torch.rand(v, d, generator=g, device="cuda")
+    first_past = (2**31 - 1) // d + 1                     # 8,388,608
+    ids = torch.randint(first_past, v, (64, 50), generator=g, device="cuda",
+                        dtype=torch.int32)
+    ids[:, 0] = v - 1
+    ids[:, 1] = first_past
+    for mode in ("sum", "mean"):
+        _bag_check(table, ids, None, mode)
+    del table
+    torch.cuda.empty_cache()
+
+
+def test_embedding_bag_rejects_what_it_does_not_take():
+    table, ids, w = _bag_inputs(8, 6, 100, 16, torch.float32, seed=3,
+                                weighted=True)
+    before = bag.launches["embedding_bag"]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.embedding_bag(table, ids.t().contiguous().t(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.embedding_bag(table[:, :8], ids, w)
+    with pytest.raises(TypeError, match="int32 indices"):
+        ops.embedding_bag(table, ids.long(), w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.embedding_bag(table.half(), ids, w)
+    with pytest.raises(TypeError, match="float32 weights"):
+        ops.embedding_bag(table, ids, w.double())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bag.embedding_bag(table, ids.cpu(), w)
+    with pytest.raises(ValueError, match="mode"):
+        ops.embedding_bag(table, ids, w, mode="max")
+    assert bag.launches["embedding_bag"] == before
+
+
+def test_embedding_bag_raises_when_the_library_cannot_load(monkeypatch):
+    def no_library(name, bind):
+        raise OSError(f"cannot load lib{name}")
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    monkeypatch.setattr(build, "library", no_library)
+    monkeypatch.setattr(ref, "embedding_bag", boom)
+    table, ids, _ = _bag_inputs(8, 6, 100, 16, torch.float32, seed=4,
+                                weighted=False)
+    with pytest.raises(OSError, match="libembedding_bag"):
+        ops.embedding_bag(table, ids, mode="mean")
+
+
+# ---------------------------------------------------------------------------
+# two-tower serving on the card
+# ---------------------------------------------------------------------------
+def test_two_tower_on_card_matches_two_tower_on_cpu():
+    cfg = two_tower_retrieval.SMOKE
+    on_cpu = rec.recsys_init(cfg, seed=0, device="cpu")
+    on_card = rec.recsys_init(cfg, seed=0, device="cpu").to("cuda")
+    assert on_card.device.type == "cuda"
+    batch = synthetic.recsys_batch(np.random.default_rng(0), cfg, 512)
+    before = bag.launches["embedding_bag"]
+    got = rec.recsys_score(on_card, batch)
+    assert bag.launches["embedding_bag"] == before + 1
+    want = rec.recsys_score(on_cpu, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.norm(dim=-1).cpu(), torch.ones(512),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_two_tower_serve_launcher_on_card():
+    before = bag.launches["embedding_bag"]
+    out = launch_serve.main(["--arch", "two-tower-retrieval", "--smoke",
+                             "--requests", "3", "--batch", "300"])
+    assert out["device"].startswith("cuda") and out["finite"]
+    assert bag.launches["embedding_bag"] == before + 4     # warm-up + 3

@@ -85,7 +85,7 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     assert fm.launches["fused_fm"] == before
 
 
-@pytest.mark.parametrize("name", ["probe", "fused_fm"])
+@pytest.mark.parametrize("name", ["probe", "fused_fm", "embedding_bag"])
 def test_build_library_command_and_cache(name, tmp_path, monkeypatch):
     """One nvcc per source, for sm_90a, into a library named by the
     source's digest, with ptxas's report beside it; a second call reuses

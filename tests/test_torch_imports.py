@@ -1,8 +1,11 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, and the whole package
-imports in a process where ``jax`` cannot be imported."""
+imports in a process where ``jax`` cannot be imported.  And no module of
+the package hands a kernel's work to a library call or to ``torch.compile``
+(``chip_smoke.py`` may time such a call beside a kernel)."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -41,6 +44,20 @@ def test_no_jax_or_reference_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path)
            if mod in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# the library call a kernel of the port stands beside, and the compiler
+LIBRARY_CALLS = re.compile(r"\b(F|functional)\.embedding_bag\b|"
+                           r"\bnn\.EmbeddingBag\b|torch\.compile\b")
+
+
+@pytest.mark.parametrize("path", _port_files()[1:],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_library_stand_in_for_a_kernel(path):
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    bad = [m.group(0) for m in LIBRARY_CALLS.finditer(src)]
+    assert not bad, f"{os.path.relpath(path, REPO)} calls {bad}"
 
 
 def test_package_imports_without_jax():

@@ -190,7 +190,7 @@ def test_deepfm_from_reference_rejects_another_config(jparams):
             jparams, dataclasses.replace(deepfm.SMOKE, arch="din"), "cpu")
 
 
-@pytest.mark.parametrize("arch", ["din", "bst", "two_tower"])
+@pytest.mark.parametrize("arch", ["din", "bst"])
 def test_other_archs_name_the_roadmap_item(arch):
     cfg = dataclasses.replace(deepfm.SMOKE, arch=arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -385,7 +385,7 @@ def test_launcher_scores_on_the_cpu(capsys):
         capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["din", "two_tower", "qwen3_14b"])
+@pytest.mark.parametrize("arch", ["din", "qwen3_14b"])
 def test_launcher_refuses_unported_archs(arch):
     with pytest.raises(SystemExit, match="ROADMAP"):
         launch_serve.main(["--arch", arch, "--device", "cpu"])
