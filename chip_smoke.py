@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
-``embedding_bag.cu``) with nvcc, one library after the other, then runs four
-phases.  Two send batch queries through ``FeatureClient(EngineBackend(
-MultiTableEngine))``:
+``embedding_bag.cu``) with nvcc, one process per library, all started
+together, then runs four phases.  Two send batch queries through
+``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
   rows, hot fraction 0.1, LF 0.8, 4 GB shards), cut in item count only: a
@@ -44,6 +44,10 @@ kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (the RA
 gather, ``torch.take`` of the home value word, for the probe;
 ``F.embedding_bag`` for the bag; none for the FM term) and its bound.
+Phase B's last group also goes through ``probe_lines`` for contrast, with
+the ratio of the two kernels' times; the redesigned kernels' constants
+(``probe_smem``'s cluster and bytes a block, ``embedding_bag``'s stages and
+the share of its launches on the staged branch) get a line each.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 repository around it.  The last line of a passing run is
@@ -51,6 +55,7 @@ repository around it.  The last line of a passing run is
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import gc
@@ -908,7 +913,9 @@ def bag_timing(table, ids, flush, iters, plain_iters):
     kernel = functools.partial(bagk.embedding_bag, table, ids, mode="mean")
     plain = functools.partial(ref.embedding_bag, table, ids, None, "mean")
     with torch.inference_mode():
+        before = dict(bagk.paths)
         got, want = kernel(), plain()
+        branch = [k for k in bagk.paths if bagk.paths[k] != before[k]]
         err = float((got - want).abs().max())
         if not err <= BAG_TOL:
             fail(f"embedding_bag differs from the plain bag on "
@@ -922,9 +929,10 @@ def bag_timing(table, ids, flush, iters, plain_iters):
         library = functools.partial(torch.nn.functional.embedding_bag, flat,
                                     table, offsets, mode="mean")
         library_diff = float((library() - got).abs().max())
-        row = {"shape": list(ids.shape), "max_abs_err": err,
+        row = {"shape": list(ids.shape), "branch": branch[0],
+               "max_abs_err": err,
                "ms": time_ms(kernel, iters, flush),
-               "kernel_ms": kernel_ms(kernel, "embedding_bag_kernel", iters,
+               "kernel_ms": kernel_ms(kernel, "embedding_bag", iters,
                                       flush),
                "host_ms": host_ms(kernel, iters),
                "plain_ms": time_ms(plain, plain_iters, flush),
@@ -952,12 +960,15 @@ def measure_bag(bag_log, flush):
 
 
 def build_kernels() -> None:
-    """One nvcc per source, one after the other."""
-    for name, src in LIBRARIES.items():
-        t0 = time.perf_counter()
-        so = build.build_library(name)
-        print(f"built {os.path.relpath(so)} from {src} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    """One nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = {name: pool.submit(build.build_library, name)
+                 for name in LIBRARIES}
+    for name, future in built.items():
+        so = future.result()
+        print(f"built {os.path.relpath(so)} from {LIBRARIES[name]} "
+              f"({time.perf_counter() - t0:.1f} s for all)", flush=True)
         with open(so + ".log") as f:
             for line in f:
                 if "registers" in line or "Compiling entry" in line:
@@ -1041,7 +1052,24 @@ def main() -> int:
                     "probe_lines_kernel", 50, flush),
                 "host_ms": host_ms(lambda: nl.probe_lines(group, qh, ql, seg),
                                    50)}
+    smem_ms = kernels[1]["kernel_ms"]
+    contrast["smem_over_lines"] = (smem_ms / contrast["kernel_ms"]
+                                   if smem_ms and contrast["kernel_ms"]
+                                   else None)
+    # the same two launches with the group left in L2 (zeroing one byte
+    # flushes nothing), as when one shard is probed batch after batch
+    warm = torch.empty(1, dtype=torch.uint8, device=device)
+    contrast["warm"] = {
+        "probe_smem_kernel_ms": kernel_ms(
+            lambda: nl.probe_smem(group, qh, ql, seg), "probe_smem_kernel",
+            50, warm),
+        "probe_lines_kernel_ms": kernel_ms(
+            lambda: nl.probe_lines(group, qh, ql, seg), "probe_lines_kernel",
+            50, warm)}
     print("phase B group through probe_lines: " + json.dumps(contrast))
+    print("probe_smem design: " + json.dumps({
+        "cluster": nl.CLUSTER, "group_bytes": group.smem_bytes,
+        "bytes_per_block": 4 * group.slice_words}))
     for n in (1 << 16, 1 << 20):
         print("probe_saturation " + json.dumps(saturation(eng_a, flush, n)),
               flush=True)
@@ -1052,7 +1080,7 @@ def main() -> int:
     # serve_bulk (13.4 GB each) fit the card's 80 GB together.
     gc.collect()
     torch.cuda.empty_cache()
-    for counts in (nl.launches, fm.launches, bagk.launches):
+    for counts in (nl.launches, fm.launches, bagk.launches, bagk.paths):
         for k in counts:
             counts[k] = 0
     with BagLog() as bag_log:
@@ -1063,6 +1091,12 @@ def main() -> int:
     if d_counts["embedding_bag"] != m_d["requests_scored"]:
         fail(f"embedding_bag launched {d_counts['embedding_bag']} times for "
              f"{m_d['requests_scored']} requests")
+    print("embedding_bag design: " + json.dumps({
+        "stage_rows": bagk.STAGE_ROWS, "stages": bagk.STAGES,
+        **{f"{k}_launches": v for k, v in bagk.paths.items()},
+        "staged_share": bagk.paths["staged"]
+        / max(1, sum(bagk.paths.values()))}),
+        flush=True)
     row = measure_bag(bag_log, flush)
     row["launches"] = d_counts["embedding_bag"]
     kernels.append(row)

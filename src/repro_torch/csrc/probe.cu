@@ -5,7 +5,8 @@
 //        -Xcompiler -fPIC -o libprobe.so probe.cu
 //
 // and bound with ctypes: a plain C interface, pointers and the stream as
-// void*, no PyTorch headers.  Each entry point returns cudaGetLastError().
+// void*, no PyTorch headers (async_copy.cuh holds the PTX of the async
+// copies and barriers).  Each entry point returns cudaGetLastError().
 //
 // Both kernels compute exactly repro_torch.core.lookup.lookup (the masked
 // advance in kernels/ref.py): hash the key to its home bucket; hit if both
@@ -26,8 +27,13 @@
 // pointers and statics; the ends of the tables' query segments come by value
 // in the launch's parameters, so a launch copies nothing to the card.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -36,9 +42,11 @@ constexpr int kLineWords = 4 * kBpl;       // uint32 words per line
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;   // both halves of EMPTY_KEY
 constexpr uint32_t kPayloadHiMask = 0xFFFFFu;
 constexpr int kLinesThreads = 256;
-constexpr int kSmemThreads = 1024;
+constexpr int kSmemThreads = 256;
 constexpr int kMaxTables = 64;             // MAX_TABLES in neighbor_lookup.py
-constexpr int kSmemLimit = 232448;         // SMEM_LIMIT: 227 KB per block
+constexpr int kCluster = 8;                // CLUSTER: the portable maximum
+// a block's slice of a group of at most SMEM_LIMIT (227 KB) bytes
+constexpr int kSliceWordsMax = 232448 / 4 / kCluster;
 
 // One row of the descriptor array; the field order is DESC_FIELDS in
 // kernels/neighbor_lookup.py.
@@ -81,24 +89,64 @@ __device__ __forceinline__ int64_t clip(int64_t idx, int64_t capacity) {
   return idx < 0 ? 0 : (idx >= capacity ? capacity - 1 : idx);
 }
 
-// The four words of bucket `idx` (clamped) from a line-packed table, which
-// may lie in device memory or in shared memory (generic addressing).
-__device__ __forceinline__ Bucket read_bucket(const uint32_t* lines,
-                                              int64_t idx, int64_t capacity) {
-  const int64_t b = clip(idx, capacity);
-  const uint32_t* w = lines + (b / kBpl) * kLineWords + (b % kBpl);
-  return {w[0], w[kBpl], w[2 * kBpl], w[3 * kBpl]};
-}
+// A table as probe_lines reads it: line-packed in device memory.
+struct GlobalTable {
+  const uint32_t* lines;
+  const int32_t* next_idx;               // null: inline offsets
 
-// One query against one table: writes found / payload_hi (20 bits) /
-// payload_lo, all zero on a miss.
-__device__ __forceinline__ void probe_one(
-    const uint32_t* lines, const int32_t* next_idx, int64_t capacity,
+  __device__ __forceinline__ bool has_next() const {
+    return next_idx != nullptr;
+  }
+  // The four words of bucket b (in range): one line.
+  __device__ __forceinline__ Bucket bucket(int64_t b) const {
+    const uint32_t* w = lines + (b / kBpl) * kLineWords + (b % kBpl);
+    return {w[0], w[kBpl], w[2 * kBpl], w[3 * kBpl]};
+  }
+  __device__ __forceinline__ int64_t next(int64_t b) const {
+    return next_idx[b];
+  }
+};
+
+// A table as probe_smem reads it: in the group's staged image, whose word
+// w lies in the shared memory of cluster rank w / slice_words at offset
+// w % slice_words.  A slice boundary falls on a line boundary, so one
+// bucket's four words share a rank; map_shared_rank gives a generic
+// pointer into that block's shared memory (distributed shared memory).
+struct ClusterTable {
+  uint32_t* slice;                       // this block's slice
+  uint32_t slice_words;
+  uint32_t inverse;                      // ceil(2^32 / slice_words)
+  uint32_t lines_at;                     // image word offset of the lines
+  int64_t next_at;                       // of next_idx, or -1
+
+  // w / slice_words by a multiply: exact for w < 2^16 (an image holds at
+  // most 58,112 words) and slice_words < 2^13
+  __device__ __forceinline__ const uint32_t* word(uint32_t w) const {
+    const uint32_t rank = __umulhi(w, inverse);
+    return cg::this_cluster().map_shared_rank(
+        slice + (w - rank * slice_words), rank);
+  }
+  __device__ __forceinline__ bool has_next() const { return next_at >= 0; }
+  __device__ __forceinline__ Bucket bucket(int64_t b) const {
+    const uint32_t* w = word(lines_at + static_cast<uint32_t>(
+        (b / kBpl) * kLineWords + (b % kBpl)));
+    return {w[0], w[kBpl], w[2 * kBpl], w[3 * kBpl]};
+  }
+  __device__ __forceinline__ int64_t next(int64_t b) const {
+    return *reinterpret_cast<const int32_t*>(
+        word(static_cast<uint32_t>(next_at + b)));
+  }
+};
+
+// One query against one table, from its home bucket k (read wherever the
+// table lies): writes found / payload_hi (20 bits) / payload_lo, all zero
+// on a miss.
+template <typename Table>
+__device__ __forceinline__ void probe_from(
+    const Table& table, int64_t home, Bucket k, int64_t capacity,
     uint32_t home_capacity, int64_t max_probes, bool host_check,
     uint32_t qh, uint32_t ql, uint32_t* found, uint32_t* p_hi,
     uint32_t* p_lo) {
-  const int64_t home = hash64(qh, ql) % home_capacity;
-  Bucket k = read_bucket(lines, home, capacity);
   const bool empty = k.khi == kEmpty && k.klo == kEmpty;
   bool hit = !empty && k.khi == qh && k.klo == ql;
   bool active = !empty && !hit;
@@ -107,23 +155,40 @@ __device__ __forceinline__ void probe_one(
   int64_t idx = home;
   for (int64_t step = 0; active && step < max_probes; ++step) {
     int64_t nxt;
-    if (next_idx == nullptr) {
+    if (!table.has_next()) {
       const int32_t code = static_cast<int32_t>((k.vhi >> 20) & 0xFFFu);
       const int32_t off = (code ^ 0x800) - 0x800;   // sign-extend 12 bits
       if (off == 0) break;                          // end of chain
       nxt = idx + off;
     } else {
-      nxt = next_idx[clip(idx, capacity)];
+      nxt = table.next(clip(idx, capacity));
       if (nxt < 0) break;
     }
     idx = nxt;
-    k = read_bucket(lines, idx, capacity);
+    k = table.bucket(clip(idx, capacity));
     hit = k.khi == qh && k.klo == ql;
     active = !hit;
   }
   *found = hit ? 1u : 0u;
   *p_hi = hit ? (k.vhi & kPayloadHiMask) : 0u;
   *p_lo = hit ? k.vlo : 0u;
+}
+
+__device__ __forceinline__ int64_t home_of(uint32_t qh, uint32_t ql,
+                                           uint32_t home_capacity) {
+  return hash64(qh, ql) % home_capacity;
+}
+
+// One query against one table, from the start.
+template <typename Table>
+__device__ __forceinline__ void probe_one(
+    const Table& table, int64_t capacity, uint32_t home_capacity,
+    int64_t max_probes, bool host_check, uint32_t qh, uint32_t ql,
+    uint32_t* found, uint32_t* p_hi, uint32_t* p_lo) {
+  const int64_t home = home_of(qh, ql, home_capacity);
+  probe_from(table, home, table.bucket(clip(home, capacity)), capacity,
+             home_capacity, max_probes, host_check, qh, ql, found, p_hi,
+             p_lo);
 }
 
 // Which table owns query i: the segments are contiguous and ascending.
@@ -163,7 +228,7 @@ __global__ void __launch_bounds__(kLinesThreads) probe_lines_kernel(
     return;
   }
   const TableDesc& d = desc[t];
-  probe_one(d.lines, d.next_idx, d.capacity,
+  probe_one(GlobalTable{d.lines, d.next_idx}, d.capacity,
             static_cast<uint32_t>(d.home_capacity), d.max_probes,
             d.host_check != 0, q_hi[i], q_lo[i], found, p_hi, p_lo);
 }
@@ -172,53 +237,149 @@ __global__ void __launch_bounds__(kLinesThreads) probe_lines_kernel(
 // probe_smem — replaces the TPU kernel lookup_vec
 // (src/repro/kernels/neighbor_lookup.py:106, body _vec_kernel at :59).
 //
-// Bound: the same dependent bucket reads, but from shared memory once the
-// group's tables (at most 227 KB) are staged: each persistent block copies
-// every table of the group into dynamic shared memory once, with 16 B
-// vector loads, then strides over the batch.  Probe steps then cost
-// shared-memory latency instead of an L2/HBM round trip; the staging copy
-// (the group's bytes, once per block) is the price, so the grid stays at
-// most one block per SM.
+// The same dependent bucket reads, from shared memory once the group's
+// tables (at most 227 KB) are staged.  The probe is a few shared-memory
+// reads; staging is what bounds the kernel.  A design that stages the whole
+// group into each block through registers (every thread a dozen 16 B loads
+// in a row, each stored before the next issues) spends its time on that
+// copy and loses to probe_lines on the same group.
+//
+// So a thread-block cluster of kCluster blocks shares ONE staged copy of the
+// group: the image TableGroup lays out (every array 128 B aligned) is cut
+// into kCluster slices of slice_words words, a multiple of one line, and rank
+// r stages slice r only (at most 29 KB). One thread a block issues 1-D bulk
+// async copies (cp.async.bulk) for the pieces of the tables' line arrays and
+// next_idx arrays that fall in its slice, all at once, completing on one
+// mbarrier: one round of copies from HBM instead of a dozen. Where those
+// arrays lie comes by value in the launch's parameters (Image), so no block
+// reads a descriptor before it copies. A next_idx array's last < 16 B (its
+// length is any count of 4 B entries) is copied by that thread with plain
+// loads. After the barrier and a cluster barrier every slice is visible to
+// every block, and each chain step reads its line from the owning block's
+// shared memory through distributed shared memory (ClusterTable). Each thread
+// loads its first query, its table's descriptor and its home bucket (from
+// device memory, the same words) before it waits, so those reads overlap the
+// copies and a query that ends at home reads no peer's memory. The blocks of
+// a cluster split the queries; more clusters, each staging its own copy,
+// stride over larger batches, at most one block per SM. A second cluster
+// barrier keeps every block, and so its slice, alive until no peer reads it.
+// What is left is the round trip for the slices and the cluster barrier,
+// which the home reads only partly hide: for a batch of a thousand queries
+// that touches about half of a 200 KB group, probe_lines's reads of just
+// those lines are still a little faster from a cold L2, and more so from a
+// warm one. It should pay as a batch touches more of its group.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kSmemThreads) probe_smem_kernel(
-    const TableDesc* __restrict__ desc, int n_tables, const Segments seg,
-    const uint32_t* __restrict__ q_hi, const uint32_t* __restrict__ q_lo,
-    uint32_t* __restrict__ out, int64_t n) {
-  extern __shared__ uint4 smem4[];
-  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
-  for (int t = 0; t < n_tables; ++t) {
-    const TableDesc& d = desc[t];
-    const uint4* src = reinterpret_cast<const uint4*>(d.lines);
-    uint4* dst = reinterpret_cast<uint4*>(smem + d.smem_lines);
-    const int64_t n16 = d.n_lines * (kLineWords / 4);
-    for (int64_t w = threadIdx.x; w < n16; w += blockDim.x) dst[w] = src[w];
-    if (d.next_idx != nullptr) {
-      int32_t* nd = reinterpret_cast<int32_t*>(smem + d.smem_next);
-      for (int64_t w = threadIdx.x; w < d.capacity; w += blockDim.x)
-        nd[w] = d.next_idx[w];
-    }
+
+// The arrays of a group's staged image (each table's lines, then its
+// next_idx when it has one), passed by value so that a block issues its
+// copies without first reading the descriptors from device memory.
+struct ImageArray {
+  const uint32_t* src;
+  int32_t at;                        // image word offset, a multiple of 32
+  int32_t words;
+};
+struct Image {
+  ImageArray array[2 * kMaxTables];
+};
+
+// Calls fn(dst, src, words) for the piece of every image array that falls
+// in this block's slice [lo, lo + slice_words); dst is the piece's offset
+// there, src where it starts in the array.
+template <typename Fn>
+__device__ void for_each_piece(const Image& image, int n_arrays, int lo,
+                               int slice_words, Fn&& fn) {
+  for (int k = 0; k < n_arrays; ++k) {
+    const ImageArray& x = image.array[k];
+    const int a = x.at > lo ? x.at : lo;
+    const int b = x.at + x.words < lo + slice_words ? x.at + x.words
+                                                    : lo + slice_words;
+    if (a < b) fn(a - lo, x.src + (a - x.at), b - a);
   }
-  __syncthreads();
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kSmemThreads) probe_smem_kernel(
+        const TableDesc* __restrict__ desc, int n_tables, const Segments seg,
+        const Image image, int n_arrays, int slice_words,
+        const uint32_t* __restrict__ q_hi,
+        const uint32_t* __restrict__ q_lo, uint32_t* __restrict__ out,
+        int64_t n) {
+  extern __shared__ __align__(128) uint32_t slice[];
+  __shared__ __align__(8) uint64_t staged;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lo = static_cast<int>(cluster.block_rank()) * slice_words;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the first query and its table's row, loaded while the slices stage
+  uint32_t qh = 0, ql = 0;
+  int t = n_tables;
+  TableDesc d{};
+  if (i < n) {
+    qh = q_hi[i];
+    ql = q_lo[i];
+    t = table_of(seg, n_tables, i);
+    if (t < n_tables) d = desc[t];
+  }
+  if (threadIdx.x == 0) bulk::barrier_init(&staged, 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // whole 16 B of every piece by bulk copy, announced before issued
+    uint32_t bytes = 0;
+    for_each_piece(image, n_arrays, lo, slice_words,
+                   [&](int, const uint32_t*, int w) {
+                     bytes += static_cast<uint32_t>(w / 4 * 16);
+                   });
+    bulk::arrive_expect_tx(&staged, bytes);  // 0 bytes: an empty slice
+    for_each_piece(image, n_arrays, lo, slice_words,
+                   [&](int dst, const uint32_t* src, int w) {
+                     const int whole = w / 4 * 4;
+                     if (whole > 0)
+                       bulk::copy(slice + dst, src,
+                                  static_cast<uint32_t>(whole * 4), &staged);
+                     for (int k = whole; k < w; ++k)   // next_idx tail
+                       slice[dst + k] = src[k];
+                   });
+  }
+  // the first query's home bucket from device memory, read while the
+  // slices land: the chain goes on in shared memory
+  int64_t home = 0;
+  Bucket home_k{};
+  if (t < n_tables) {
+    home = home_of(qh, ql, static_cast<uint32_t>(d.home_capacity));
+    home_k = GlobalTable{d.lines, nullptr}.bucket(clip(home, d.capacity));
+  }
+  bulk::wait(&staged, 0);
+  cluster.sync();                    // every rank's slice has landed
+  const uint32_t inverse = 0xFFFFFFFFu / slice_words + 1;
+  for (bool first = true; i < n; i += stride, first = false) {
+    if (!first) {
+      qh = q_hi[i];
+      ql = q_lo[i];
+      t = table_of(seg, n_tables, i);
+      if (t < n_tables) d = desc[t];
+    }
     uint32_t* found = out + i;
     uint32_t* p_hi = out + n + i;
     uint32_t* p_lo = out + 2 * n + i;
-    const int t = table_of(seg, n_tables, i);
     if (t == n_tables) {
       *found = *p_hi = *p_lo = 0u;
       continue;
     }
-    const TableDesc& d = desc[t];
-    const int32_t* next = d.next_idx == nullptr
-        ? nullptr
-        : reinterpret_cast<const int32_t*>(smem + d.smem_next);
-    probe_one(smem + d.smem_lines, next, d.capacity,
-              static_cast<uint32_t>(d.home_capacity), d.max_probes,
-              d.host_check != 0, q_hi[i], q_lo[i], found, p_hi, p_lo);
+    const ClusterTable table{slice, static_cast<uint32_t>(slice_words),
+                             inverse, static_cast<uint32_t>(d.smem_lines),
+                             d.next_idx == nullptr ? -1 : d.smem_next};
+    if (first)
+      probe_from(table, home, home_k, d.capacity,
+                 static_cast<uint32_t>(d.home_capacity), d.max_probes,
+                 d.host_check != 0, qh, ql, found, p_hi, p_lo);
+    else
+      probe_one(table, d.capacity, static_cast<uint32_t>(d.home_capacity),
+                d.max_probes, d.host_check != 0, qh, ql, found, p_hi, p_lo);
   }
+  // No slice goes while a peer reads it.  The reads above have returned
+  // (their values are used), so the arrival needs no release.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 Segments segments(const long long* seg_end, int n_tables) {
@@ -245,35 +406,54 @@ extern "C" int repro_probe_lines(const void* desc, int n_tables,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Once per device, before probe_smem's first launch there: lets the kernel
-// take up to kSmemLimit bytes of dynamic shared memory and returns the
-// device's SM count (the grid bound) in *n_sm, so a launch queries nothing.
+// Once per device: the device's SM count (probe_smem's grid bound) in
+// *n_sm, so a launch queries nothing.
 extern "C" int repro_probe_init(int* n_sm) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(probe_smem_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemLimit);
   return static_cast<int>(err);
 }
 
-// smem_bytes <= kSmemLimit: the group's staged size; n_sm from
-// repro_probe_init on this device.
-extern "C" int repro_probe_smem(const void* desc, int n_tables,
-                                const long long* seg_end,
-                                long long smem_bytes, int n_sm,
-                                const void* q_hi, const void* q_lo, void* out,
-                                long long n, void* stream) {
-  long long blocks = (n + kSmemThreads - 1) / kSmemThreads;
-  if (blocks > n_sm) blocks = n_sm;
-  probe_smem_kernel<<<static_cast<unsigned>(blocks), kSmemThreads,
-                      static_cast<size_t>(smem_bytes),
+// desc_rows: the same TableDesc rows on the HOST (int64 [n_tables, 9]),
+// read here into the launch's parameters; slice_words: TableGroup.
+// slice_words, a multiple of 32 words (one line) and at most
+// kSliceWordsMax; n_sm from repro_probe_init on this device.
+extern "C" int repro_probe_smem(const void* desc, const long long* desc_rows,
+                                int n_tables, const long long* seg_end,
+                                int slice_words, int n_sm, const void* q_hi,
+                                const void* q_lo, void* out, long long n,
+                                void* stream) {
+  if (slice_words <= 0 || slice_words % kLineWords != 0 ||
+      slice_words > kSliceWordsMax || n_tables > kMaxTables)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Image image{};
+  int n_arrays = 0;
+  for (int t = 0; t < n_tables; ++t) {
+    const long long* row = desc_rows + 9 * t;   // DESC_FIELDS order
+    const TableDesc d{reinterpret_cast<const uint32_t*>(row[0]),
+                      reinterpret_cast<const int32_t*>(row[1]), row[2],
+                      row[3], row[4], row[5], row[6], row[7], row[8]};
+    image.array[n_arrays++] = {d.lines, static_cast<int32_t>(d.smem_lines),
+                               static_cast<int32_t>(d.n_lines * kLineWords)};
+    if (d.next_idx != nullptr)
+      image.array[n_arrays++] = {
+          reinterpret_cast<const uint32_t*>(d.next_idx),
+          static_cast<int32_t>(d.smem_next), static_cast<int32_t>(d.capacity)};
+  }
+  const long long per_cluster = static_cast<long long>(kCluster) *
+                                kSmemThreads;
+  long long clusters = (n + per_cluster - 1) / per_cluster;
+  const long long most = n_sm / kCluster > 0 ? n_sm / kCluster : 1;
+  if (clusters > most) clusters = most;
+  probe_smem_kernel<<<static_cast<unsigned>(clusters * kCluster),
+                      kSmemThreads,
+                      static_cast<size_t>(slice_words) * sizeof(uint32_t),
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TableDesc*>(desc), n_tables,
-      segments(seg_end, n_tables), static_cast<const uint32_t*>(q_hi),
-      static_cast<const uint32_t*>(q_lo), static_cast<uint32_t*>(out), n);
+      segments(seg_end, n_tables), image, n_arrays, slice_words,
+      static_cast<const uint32_t*>(q_hi), static_cast<const uint32_t*>(q_lo),
+      static_cast<uint32_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 Each kernel source ``csrc/<name>.cu`` has a plain C interface and becomes
 its own shared library, compiled by ``nvcc`` for sm_90a at first use into
 ``build/repro_torch/lib<name>-<digest>.so`` at the repository root (the
-digest is of the source, so an edited source builds anew) and loaded with
+digest is of the source and the headers beside it, ``csrc/*.cuh``, so an
+edited source or header builds anew) and loaded with
 ctypes.  ``ptxas -v``'s register and shared-memory report lands beside it
 as ``<library>.log``.  Nothing builds when a module is imported: the CPU
 tests import every module, and the CPU has no ``nvcc``.
@@ -41,11 +42,15 @@ def nvcc() -> str:
 
 def build_library(name: str) -> str:
     """Compile ``csrc/<name>.cu`` for sm_90a unless a library built from the
-    same source exists; returns the ``.so`` path.  Several sources may
-    build at once, each in its own thread."""
+    same source and headers exists; returns the ``.so`` path.  Several
+    sources may build at once, each in its own thread."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         return out

@@ -8,8 +8,10 @@ package's two Pallas kernels:
   query's chain; the many warps resident per SM keep many line reads in
   flight, as AMAC's ring of DMAs did on the TPU.
 * ``probe_smem`` — the counterpart of ``lookup_vec``: for a group of tables
-  that fits in one block's 227 KB of shared memory, persistent blocks stage
-  the tables once and then probe from shared memory.
+  that fits in one block's 227 KB of shared memory, a thread-block cluster
+  of ``CLUSTER`` blocks stages the group once, each block one slice of
+  ``TableGroup.slice_words`` words by bulk async copies, and probes it
+  through distributed shared memory.
 
 Both launch once per ``TableGroup`` (one engine shard): a device array of
 table descriptors, uploaded when the group is made, and the ends of the
@@ -37,8 +39,9 @@ from repro_torch.core import hashcore as hc
 from repro_torch.kernels import build as _build
 
 BUCKETS_PER_LINE = hc.GPU_BUCKETS_PER_LINE      # the kernels' line layout
-SMEM_LIMIT = 232_448          # shared memory of one block: kSmemLimit
+SMEM_LIMIT = 232_448          # shared memory of one block: 227 KB
 MAX_TABLES = 64               # tables per group: kMaxTables in probe.cu
+CLUSTER = 8                   # probe_smem's blocks per cluster: kCluster
 # one descriptor row per table; the field order of TableDesc in probe.cu
 DESC_FIELDS = ("lines", "next_idx", "capacity", "home_capacity",
                "max_probes", "host_check", "smem_lines", "smem_next",
@@ -117,8 +120,10 @@ def _check_table(t: DeviceTable, device: torch.device) -> None:
                          "buckets, capacity < 2^32")
     if t.next_idx is not None and (t.next_idx.dtype != torch.int32
                                    or not t.next_idx.is_contiguous()
+                                   or t.next_idx.data_ptr() % 16
                                    or t.next_idx.numel() < t.capacity):
-        raise ValueError("next_idx must be contiguous int32 [capacity]")
+        raise ValueError("next_idx must be contiguous, 16 B aligned int32 "
+                         "[capacity]")
 
 
 def _words_128b(n_words: int) -> int:
@@ -127,7 +132,13 @@ def _words_128b(n_words: int) -> int:
 
 class TableGroup:
     """The tables of one grouped launch (one engine shard) and their
-    descriptor rows (int64 [n_tables, len(DESC_FIELDS)]) on their device."""
+    descriptor rows (int64 [n_tables, len(DESC_FIELDS)]) on their device.
+
+    ``smem_bytes`` is the size of the group's staged image, every array
+    128 B aligned at its ``smem_lines`` / ``smem_next`` word offset;
+    ``probe_smem``'s cluster splits it into ``CLUSTER`` slices of
+    ``slice_words`` words (a multiple of one 128 B line, so no line
+    straddles two blocks), slice r in block r's shared memory."""
 
     def __init__(self, tables: Sequence[DeviceTable]):
         if not 1 <= len(tables) <= MAX_TABLES:
@@ -149,7 +160,11 @@ class TableGroup:
                 words += _words_128b(t.capacity)
             rows.append([row[f] for f in DESC_FIELDS])
         self.desc = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        # the same rows on the host: probe_smem passes them by value
+        self.desc_rows = (ctypes.c_longlong * (len(rows) * len(DESC_FIELDS)))(
+            *[x for row in rows for x in row])
         self.smem_bytes = 4 * words
+        self.slice_words = _words_128b(-(-words // CLUSTER))
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -170,11 +185,15 @@ def device_table(arrays: dict, *, capacity: int, home_capacity: int,
     fields = ("key_hi", "key_lo", "val_hi", "val_lo")
     lines = _pack([int32_words(arrays[k]) for k in fields], BUCKETS_PER_LINE)
     nxt = arrays.get("next_idx")
-    if nxt is not None and not isinstance(nxt, torch.Tensor):
-        nxt = np.asarray(nxt).astype(np.int32, copy=False)
+    if nxt is not None:
+        if not isinstance(nxt, torch.Tensor):
+            nxt = np.asarray(nxt).astype(np.int32, copy=False)
+        nxt = int32_words(nxt).to(device)
+        if nxt.data_ptr() % 16:           # bulk copies read it 16 B a time
+            nxt = nxt.clone()
     return DeviceTable(
         lines=lines.to(device).view(torch.uint32),
-        next_idx=None if nxt is None else int32_words(nxt).to(device),
+        next_idx=nxt,
         capacity=capacity, home_capacity=home_capacity,
         host_check=host_check, max_probes=max_probes)
 
@@ -187,8 +206,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     seg = ctypes.POINTER(ll)
     lib.repro_probe_lines.argtypes = [vp, ctypes.c_int, seg, vp, vp, vp, ll,
                                       vp]
-    lib.repro_probe_smem.argtypes = [vp, ctypes.c_int, seg, ll, ctypes.c_int,
-                                     vp, vp, vp, ll, vp]
+    lib.repro_probe_smem.argtypes = [vp, seg, ctypes.c_int, seg,
+                                     ctypes.c_int, ctypes.c_int, vp, vp, vp,
+                                     ll, vp]
     lib.repro_probe_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.repro_probe_init.restype = ctypes.c_int
     lib.repro_probe_lines.restype = ctypes.c_int
@@ -200,9 +220,8 @@ def _library() -> ctypes.CDLL:
 
 
 def _sm_count(lib: ctypes.CDLL, device: torch.device) -> int:
-    """The SM count of ``device`` (probe_smem's grid bound).  The first call
-    on a device also raises probe_smem's shared-memory limit there to
-    ``SMEM_LIMIT``, so a launch sets no attribute."""
+    """The SM count of ``device`` (probe_smem's grid bound), queried once
+    per device."""
     index = device.index              # a CUDA tensor's device has one
     with _lock:
         if index not in _n_sm:
@@ -257,7 +276,8 @@ def _launch(name: str, group: TableGroup, q_hi: torch.Tensor,
         if group.smem_bytes > SMEM_LIMIT:
             raise ValueError(f"group needs {group.smem_bytes} B of shared "
                              f"memory; a block has {SMEM_LIMIT}")
-        err = lib.repro_probe_smem(desc, n_tables, ends, group.smem_bytes,
+        err = lib.repro_probe_smem(desc, group.desc_rows, n_tables, ends,
+                                   group.slice_words,
                                    _sm_count(lib, group.device), *ptrs, n,
                                    stream)
     if err != 0:
@@ -276,6 +296,7 @@ def probe_lines(group: TableGroup, q_hi: torch.Tensor, q_lo: torch.Tensor,
 
 def probe_smem(group: TableGroup, q_hi: torch.Tensor, q_lo: torch.Tensor,
                seg: Sequence[int]) -> torch.Tensor:
-    """``probe_lines`` with the group's tables staged in shared memory; the
-    group must fit in ``SMEM_LIMIT`` bytes."""
+    """``probe_lines`` with the group's tables staged in the shared memory
+    of a cluster of ``CLUSTER`` blocks; the group must fit in
+    ``SMEM_LIMIT`` bytes."""
     return _launch("probe_smem", group, q_hi, q_lo, seg)

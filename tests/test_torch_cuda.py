@@ -106,6 +106,64 @@ def test_sparse_and_lodger_edges(impl):
            _queries(keys, 1024, 0.5, seed=6), impl)
 
 
+def _side_array_group():
+    """Five side-array tables whose lines and next_idx arrays straddle the
+    cluster's slices (tests/test_torch_probe_smem.py checks the split)."""
+    built = [_table(v, 700 + 300 * i, seed=5 + i)
+             for i, v in enumerate(("coalesced", "linear", "linear_lodger",
+                                    "perfect_cellar", "neighbor_probing"))]
+    group = nl.TableGroup([_device_table(t, "cuda") for _, t in built])
+    return group, np.concatenate([k for k, _ in built])
+
+
+@pytest.mark.parametrize("impl", ["lines", "smem"])
+def test_tables_straddling_cluster_slices(impl):
+    group, keys = _side_array_group()
+    assert group.smem_bytes > nl.CLUSTER * 32 * 4
+    _check(group, _queries(keys, 3000, 0.8, seed=7), impl)
+
+
+def test_probe_smem_one_line_table_leaves_ranks_empty():
+    keys, t = _table("coalesced", 4, seed=1)
+    group = nl.TableGroup([_device_table(t, "cuda")])
+    assert group.tables[0].lines.shape[0] == 1
+    assert group.slice_words * 2 >= group.smem_bytes // 4   # ranks 2-7 idle
+    _check(group, _queries(keys, 300, 0.5, seed=2), "smem")
+
+
+@pytest.mark.parametrize("padded", [True, False])
+@pytest.mark.parametrize("n_q", [1, 2047, 2048, 2049, 4096])
+def test_probe_smem_one_and_two_clusters(n_q, padded):
+    """A cluster of 8 x 256 threads takes 2048 queries: around that, and
+    unpadded lengths straight into the kernel."""
+    group, keys = _side_array_group()
+    q = _queries(keys, n_q, 0.8, seed=n_q)
+    if padded:
+        _check(group, q, "smem")
+        return
+    qh, ql = (nl.to_device(x, "cuda") for x in hc.key_split_np(q))
+    seg = sorted([0, 0, 1, n_q // 2, n_q - 1, n_q])
+    got = nl.probe_smem(group, qh, ql, seg)
+    want = ref.probe_group(group, qh, ql, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_probe_smem_200_launches_in_a_row():
+    """Every block must outlive its peers' reads of its slice; a block that
+    left early shows as a rare wrong answer, so every launch is checked."""
+    group, keys = _side_array_group()
+    q = _queries(keys, 16384, 0.8, seed=11)           # 8 clusters
+    qh, ql = (nl.to_device(x, "cuda") for x in hc.key_split_np(q))
+    seg = [0, 3000, 6000, 9000, 12000, 16384]
+    want = ref.probe_group(group, qh, ql, seg).view(torch.int32)
+    outs = [nl.probe_smem(group, qh, ql, seg) for _ in range(200)]
+    torch.cuda.synchronize()
+    bad = [i for i, o in enumerate(outs)
+           if not torch.equal(o.view(torch.int32), want)]
+    assert not bad, f"launches {bad[:10]} differ from the plain probe"
+
+
 def test_hbm_resident_table_through_probe_lines():
     """A table above the shared-memory limit goes to probe_lines."""
     keys, t = _table("neighborhash", 200_000, seed=41)
@@ -358,6 +416,80 @@ def test_embedding_bag_kernel_any_batch_and_length(b, n):
         out = _bag_check(table, ids, w, mode)
     if n == 0:
         assert bool((out == 0).all())
+
+
+def _paths_of(fn):
+    before = dict(bag.paths)
+    fn()
+    return {k: v - before[k] for k, v in bag.paths.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [31, 32, 33, 64, 65, 1000])
+def test_embedding_bag_staged_stage_edges_and_ring(dtype, n):
+    """Bags around a stage of 32 entries and across the ring of 2 stages
+    (1000 entries reuse each stage 16 times), on the staged branch."""
+    table, ids, w = _bag_inputs(19, n, 4000, 256, dtype, seed=n,
+                                weighted=True)
+    ids[2, ::3] = -1
+    for mode in ("sum", "mean"):
+        paths = _paths_of(lambda: _bag_check(table, ids, w, mode))
+        assert paths == {"staged": 1, "registers": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_bag_with_no_valid_row(dtype):
+    """A bag of only -1 and one of only -1 and ids >= V, inside a batch of
+    valid bags: no row is copied for them."""
+    table, ids, w = _bag_inputs(8, 50, 1000, 256, dtype, seed=9,
+                                weighted=True)
+    ids[3] = -1
+    ids[5] = -1
+    ids[5, ::2] = 1000
+    ids[5, 7] = 2**31 - 1
+    for mode in ("sum", "mean"):
+        out = _bag_check(table, ids, w, mode)
+        assert bool((out[3] == 0).all()) and bool(out[5].isnan().all())
+        rest = out[[0, 1, 2, 4, 6, 7]]
+        assert not bool(rest.isnan().any())
+
+
+def test_embedding_bag_batch_past_one_wave_takes_registers():
+    """The staged branch runs when every bag of the batch is resident at
+    once; a batch past that (132 SMs x 4 blocks at L = 50, D = 256 fp32)
+    keeps more bytes in flight on the register branch."""
+    table, ids, w = _bag_inputs(4000, 50, 5000, 256, torch.float32, seed=8,
+                                weighted=True)
+    small = ids[:512].contiguous()
+    assert _paths_of(lambda: _bag_check(table, small, w[:512].contiguous(),
+                                        "sum")) == {"staged": 1,
+                                                    "registers": 0}
+    assert _paths_of(lambda: _bag_check(table, ids, w, "sum")) == {
+        "staged": 0, "registers": 1}
+
+
+def _unaligned(v, d, dtype):
+    flat = torch.randn(v * d + 1, device="cuda").to(dtype)
+    return flat[1:].view(v, d)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,branch", [(256, "staged"), (10, "registers"),
+                                      (18, "registers"),
+                                      ("unaligned", "registers")])
+def test_embedding_bag_branch_by_shape_and_alignment(d, branch, dtype,
+                                                     weighted):
+    """Rows of a multiple of 16 B in an aligned table are staged by
+    async copies; D = 10, 18 and a table view off a 16 B boundary take the
+    register loads.  Both agree with the plain bag."""
+    table, ids, w = _bag_inputs(37, 50, 3000, 256 if d == "unaligned" else d,
+                                dtype, seed=3, weighted=weighted)
+    if d == "unaligned":
+        table = _unaligned(3000, 256, dtype)
+        assert table.data_ptr() % 16 != 0
+    paths = _paths_of(lambda: _bag_check(table, ids, w, "mean"))
+    assert paths == {k: int(k == branch) for k in paths}
 
 
 def test_embedding_bag_id_past_the_table_gives_nan():
