@@ -45,9 +45,16 @@ version, a library call where one computes the same function (the RA
 gather, ``torch.take`` of the home value word, for the probe;
 ``F.embedding_bag`` for the bag; none for the FM term) and its bound.
 Phase B's last group also goes through ``probe_lines`` for contrast, with
-the ratio of the two kernels' times; the redesigned kernels' constants
-(``probe_smem``'s cluster and bytes a block, ``embedding_bag``'s stages and
-the share of its launches on the staged branch) get a line each.
+the ratio of the two kernels' times; the redesigned kernels' constants get a
+line each: ``probe_smem``'s cluster and bytes a block; ``fused_fm``'s tile,
+stages and share of main-path launches on the bulk-copy branch;
+``probe_lines``'s main-path launches by lanes a query, its kernel time with
+1 and 8 lanes a query (each form held against the plain probe), and the
+share of phase A's chain steps that stay in the line they left (from the
+host trace); ``embedding_bag``'s stages and share of launches on the staged
+branch.  ``probe_saturation`` lines time ``probe_lines`` (the wrapper's pick
+and each form) against the RA gather at ``SATURATION_BATCHES`` present keys,
+every form's answers held against the host table's items.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 repository around it.  The last line of a passing run is
@@ -98,6 +105,11 @@ ZIPF_A = 1.1
 C_ITEMS, C_REQUESTS, C_ROWS, C_ABSENT = 200_000, 64, 512, 0.10
 FM_TOL = 1e-5                  # kernel vs plain FM, both fp32 sums
 FM_BULK = (262_144, 39, 10)    # the serve_bulk cell's batch, DeepFM widths
+# probe_saturation's batches: the paper's yardstick at 2^16 and 2^20 keys,
+# and batches on both sides of where lines_lanes leaves 8 lanes a query
+# (21,120 on an H100), where its two forms were measured to cross
+SATURATION_BATCHES = (1 << 14, 20_480, 21_120, 21_121, 24_576, 1 << 15,
+                      1 << 16, 1 << 20)
 # phase D: two-tower user-tower serving
 D_REQUESTS, D_ROWS = 64, 512   # the serve_p99 cell's batch
 BAG_TOL = 1e-5                 # kernel vs plain bag, both fp32 sums
@@ -373,42 +385,49 @@ def kernel_ms(fn, kernel, iters, flush):
     """Mean device time of the CUDA kernel whose name holds ``kernel``, from
     torch.profiler: the kernel alone, without the wrapper's host path that
     ``time_ms`` also sees while the card idles.  None (not measured) when
-    the profiler cannot trace the card or records no device time for it."""
+    the profiler cannot trace the card or records no device time for it in
+    two traces (a trace now and then comes back without device times)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:                 # CUPTI unavailable
-        print(f"kernel_ms for {kernel}: not measured ({e})", file=sys.stderr)
-        return None
-    hits = [e for e in prof.key_averages()
-            if kernel in e.key and e.self_device_time_total > 0]
-    if not hits:
-        return None
-    return sum(e.self_device_time_total for e in hits) / \
-        sum(e.count for e in hits) / 1e3
+    for _ in range(2):
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(iters):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:             # CUPTI unavailable
+            print(f"kernel_ms for {kernel}: not measured ({e})",
+                  file=sys.stderr)
+            return None
+        hits = [e for e in prof.key_averages()
+                if kernel in e.key and e.self_device_time_total > 0]
+        if hits:
+            return sum(e.self_device_time_total for e in hits) / \
+                sum(e.count for e in hits) / 1e3
+    return None
 
 
 def touched(host_tables, q_hi, q_lo, seg):
-    """(distinct 128 B lines, bucket reads) of this launch's probes, from
-    the host trace of the same tables."""
+    """(distinct 128 B lines, bucket reads, chain steps, chain steps to a
+    bucket of the line the step left) of this launch's probes, from the
+    host trace of the same tables."""
     keys = (ref.u32(q_hi).cpu().numpy().astype(np.uint64) << np.uint64(32)) \
         | ref.u32(q_lo).cpu().numpy().astype(np.uint64)
-    n_lines = n_reads = 0
+    n_lines = n_reads = steps = in_line = 0
     for t, a, b in zip(host_tables, seg[:-1], seg[1:]):
         lines = set()
         for k in keys[a:b].tolist():
             visited = t.probe_trace(k)[2]
             n_reads += len(visited)
-            lines.update(v // nl.BUCKETS_PER_LINE for v in visited)
+            line = [v // nl.BUCKETS_PER_LINE for v in visited]
+            lines.update(line)
+            steps += len(line) - 1
+            in_line += sum(x == y for x, y in zip(line, line[1:]))
         n_lines += len(lines)
-    return n_lines, n_reads
+    return n_lines, n_reads, steps, in_line
 
 
 def host_tables_of(group, engines):
@@ -450,7 +469,7 @@ def measure(name, launch, engines, log, flush):
                        flush)
     flat, word, _ = ra_operands(group, q_hi, q_lo)
     library_ms = time_ms(lambda: torch.take(flat, word), 50, flush)
-    lines, reads = touched(host_tables, q_hi, q_lo, seg)
+    lines, reads, steps, in_line = touched(host_tables, q_hi, q_lo, seg)
     # each query read once, each output written once, each line touched
     # read once; hash + compares per bucket read on the integer units
     t_bytes = (n * (8 + 12) + lines * 128) / HBM_BYTES_PER_S * 1e3
@@ -463,26 +482,71 @@ def measure(name, launch, engines, log, flush):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
             "queries": n, "lines_touched": lines, "bucket_reads": reads,
+            "chain_steps": steps, "in_line_steps": in_line,
             "probe_over_ra": library_ms / ms}
+
+
+def lanes_ms(group, q_hi, q_lo, seg, want, flush, iters):
+    """probe_lines's kernel time with each count of lanes a query the
+    kernel has (1 and 8), the wrapper's pick (``nl.lines_lanes``) forced to
+    each in turn; each form's answer first held bitwise against ``want``."""
+    row, pick = {}, nl.lines_lanes
+    try:
+        for lanes in nl.lanes_launches:
+            nl.lines_lanes = lambda n, n_sm, threads, lanes=lanes: lanes
+
+            def probe():
+                return nl.probe_lines(group, q_hi, q_lo, seg)
+            if not torch.equal(probe().view(torch.int32),
+                               want.view(torch.int32)):
+                fail(f"probe_lines with {lanes} lanes a query differs")
+            row[lanes] = kernel_ms(probe, "probe_lines_kernel", iters, flush)
+    finally:
+        nl.lines_lanes = pick
+    return row
 
 
 def saturation(engine, flush, n, seed=7):
     """Probe vs RA throughput on phase A's table at a batch of ``n`` present
     keys, drawn uniformly (the paper's yardstick, at batches larger than the
-    main path's)."""
+    main path's); every answer, of the wrapper's pick and of each count of
+    lanes, is held against the host table's items."""
     rng = np.random.default_rng(seed)
     build = engine.window.get(None)[2]
     group, host = build.groups[0], build.shard_tables[0][0]
-    keys, _ = host.items_arrays()
-    qh, ql = hc.key_split_np(keys[rng.integers(0, len(keys), n)])
+    keys, payloads = host.items_arrays()
+    pick = rng.integers(0, len(keys), n)
+    qh, ql = hc.key_split_np(keys[pick])
     q_hi, q_lo = nl.to_device(qh, "cuda"), nl.to_device(ql, "cuda")
-    ms = time_ms(lambda: nl.probe_lines(group, q_hi, q_lo, [0, n]), 20,
-                 flush)
+    items = payloads[pick]
+    want = torch.from_numpy(np.stack([
+        np.ones(n, np.uint32), (items >> np.uint64(32)).astype(np.uint32),
+        (items & np.uint64(0xFFFFFFFF)).astype(np.uint32)]).view(
+            np.int32)).cuda()
+
+    def probe():
+        return nl.probe_lines(group, q_hi, q_lo, [0, n])
+
+    before = dict(nl.lanes_launches)
+    answer = probe().view(torch.int32)
+    lanes = [k for k in nl.lanes_launches if nl.lanes_launches[k] != before[k]]
+    if not bool((answer[0] == 1).all()):
+        fail(f"probe_saturation at {n} keys: {int((answer[0] != 1).sum())} "
+             "present keys not found")
+    if not torch.equal(answer, want):
+        fail(f"probe_saturation at {n} keys: payloads differ from the host "
+             "table's")
+    ms = time_ms(probe, 20, flush)
+    k_ms = kernel_ms(probe, "probe_lines_kernel", 20, flush)
     flat, word, lines = ra_operands(group, q_hi, q_lo)
     ra_ms = time_ms(lambda: torch.take(flat, word), 20, flush)
     # home lines only: a lower bound on the lines the probes read
     bound_ms = (n * (8 + 12) + lines * 128) / HBM_BYTES_PER_S * 1e3
-    return {"queries": n, "probe_ms": ms, "ra_ms": ra_ms,
+    return {"queries": n, "checked": True, "lanes": lanes[0],
+            "probe_ms": ms, "probe_kernel_ms": k_ms,
+            "kernel_ms_by_lanes": lanes_ms(group, q_hi, q_lo, [0, n], want,
+                                           flush, 20),
+            "ra_ms": ra_ms,
             "probe_mkeys_per_s": n / ms / 1e3,
             "ra_mkeys_per_s": n / ra_ms / 1e3, "probe_over_ra": ra_ms / ms,
             "home_lines": lines, "bound_ms": bound_ms}
@@ -758,27 +822,65 @@ def measure_fm(fm_log, flush):
            "launches": None, "max_abs_err": fm_log.max_err,
            "shape": list(emb.shape),
            "ms": time_ms(kernel, 50, flush),
-           "kernel_ms": kernel_ms(kernel, "fused_fm_kernel", 50, flush),
+           "kernel_ms": kernel_ms(kernel, "fused_fm_", 50, flush),
            "host_ms": host_ms(kernel, 50),
            "plain_ms": time_ms(lambda: ref.fused_fm(emb), 50, flush),
            "bound_ms": bound, "bound_by": by, "library_ms": None,
            "library_note": "no single PyTorch call computes the FM term"}
     g = torch.Generator(device=emb.device).manual_seed(11)
     bulk = torch.randn(FM_BULK, generator=g, device=emb.device).mul_(0.05)
+    before = dict(fm.paths)
     got, want = fm.fused_fm(bulk), ref.fused_fm(bulk)
+    branch = [k for k in fm.paths if fm.paths[k] != before[k]]
     bulk_err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=FM_TOL, atol=FM_TOL):
         fail(f"fused_fm differs from the plain FM at {FM_BULK} "
              f"(max abs err {bulk_err})")
     bound, by = fm_bound_ms(FM_BULK)
     kernel = functools.partial(fm.fused_fm, bulk)
-    row["bulk"] = {"shape": list(FM_BULK), "max_abs_err": bulk_err,
+    row["bulk"] = {"shape": list(FM_BULK), "branch": branch[0],
+                   "max_abs_err": bulk_err,
                    "ms": time_ms(kernel, 20, flush),
-                   "kernel_ms": kernel_ms(kernel, "fused_fm_kernel", 20,
-                                          flush),
+                   "kernel_ms": kernel_ms(kernel, "fused_fm_", 20, flush),
                    "plain_ms": time_ms(lambda: ref.fused_fm(bulk), 5, flush),
                    "bound_ms": bound, "bound_by": by}
     return row
+
+
+def fm_design(fm_log, paths):
+    """fused_fm's plan at the main path's shape (the last launch's input)
+    and at the serve_bulk batch, and the main path's launches by branch."""
+    (emb,) = fm_log.last
+    n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
+    main = fm.plan(*emb.shape, emb.element_size(), n_sm,
+                   emb.data_ptr() % 16 == 0)
+    bulk = fm.plan(*FM_BULK, 4, n_sm, True)
+    return {"shape": list(emb.shape), "branch": main.branch,
+            "tile_samples": main.tile, "stages": main.stages,
+            "blocks": main.blocks, "threads": main.threads,
+            "bulk_shape_tile_samples": bulk.tile,
+            "bulk_shape_blocks": bulk.blocks,
+            **{f"{k}_launches": v for k, v in paths.items()},
+            "bulk_share": paths["bulk"] / max(1, sum(paths.values()))}
+
+
+def lines_design(launch, row, lanes_counts, flush):
+    """probe_lines on phase A: the main path's launches by lanes a query,
+    the last launch's kernel time with each count of lanes, and the share
+    of its chain steps that stay in the line they left (``row``: its
+    ``measure``)."""
+    group, q_hi, q_lo, seg = launch
+    qh, ql = ops.pad_to(q_hi, ops.BLOCK_Q), ops.pad_to(q_lo, ops.BLOCK_Q)
+    lanes = [k for k, v in lanes_counts.items() if v]
+    return {"main_path_launches_by_lanes": lanes_counts,
+            "blocks": -(-qh.shape[0] * lanes[0] // nl.LINES_THREADS),
+            "kernel_ms_by_lanes": lanes_ms(
+                group, qh, ql, seg, ref.probe_group(group, qh, ql, seg),
+                flush, 50),
+            "chain_steps": row["chain_steps"],
+            "in_line_steps": row["in_line_steps"],
+            "in_line_share": row["in_line_steps"]
+            / max(1, row["chain_steps"])}
 
 
 # ---------------------------------------------------------------------------
@@ -995,8 +1097,9 @@ def main() -> int:
           f"host builder inserts one key at a time, ~23-28 us a key); "
           f"shards stay {CONFIG.max_shard_bytes} B")
 
-    for k in nl.launches:
-        nl.launches[k] = 0
+    for tally in (nl.launches, nl.lanes_launches):
+        for k in tally:
+            tally[k] = 0
     with LaunchLog() as log:
         eng_b, m_b = run_phase(
             "B", n_items=SMOKE.n_items, emb_rows=SMOKE.n_items,
@@ -1009,7 +1112,7 @@ def main() -> int:
             max_shard_bytes=CONFIG.max_shard_bytes,
             hot_fraction=CONFIG.hot_fraction, load_factor=CONFIG.load_factor,
             seed=2, device=device, log=log)
-    counts = dict(nl.launches)
+    counts, lanes_counts = dict(nl.launches), dict(nl.lanes_launches)
     print("launches on the main path: " + json.dumps(counts), flush=True)
     for k, c in counts.items():
         if c == 0:
@@ -1019,12 +1122,13 @@ def main() -> int:
         fail(f"kernel launches {counts} disagree with the engines' counts "
              f"A={m_a['launches']} B={m_b['launches']}")
 
-    for k in nl.launches:
-        nl.launches[k] = 0
-    fm.launches["fused_fm"] = 0
+    for tally in (nl.launches, fm.launches, fm.paths):
+        for k in tally:
+            tally[k] = 0
     with LaunchLog() as log_c, FMLog() as fm_log:
         m_c = run_phase_c(device, log_c, fm_log)
     c_counts = {**nl.launches, **fm.launches}
+    c_paths = dict(fm.paths)
     m_c["launches"] = c_counts
     print("[C] " + json.dumps(m_c), flush=True)
     if c_counts["fused_fm"] != m_c["requests_scored"]:
@@ -1042,6 +1146,11 @@ def main() -> int:
     row = measure_fm(fm_log, flush)
     row["launches"] = c_counts["fused_fm"]
     kernels.append(row)
+    print("fused_fm design: " + json.dumps(fm_design(fm_log, c_paths)),
+          flush=True)
+    print("probe_lines design: " + json.dumps(lines_design(
+        log.last["probe_lines"], kernels[0], lanes_counts, flush)),
+        flush=True)
     # the same small group through the device-memory kernel, for contrast
     group, q_hi, q_lo, seg = log.last["probe_smem"]
     qh, ql = ops.pad_to(q_hi, ops.BLOCK_Q), ops.pad_to(q_lo, ops.BLOCK_Q)
@@ -1070,7 +1179,7 @@ def main() -> int:
     print("probe_smem design: " + json.dumps({
         "cluster": nl.CLUSTER, "group_bytes": group.smem_bytes,
         "bytes_per_block": 4 * group.slice_words}))
-    for n in (1 << 16, 1 << 20):
+    for n in SATURATION_BATCHES:
         print("probe_saturation " + json.dumps(saturation(eng_a, flush, n)),
               flush=True)
 

@@ -6,88 +6,258 @@
 //        -Xcompiler -fPIC -o libfused_fm.so fused_fm.cu
 //
 // and bound with ctypes: a plain C interface, pointers and the stream as
-// void*, no PyTorch headers.  The entry point returns cudaGetLastError().
+// void*, no PyTorch headers (async_copy.cuh holds the PTX of the bulk copy
+// and its barrier).  The entry point returns cudaGetLastError().
 //
 // For each sample b of emb [B, F, D] (fp32 or bf16, contiguous):
 //
 //   out[b] = 0.5 * sum_d [ (sum_f x[b,f,d])^2 - sum_f x[b,f,d]^2 ]
 //
-// accumulated in fp32 whatever the input type.  The squares and the [B, D]
-// sums stay in registers; only out [B] fp32 is written.
+// accumulated in fp32 whatever the input type; only out [B] fp32 is written.
 //
 // Bound: bytes.  Each input element is read once and used for one add and
 // one fused multiply-add, so at DeepFM's [512, 39, 10] fp32 the kernel moves
 // 800,768 B (0.24 us at the 3.35 TB/s of an H100 SXM's data sheet, 700 W)
-// and is launch-bound; at [262144, 39, 10] it reads 409 MB and the memory
-// rate is the limit.
+// and a single round trip to device memory is most of its time; at
+// [262144, 39, 10] it reads 409 MB and the memory rate is the limit.
 //
-// Layout: one warp per sample.  Lane l owns d = l, l + 32, ... and walks the
-// F fields in order, keeping (sum, sum of squares) for its d in registers;
-// the lanes' partial terms meet in a warp-shuffle reduction.  Unlike the TPU
-// kernel, which tiles the batch into block_b rows and needs B % block_b == 0,
-// a warp past B returns at once, so any B, F and D are taken.  For D = 10
-// only 10 of 32 lanes load; packing several samples into a warp is for a
-// later change.
+// Design: a streaming reduction over whole sample tiles.  A tile is S
+// consecutive samples, one contiguous span of S*F*D elements.  The wrapper
+// (kernels/fused_fm.py, plan()) picks S, the branch, the block and the grid
+// from the shape; the kernel reads them from its parameters.
+//
+// * bulk branch (fm_bulk_kernel): one thread brings a whole tile into shared
+//   memory with one 1-D bulk async copy (cp.async.bulk) completing on an
+//   mbarrier, so a tile costs one round trip whatever F and D are.  A
+//   persistent grid of a few blocks an SM walks the tiles through a ring of
+//   kStages stages: tile t+1 lands while tile t is summed.  A bulk copy
+//   takes 16 B aligned addresses and a multiple of 16 B, so the wrapper
+//   picks S with S*F*D*sizeof(T) % 16 == 0 and takes this branch only for a
+//   16 B aligned tensor; the batch's last tile may end off a 16 B boundary,
+//   and its last < 16 B come by plain loads.
+// * loads branch (fm_loads_kernel): what the bulk copy cannot take (a base
+//   off 16 B, a tile of a multiple of 16 B larger than a stage).  The block
+//   stages the tile's span by coalesced loads, 16 B where aligned and scalar
+//   at the ragged head and tail, then sums the same way.  A sample larger
+//   than the branch's buffer is not staged: the block (one sample a tile)
+//   sums it where it lies, with the same loop.
+//
+// Sums: a sample's D columns are shared by `lanes` threads (the least power
+// of two >= D, at most 32), thread g taking d = g, g + lanes, ...; each sums
+// its column's F values from shared memory in field order with the square
+// in the same loop (the order of the plain version and of the earlier
+// one-warp-a-sample kernel), and the lanes' partial terms meet in a warp
+// shuffle.  Unlike the TPU kernel, which tiles the batch into block_b rows
+// and needs B % block_b == 0, any B, F and D are taken with no padding.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;          // 8 samples per 256-thread block
+constexpr int kMaxThreads = 256;
+constexpr int kStages = 2;                 // STAGES in kernels/fused_fm.py
+constexpr int kMaxSmem = 48 * 1024;        // no opt-in attribute needed
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// The FM terms of the n <= tile samples staged at x ([n, F, D]), written
+// to out[0, n).  blockDim.x is a multiple of 32 and lanes divides 32, so
+// every warp takes part in every shuffle; the pass count is the block's.
 template <typename T>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-fused_fm_kernel(const T* __restrict__ emb, float* __restrict__ out,
-                int64_t batch, int fields, int dim) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
-                    threadIdx.x / kWarp;
-  if (b >= batch) return;                  // the whole warp leaves together
-  const T* x = emb + b * fields * dim;
-  float part = 0.f;
-  for (int d = lane; d < dim; d += kWarp) {
-    float s = 0.f, ss = 0.f;
-#pragma unroll 4
-    for (int f = 0; f < fields; ++f) {
-      const float v = to_f32(x[static_cast<int64_t>(f) * dim + d]);
-      s += v;
-      ss = fmaf(v, v, ss);
+__device__ __forceinline__ void tile_terms(const T* x, int n, int tile,
+                                           int fields, int dim, int lanes,
+                                           float* __restrict__ out) {
+  const int per_pass = blockDim.x / lanes;
+  const int g = threadIdx.x % lanes;
+  const int64_t sample = static_cast<int64_t>(fields) * dim;
+  for (int s0 = 0; s0 < tile; s0 += per_pass) {
+    const int s = s0 + threadIdx.x / lanes;
+    float part = 0.f;
+    if (s < n) {
+      const T* xs = x + s * sample;
+      for (int d = g; d < dim; d += lanes) {
+        float sum = 0.f, sq = 0.f;
+#pragma unroll 8
+        for (int f = 0; f < fields; ++f) {           // field order
+          const float v = to_f32(xs[static_cast<int64_t>(f) * dim + d]);
+          sum += v;
+          sq = fmaf(v, v, sq);
+        }
+        part += sum * sum - sq;
+      }
     }
-    part += s * s - ss;
+    for (int off = lanes / 2; off > 0; off /= 2)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (g == 0 && s < n) out[s] = 0.5f * part;
   }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2)
-    part += __shfl_down_sync(0xffffffffu, part, off);
-  if (lane == 0) out[b] = 0.5f * part;
+}
+
+// Orders this thread's generic-proxy accesses of shared memory before a
+// later bulk copy (async proxy) into the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bulk branch: whole tiles by one bulk copy each, a ring of kStages stages
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+fused_fm_bulk_kernel(const T* __restrict__ emb, float* __restrict__ out,
+                     int64_t batch, int fields, int dim, int tile, int lanes,
+                     uint32_t stage_bytes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  const int64_t sample = static_cast<int64_t>(fields) * dim;
+  const int64_t n_tiles = (batch + tile - 1) / tile;
+  auto stage = [&](int k) {
+    return reinterpret_cast<T*>(smem + k * stage_bytes);
+  };
+  auto samples_in = [&](int64_t t) {
+    const int64_t left = batch - t * tile;
+    return static_cast<int>(left < tile ? left : tile);
+  };
+  // thread 0: tile t's whole 16 B into stage k, announced before issued
+  auto issue = [&](int64_t t, int k) {
+    const uint64_t bytes = static_cast<uint64_t>(samples_in(t)) * sample *
+                           sizeof(T);
+    const uint32_t whole = static_cast<uint32_t>(bytes & ~uint64_t{15});
+    bulk::arrive_expect_tx(&full[k], whole);     // 0 bytes: a plain arrival
+    if (whole > 0)
+      bulk::copy(stage(k), emb + t * tile * sample, whole, &full[k]);
+  };
+  if (threadIdx.x == 0)
+    for (int k = 0; k < kStages; ++k) bulk::barrier_init(&full[k], 1);
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int k = 0; k < kStages; ++k) {
+      const int64_t t = blockIdx.x + static_cast<int64_t>(k) * gridDim.x;
+      if (t < n_tiles) issue(t, k);
+    }
+  int use = 0;                                   // this block's tiles so far
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, ++use) {
+    const int k = use % kStages;
+    bulk::wait(&full[k], (use / kStages) & 1);
+    const int n = samples_in(t);
+    const int64_t elems = n * sample;
+    const int64_t whole = static_cast<int64_t>(
+        (static_cast<uint64_t>(elems) * sizeof(T)) & ~uint64_t{15}) /
+        static_cast<int64_t>(sizeof(T));
+    if (whole < elems) {             // the batch's last < 16 B (uniform)
+      const T* src = emb + t * tile * sample;
+      for (int64_t i = whole + threadIdx.x; i < elems; i += blockDim.x)
+        stage(k)[i] = src[i];
+      __syncthreads();
+    }
+    tile_terms(stage(k), n, tile, fields, dim, lanes, out + t * tile);
+    fence_proxy_async();
+    __syncthreads();                 // every thread is done with stage k
+    const int64_t next = t + static_cast<int64_t>(kStages) * gridDim.x;
+    if (threadIdx.x == 0 && next < n_tiles) issue(next, k);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// loads branch: the tile's span by coalesced loads
+// ---------------------------------------------------------------------------
+
+// Copies n elements from src to shared memory at buf (16 B aligned, room
+// for n elements and 16 B more): the elements before src's first 16 B
+// boundary and after its last one by scalar loads, the rest 16 B at a
+// time.  Returns where the span starts in buf (src's offset in its 16 B).
+template <typename T>
+__device__ __forceinline__ T* copy_span(T* buf, const T* __restrict__ src,
+                                        int64_t n) {
+  constexpr int kVec = 16 / sizeof(T);
+  const uint32_t mis = static_cast<uint32_t>(
+      reinterpret_cast<uintptr_t>(src) & 15u);
+  T* x = buf + mis / sizeof(T);                  // x and src agree mod 16 B
+  int64_t head = ((16u - mis) & 15u) / sizeof(T);
+  if (head > n) head = n;
+  const int64_t vecs = (n - head) / kVec;
+  for (int64_t i = threadIdx.x; i < head; i += blockDim.x) x[i] = src[i];
+  const uint4* s = reinterpret_cast<const uint4*>(src + head);
+  uint4* d = reinterpret_cast<uint4*>(x + head);
+  for (int64_t v = threadIdx.x; v < vecs; v += blockDim.x) d[v] = s[v];
+  for (int64_t i = head + vecs * kVec + threadIdx.x; i < n; i += blockDim.x)
+    x[i] = src[i];
+  return x;
+}
+
+// staged: tiles through the shared-memory buffer; else (a sample larger
+// than the buffer) the sums read the tile where it lies.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+fused_fm_loads_kernel(const T* __restrict__ emb, float* __restrict__ out,
+                      int64_t batch, int fields, int dim, int tile,
+                      int lanes, bool staged) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  const int64_t sample = static_cast<int64_t>(fields) * dim;
+  const int64_t n_tiles = (batch + tile - 1) / tile;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const T* src = emb + t * tile * sample;
+    const int64_t left = batch - t * tile;
+    const int n = static_cast<int>(left < tile ? left : tile);
+    const T* x = staged ? copy_span(buf, src, n * sample) : src;
+    __syncthreads();
+    tile_terms(x, n, tile, fields, dim, lanes, out + t * tile);
+    __syncthreads();                 // the buffer is free for the next tile
+  }
+}
+
+bool pow2_at_most_32(int x) { return x >= 1 && x <= kWarp && !(x & (x - 1)); }
+
+template <typename T>
+int launch(const void* emb, void* out, long long batch, int fields, int dim,
+           int branch, int tile, int lanes, int threads, int blocks,
+           int smem_bytes, cudaStream_t s) {
+  const auto* x = static_cast<const T*>(emb);
+  auto* o = static_cast<float*>(out);
+  if (branch == 0) {
+    fused_fm_bulk_kernel<T><<<blocks, threads, smem_bytes, s>>>(
+        x, o, batch, fields, dim, tile, lanes,
+        static_cast<uint32_t>(smem_bytes / kStages));
+  } else {
+    fused_fm_loads_kernel<T><<<blocks, threads, smem_bytes, s>>>(
+        x, o, batch, fields, dim, tile, lanes, smem_bytes > 0);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  batch >= 1; fields, dim >= 0.
+// dtype: 0 = float32, 1 = bfloat16.  batch >= 1; fields, dim >= 0.  The
+// rest is the wrapper's plan (kernels/fused_fm.py, plan()): branch 0 = bulk,
+// 1 = loads; tile = S samples; lanes per sample; the block, the grid and
+// the dynamic shared memory (for bulk, kStages stages of a multiple of 16 B
+// each; for loads, the buffer, or 0 to sum one sample a tile in place).
 extern "C" int repro_fused_fm(const void* emb, int dtype, void* out,
                               long long batch, int fields, int dim,
-                              void* stream) {
-  const int threads = kWarp * kWarpsPerBlock;
-  const long long blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* o = static_cast<float*>(out);
-  if (dtype == 0) {
-    fused_fm_kernel<float><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        static_cast<const float*>(emb), o, batch, fields, dim);
-  } else if (dtype == 1) {
-    fused_fm_kernel<__nv_bfloat16>
-        <<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(emb), o, batch, fields, dim);
-  } else {
+                              int branch, int tile, int lanes, int threads,
+                              int blocks, int smem_bytes, void* stream) {
+  if (batch < 1 || tile < 1 || blocks < 1 || !pow2_at_most_32(lanes) ||
+      threads < kWarp || threads > kMaxThreads || threads % kWarp ||
+      smem_bytes < 0 || smem_bytes > kMaxSmem ||
+      (branch == 0 && (smem_bytes < 16 * kStages ||
+                       smem_bytes % (16 * kStages))) ||
+      (branch == 1 && (smem_bytes == 0 ? tile != 1 : smem_bytes < 16)) ||
+      (branch != 0 && branch != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(emb, out, batch, fields, dim, branch, tile, lanes,
+                         threads, blocks, smem_bytes, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(emb, out, batch, fields, dim, branch, tile,
+                                 lanes, threads, blocks, smem_bytes, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

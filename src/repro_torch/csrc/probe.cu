@@ -89,7 +89,9 @@ __device__ __forceinline__ int64_t clip(int64_t idx, int64_t capacity) {
   return idx < 0 ? 0 : (idx >= capacity ? capacity - 1 : idx);
 }
 
-// A table as probe_lines reads it: line-packed in device memory.
+// A table as probe_lines reads it with one thread a query: line-packed in
+// device memory, a bucket's four words read one by one (four 32 B sectors
+// of its line).  probe_smem reads its first home bucket this way too.
 struct GlobalTable {
   const uint32_t* lines;
   const int32_t* next_idx;               // null: inline offsets
@@ -104,6 +106,54 @@ struct GlobalTable {
   }
   __device__ __forceinline__ int64_t next(int64_t b) const {
     return next_idx[b];
+  }
+};
+
+// A table as probe_lines reads it with a group of kGroupLanes lanes a query
+// (a tiled partition of the warp): the group reads the whole 128 B line a
+// step, lane j holding words 4j .. 4j+3 (one 16 B load).  Word w of the
+// line's [4, 8] layout is row w / 8 (key_hi, key_lo, val_hi, val_lo),
+// bucket w % 8, so bucket c's word of row r is word c % 4 of lane
+// 2r + c / 4.  Every lane of the group calls bucket() and next() with the
+// same index, so the group stays converged and each lane assembles the same
+// bucket.
+constexpr int kGroupLanes = 8;           // LINE_LANES in neighbor_lookup.py
+static_assert(kLineWords == 4 * kGroupLanes, "16 B a lane");
+
+struct LineGroupTable {
+  cg::thread_block_tile<kGroupLanes> group;
+  const uint32_t* lines;
+  const int32_t* next_idx;               // null: inline offsets
+  int64_t held = -1;                     // the line the lanes hold
+  uint4 words = {};                      // this lane's 16 B of it
+
+  __device__ __forceinline__ bool has_next() const {
+    return next_idx != nullptr;
+  }
+  // A bucket in the line held takes no load; another line, one coalesced
+  // 128 B request by the group.
+  __device__ __forceinline__ Bucket bucket(int64_t b) {
+    const int64_t line = b / kBpl;
+    if (line != held) {
+      words = __ldg(reinterpret_cast<const uint4*>(lines + line * kLineWords) +
+                    group.thread_rank());
+      held = line;
+    }
+    const int c = static_cast<int>(b % kBpl);
+    const int q = c & 3;                 // the same word for every row
+    const uint32_t mine = q == 0   ? words.x
+                          : q == 1 ? words.y
+                          : q == 2 ? words.z
+                                   : words.w;
+    const int lane = c / 4;
+    return {group.shfl(mine, lane), group.shfl(mine, 2 + lane),
+            group.shfl(mine, 4 + lane), group.shfl(mine, 6 + lane)};
+  }
+  // One 4 B load by one lane, broadcast to the group.
+  __device__ __forceinline__ int64_t next(int64_t b) {
+    int32_t v = 0;
+    if (group.thread_rank() == 0) v = __ldg(next_idx + b);
+    return group.shfl(v, 0);
   }
 };
 
@@ -138,15 +188,20 @@ struct ClusterTable {
   }
 };
 
+// What one query's probe answers: found, payload_hi (20 bits), payload_lo,
+// all zero on a miss.
+struct Answer {
+  uint32_t found, p_hi, p_lo;
+};
+
 // One query against one table, from its home bucket k (read wherever the
-// table lies): writes found / payload_hi (20 bits) / payload_lo, all zero
-// on a miss.
+// table lies).  Every kernel's probe goes through here; a Table gives
+// has_next(), bucket(b) and next(b) for an index b in range.
 template <typename Table>
-__device__ __forceinline__ void probe_from(
-    const Table& table, int64_t home, Bucket k, int64_t capacity,
+__device__ __forceinline__ Answer probe_from(
+    Table& table, int64_t home, Bucket k, int64_t capacity,
     uint32_t home_capacity, int64_t max_probes, bool host_check,
-    uint32_t qh, uint32_t ql, uint32_t* found, uint32_t* p_hi,
-    uint32_t* p_lo) {
+    uint32_t qh, uint32_t ql) {
   const bool empty = k.khi == kEmpty && k.klo == kEmpty;
   bool hit = !empty && k.khi == qh && k.klo == ql;
   bool active = !empty && !hit;
@@ -169,9 +224,8 @@ __device__ __forceinline__ void probe_from(
     hit = k.khi == qh && k.klo == ql;
     active = !hit;
   }
-  *found = hit ? 1u : 0u;
-  *p_hi = hit ? (k.vhi & kPayloadHiMask) : 0u;
-  *p_lo = hit ? k.vlo : 0u;
+  return {hit ? 1u : 0u, hit ? (k.vhi & kPayloadHiMask) : 0u,
+          hit ? k.vlo : 0u};
 }
 
 __device__ __forceinline__ int64_t home_of(uint32_t qh, uint32_t ql,
@@ -181,14 +235,12 @@ __device__ __forceinline__ int64_t home_of(uint32_t qh, uint32_t ql,
 
 // One query against one table, from the start.
 template <typename Table>
-__device__ __forceinline__ void probe_one(
-    const Table& table, int64_t capacity, uint32_t home_capacity,
-    int64_t max_probes, bool host_check, uint32_t qh, uint32_t ql,
-    uint32_t* found, uint32_t* p_hi, uint32_t* p_lo) {
+__device__ __forceinline__ Answer probe_one(
+    Table& table, int64_t capacity, uint32_t home_capacity,
+    int64_t max_probes, bool host_check, uint32_t qh, uint32_t ql) {
   const int64_t home = home_of(qh, ql, home_capacity);
-  probe_from(table, home, table.bucket(clip(home, capacity)), capacity,
-             home_capacity, max_probes, host_check, qh, ql, found, p_hi,
-             p_lo);
+  return probe_from(table, home, table.bucket(clip(home, capacity)),
+                    capacity, home_capacity, max_probes, host_check, qh, ql);
 }
 
 // Which table owns query i: the segments are contiguous and ascending.
@@ -206,31 +258,65 @@ __device__ __forceinline__ int table_of(const Segments& seg, int n_tables,
 // Bound: random 128 B line reads from HBM (or L2 for tables under 50 MB),
 // one per probe step, each a dependent load: latency, not bandwidth, is what
 // one query waits on.  The TPU kernel hid that latency with a ring of
-// n_slots in-flight line DMAs per core.  Here each thread owns one query and
-// the card keeps many warps resident on every SM, so the scheduler hides one
-// warp's outstanding line behind other warps' independent probes — the
-// hardware plays AMAC's ring.  Small blocks and no shared memory keep
-// occupancy high, so as many lines as possible are in flight.
+// n_slots in-flight line DMAs per core.  Here the card keeps many warps
+// resident on every SM, so the scheduler hides one query's outstanding line
+// behind other queries' independent probes — the hardware plays AMAC's
+// ring.  No shared memory keeps occupancy high.
+//
+// A small batch leaves most SMs idle and each query waits on a chain of
+// dependent line reads, so there a query is probed by a group of 8 lanes
+// (a tiled partition of the warp; LineGroupTable).  In each probe step
+// the group loads the whole 128 B line with 16 B loads, one coalesced
+// request, where a thread of its own issues four scalar loads,
+// one per 32 B sector of the bucket's words; the lanes assemble the bucket
+// by shuffles within the group.  A chain step to a bucket of the line
+// already held takes no load at all: the paper's cacheline-aware chains put
+// a home's chained keys in its line for just this.  A step to another line
+// is one more request; a next_idx read is one 4 B load by the group's first
+// lane, broadcast.  The group spreads the batch over 8 times as many
+// blocks, so its misses queue on most SMs' load units and not on a few.
+// The group's lanes share one query, so they agree on its table (table_of)
+// and on every step; its first lane writes the answer.  But every lane also
+// runs the query's hash, compares and chain arithmetic, so a group issues
+// 8 times the instructions of one thread a query for the same loads, and
+// once the batch's groups fill about 5/8 of the card's thread slots the
+// probe is issue-bound: there each thread probes one query (kLanes = 1,
+// GlobalTable), which keeps the most queries' lines in flight.  The
+// wrapper picks kLanes, 1 or kGroupLanes, from the batch
+// (neighbor_lookup.lines_lanes, set where the two forms were measured to
+// cross).  Both forms run probe_from, the same
+// semantics as probe_smem's.
 // ---------------------------------------------------------------------------
+template <int kLanes>                // 1 or kGroupLanes
 __global__ void __launch_bounds__(kLinesThreads) probe_lines_kernel(
     const TableDesc* __restrict__ desc, int n_tables, const Segments seg,
     const uint32_t* __restrict__ q_hi, const uint32_t* __restrict__ q_lo,
     uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  uint32_t* found = out + i;
-  uint32_t* p_hi = out + n + i;
-  uint32_t* p_lo = out + 2 * n + i;
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x) / kLanes;
+  if (i >= n) return;                // the whole group leaves together
   const int t = table_of(seg, n_tables, i);
-  if (t == n_tables) {               // padding past the last segment
-    *found = *p_hi = *p_lo = 0u;
-    return;
+  Answer a{0u, 0u, 0u};              // padding past the last segment: zeros
+  if (t < n_tables) {
+    const TableDesc& d = desc[t];
+    const uint32_t home_capacity = static_cast<uint32_t>(d.home_capacity);
+    if constexpr (kLanes == 1) {
+      GlobalTable table{d.lines, d.next_idx};
+      a = probe_one(table, d.capacity, home_capacity, d.max_probes,
+                    d.host_check != 0, q_hi[i], q_lo[i]);
+    } else {
+      LineGroupTable table{
+          cg::tiled_partition<kGroupLanes>(cg::this_thread_block()),
+          d.lines, d.next_idx};
+      a = probe_one(table, d.capacity, home_capacity, d.max_probes,
+                    d.host_check != 0, q_hi[i], q_lo[i]);
+    }
   }
-  const TableDesc& d = desc[t];
-  probe_one(GlobalTable{d.lines, d.next_idx}, d.capacity,
-            static_cast<uint32_t>(d.home_capacity), d.max_probes,
-            d.host_check != 0, q_hi[i], q_lo[i], found, p_hi, p_lo);
+  if (threadIdx.x % kLanes == 0) {
+    out[i] = a.found;
+    out[n + i] = a.p_hi;
+    out[2 * n + i] = a.p_lo;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -358,23 +444,21 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       t = table_of(seg, n_tables, i);
       if (t < n_tables) d = desc[t];
     }
-    uint32_t* found = out + i;
-    uint32_t* p_hi = out + n + i;
-    uint32_t* p_lo = out + 2 * n + i;
-    if (t == n_tables) {
-      *found = *p_hi = *p_lo = 0u;
-      continue;
+    Answer a{0u, 0u, 0u};            // padding past the last segment
+    if (t < n_tables) {
+      ClusterTable table{slice, static_cast<uint32_t>(slice_words), inverse,
+                         static_cast<uint32_t>(d.smem_lines),
+                         d.next_idx == nullptr ? -1 : d.smem_next};
+      a = first ? probe_from(table, home, home_k, d.capacity,
+                             static_cast<uint32_t>(d.home_capacity),
+                             d.max_probes, d.host_check != 0, qh, ql)
+                : probe_one(table, d.capacity,
+                            static_cast<uint32_t>(d.home_capacity),
+                            d.max_probes, d.host_check != 0, qh, ql);
     }
-    const ClusterTable table{slice, static_cast<uint32_t>(slice_words),
-                             inverse, static_cast<uint32_t>(d.smem_lines),
-                             d.next_idx == nullptr ? -1 : d.smem_next};
-    if (first)
-      probe_from(table, home, home_k, d.capacity,
-                 static_cast<uint32_t>(d.home_capacity), d.max_probes,
-                 d.host_check != 0, qh, ql, found, p_hi, p_lo);
-    else
-      probe_one(table, d.capacity, static_cast<uint32_t>(d.home_capacity),
-                d.max_probes, d.host_check != 0, qh, ql, found, p_hi, p_lo);
+    out[i] = a.found;
+    out[n + i] = a.p_hi;
+    out[2 * n + i] = a.p_lo;
   }
   // No slice goes while a peer reads it.  The reads above have returned
   // (their values are used), so the arrival needs no release.
@@ -392,27 +476,43 @@ Segments segments(const long long* seg_end, int n_tables) {
 
 // desc: device TableDesc[n_tables]; seg_end: HOST int64[n_tables], the end
 // of each table's query segment; out: uint32 [3, n] (found, payload_hi,
-// payload_lo).  n_tables <= kMaxTables (the wrapper checks).
+// payload_lo); lanes a query: 1 or 8 (the wrapper's lines_lanes).
+// n_tables <= kMaxTables (the wrapper checks).
 extern "C" int repro_probe_lines(const void* desc, int n_tables,
                                  const long long* seg_end, const void* q_hi,
                                  const void* q_lo, void* out, long long n,
-                                 void* stream) {
-  const long long blocks = (n + kLinesThreads - 1) / kLinesThreads;
-  probe_lines_kernel<<<static_cast<unsigned>(blocks), kLinesThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TableDesc*>(desc), n_tables,
-      segments(seg_end, n_tables), static_cast<const uint32_t*>(q_hi),
-      static_cast<const uint32_t*>(q_lo), static_cast<uint32_t*>(out), n);
+                                 int lanes, void* stream) {
+  if (lanes != 1 && lanes != kGroupLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_block = kLinesThreads / lanes;        // queries
+  const auto blocks = static_cast<unsigned>((n + per_block - 1) / per_block);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* d = static_cast<const TableDesc*>(desc);
+  const Segments seg = segments(seg_end, n_tables);
+  const auto* qh = static_cast<const uint32_t*>(q_hi);
+  const auto* ql = static_cast<const uint32_t*>(q_lo);
+  auto* o = static_cast<uint32_t*>(out);
+  if (lanes == 1)
+    probe_lines_kernel<1><<<blocks, kLinesThreads, 0, s>>>(d, n_tables, seg,
+                                                           qh, ql, o, n);
+  else
+    probe_lines_kernel<kGroupLanes><<<blocks, kLinesThreads, 0, s>>>(
+        d, n_tables, seg, qh, ql, o, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Once per device: the device's SM count (probe_smem's grid bound) in
-// *n_sm, so a launch queries nothing.
-extern "C" int repro_probe_init(int* n_sm) {
+// *n_sm and its resident threads an SM in *threads_per_sm (probe_lines's
+// lanes), so a launch queries nothing.
+extern "C" int repro_probe_init(int* n_sm, int* threads_per_sm) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(threads_per_sm,
+                                 cudaDevAttrMaxThreadsPerMultiProcessor,
+                                 device);
   return static_cast<int>(err);
 }
 

@@ -3,7 +3,13 @@
 ``csrc/fused_fm.cu`` takes the place of the JAX package's Pallas kernel
 ``kernels/fused_fm.py::fused_fm``: per sample of ``emb [B, F, D]`` (fp32 or
 bf16) it computes ``0.5 * sum_d[(sum_f x)^2 - sum_f x^2]`` in fp32 and writes
-only the ``[B]`` result, one warp per sample, for any B, F and D.
+only the ``[B]`` result, for any B, F and D.  It streams tiles of whole
+samples through shared memory: by one bulk async copy a tile, in a ring of
+``STAGES`` stages of at most ``STAGE_BYTES``, where the tile's span allows
+(the ``bulk`` branch), else by coalesced loads into a ``LOADS_BYTES``
+buffer (``loads``; a sample larger than that is summed where it lies).  ``plan`` picks
+the branch, the tile and the launch's shape from the shape alone; ``paths``
+counts the launches of each branch.
 
 The library is compiled with ``nvcc`` at first use (``kernels/build.py``).
 The wrapper launches the kernel on a CUDA tensor or raises; it never falls
@@ -13,23 +19,105 @@ picks that for CPU tensors.  ``launches`` counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import torch
 
 from repro_torch.kernels import build as _build
 
 launches = {"fused_fm": 0}
+paths = {"bulk": 0, "loads": 0}          # which branch each launch took
+STAGES = 2                               # kStages in fused_fm.cu
+STAGE_BYTES = 16 * 1024                  # a bulk tile's span, at most
+LOADS_BYTES = 48 * 1024                  # the loads branch's buffer
+BLOCKS_PER_SM = 4                        # the persistent grid
+MAX_THREADS = 256                        # kMaxThreads
+WARP = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # dtype codes of the .cu
-_WARPS_PER_BLOCK = 8                                # kWarpsPerBlock
-_MAX_BATCH = (2**31 - 1) * _WARPS_PER_BLOCK         # the grid's x limit
+_BRANCHES = {"bulk": 0, "loads": 1}
+_n_sm: dict = {}                         # device index -> SM count
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of ``repro_fused_fm``: tiles of ``tile`` samples, a
+    sample's columns over ``lanes`` threads, ``threads`` a block, ``blocks``
+    in the grid and ``smem_bytes`` of dynamic shared memory (``STAGES``
+    stages on bulk; on loads the buffer, or 0 when the sample is summed
+    where it lies)."""
+    branch: str
+    tile: int
+    lanes: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+    @property
+    def stages(self) -> int:
+        return STAGES if self.branch == "bulk" else 1
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _tile(batch: int, step: int, most: int, n_sm: int) -> int:
+    """Samples a tile: a multiple of ``step``, at most ``most``, and small
+    enough that the batch's tiles cover the SMs where it can."""
+    per_sm = batch // n_sm // step * step
+    return max(step, min(most, per_sm))
+
+
+def plan(batch: int, fields: int, dim: int, elt_bytes: int, n_sm: int,
+         aligned: bool) -> Plan:
+    """The launch for ``[batch, fields, dim]`` of ``elt_bytes`` elements on a
+    card of ``n_sm`` SMs; ``aligned``: the tensor starts on 16 bytes.
+
+    Bulk when the tensor is 16 B aligned and a tile whose span is a multiple
+    of 16 B fits a stage: then every tile starts on 16 B, and only the
+    batch's last may end off it.  Loads otherwise, tiles staged in the
+    buffer when a sample fits it, else one sample a tile summed in
+    place."""
+    sample = fields * dim * elt_bytes
+    lanes = 1 << max(0, min(dim, WARP) - 1).bit_length()   # pow2 >= D, <= 32
+
+    def shape(tile: int) -> tuple[int, int]:
+        n_tiles = -(-batch // tile)
+        return (min(MAX_THREADS, _round_up(tile * lanes, WARP)),
+                min(n_tiles, BLOCKS_PER_SM * n_sm))
+
+    if aligned and sample > 0:
+        step = 16 // math.gcd(sample, 16)   # least S: S * sample % 16 == 0
+        most = STAGE_BYTES // sample // step * step
+        if most >= step:
+            tile = _tile(batch, step, most, n_sm)
+            threads, blocks = shape(tile)
+            return Plan("bulk", tile, lanes, threads, blocks,
+                        STAGES * _round_up(tile * sample, 16))
+    if sample + 16 > LOADS_BYTES:
+        threads, blocks = shape(1)
+        return Plan("loads", 1, lanes, threads, blocks, 0)
+    most = (LOADS_BYTES - 16) // sample if sample else MAX_THREADS
+    tile = _tile(batch, 1, most, n_sm)
+    threads, blocks = shape(tile)
+    return Plan("loads", tile, lanes, threads, blocks,
+                _round_up(tile * sample, 16) + 16)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    vp = ctypes.c_void_p
-    lib.repro_fused_fm.argtypes = [vp, ctypes.c_int, vp, ctypes.c_longlong,
-                                   ctypes.c_int, ctypes.c_int, vp]
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.repro_fused_fm.argtypes = [vp, i32, vp, ctypes.c_longlong, i32, i32,
+                                   i32, i32, i32, i32, i32, i32, vp]
     lib.repro_fused_fm.restype = ctypes.c_int
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _n_sm:
+        _n_sm[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _n_sm[device.index]
 
 
 def fused_fm(emb: torch.Tensor) -> torch.Tensor:
@@ -46,18 +134,23 @@ def fused_fm(emb: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fused_fm takes a contiguous [B, F, D] tensor, got "
                          f"shape {tuple(emb.shape)}, strides {emb.stride()}")
     b, f, d = emb.shape
-    if b > _MAX_BATCH or f >= 2**31 or d >= 2**31:
+    if f >= 2**31 or d >= 2**31:
         raise ValueError(f"shape {tuple(emb.shape)} exceeds the launch's "
                          "limits")
     out = torch.empty(b, dtype=torch.float32, device=emb.device)
     if b == 0:
         return out
     lib = _build.library("fused_fm", _bind)
+    p = plan(b, f, d, emb.element_size(), _sm_count(emb.device),
+             emb.data_ptr() % 16 == 0)
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
-        err = lib.repro_fused_fm(emb.data_ptr(), _DTYPES[emb.dtype],
-                                 out.data_ptr(), b, f, d, stream)
+        err = lib.repro_fused_fm(
+            emb.data_ptr(), _DTYPES[emb.dtype], out.data_ptr(), b, f, d,
+            _BRANCHES[p.branch], p.tile, p.lanes, p.threads, p.blocks,
+            p.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"fused_fm launch failed: CUDA error {err}")
     launches["fused_fm"] += 1
+    paths[p.branch] += 1
     return out

@@ -4,9 +4,13 @@ Two hand-written CUDA kernels (``csrc/probe.cu``) take the place of the JAX
 package's two Pallas kernels:
 
 * ``probe_lines`` — the counterpart of ``lookup_amac``: the tables stay in
-  device memory in the line-packed layout below and each thread chases one
-  query's chain; the many warps resident per SM keep many line reads in
-  flight, as AMAC's ring of DMAs did on the TPU.
+  device memory in the line-packed layout below; the many warps resident
+  per SM keep many line reads in flight, as AMAC's ring of DMAs did on the
+  TPU.  A batch too small to fill 5/8 of the card's thread slots is
+  probed by a group of ``LINE_LANES`` lanes a query, reading each line it steps to as
+  one coalesced 128 B request (16 B a lane) and taking chain steps within
+  that line with no load; a larger one by one thread a query
+  (``lines_lanes`` picks).
 * ``probe_smem`` — the counterpart of ``lookup_vec``: for a group of tables
   that fits in one block's 227 KB of shared memory, a thread-block cluster
   of ``CLUSTER`` blocks stages the group once, each block one slice of
@@ -42,15 +46,19 @@ BUCKETS_PER_LINE = hc.GPU_BUCKETS_PER_LINE      # the kernels' line layout
 SMEM_LIMIT = 232_448          # shared memory of one block: 227 KB
 MAX_TABLES = 64               # tables per group: kMaxTables in probe.cu
 CLUSTER = 8                   # probe_smem's blocks per cluster: kCluster
+LINE_LANES = 8                # probe_lines's lanes a query, small batches
+LINES_THREADS = 256           # probe_lines's block: kLinesThreads
 # one descriptor row per table; the field order of TableDesc in probe.cu
 DESC_FIELDS = ("lines", "next_idx", "capacity", "home_capacity",
                "max_probes", "host_check", "smem_lines", "smem_next",
                "n_lines")
 
 launches = {"probe_lines": 0, "probe_smem": 0}
+lanes_launches = {1: 0, LINE_LANES: 0}   # probe_lines's, by lanes
 
 _lock = threading.Lock()
-_n_sm: dict = {}              # device index -> SM count, once probe_init ran
+_card: dict = {}              # device index -> (SMs, resident threads an
+                              # SM), once probe_init ran
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +213,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     seg = ctypes.POINTER(ll)
     lib.repro_probe_lines.argtypes = [vp, ctypes.c_int, seg, vp, vp, vp, ll,
-                                      vp]
+                                      ctypes.c_int, vp]
     lib.repro_probe_smem.argtypes = [vp, seg, ctypes.c_int, seg,
                                      ctypes.c_int, ctypes.c_int, vp, vp, vp,
                                      ll, vp]
-    lib.repro_probe_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.repro_probe_init.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     lib.repro_probe_init.restype = ctypes.c_int
     lib.repro_probe_lines.restype = ctypes.c_int
     lib.repro_probe_smem.restype = ctypes.c_int
@@ -219,19 +227,32 @@ def _library() -> ctypes.CDLL:
     return _build.library("probe", _bind)
 
 
-def _sm_count(lib: ctypes.CDLL, device: torch.device) -> int:
-    """The SM count of ``device`` (probe_smem's grid bound), queried once
-    per device."""
+def _card_of(lib: ctypes.CDLL, device: torch.device) -> tuple[int, int]:
+    """(SMs, resident threads an SM) of ``device``: probe_smem's grid bound
+    and probe_lines's lanes, queried once per device."""
     index = device.index              # a CUDA tensor's device has one
     with _lock:
-        if index not in _n_sm:
-            n = ctypes.c_int(0)
+        if index not in _card:
+            n, threads = ctypes.c_int(0), ctypes.c_int(0)
             with torch.cuda.device(index):
-                err = lib.repro_probe_init(ctypes.byref(n))
+                err = lib.repro_probe_init(ctypes.byref(n),
+                                           ctypes.byref(threads))
             if err != 0:
                 raise RuntimeError(f"probe_init failed: CUDA error {err}")
-            _n_sm[index] = n.value
-        return _n_sm[index]
+            _card[index] = (n.value, threads.value)
+        return _card[index]
+
+
+def lines_lanes(n: int, n_sm: int, threads_per_sm: int) -> int:
+    """probe_lines's lanes a query for a batch of ``n``: ``LINE_LANES``
+    while the batch's groups fill at most 5/8 of the card's resident
+    threads (the SMs would idle with one thread a query), else 1 (each lane
+    of a group runs the whole query's arithmetic, so a fuller card issues
+    LINE_LANES times the instructions for the same lines).  5/8 is where
+    the two forms crossed on an H100: 8 lanes faster at 20,480 queries
+    (61% of its 270,336 resident threads), slower at 24,576 (73%)."""
+    return LINE_LANES if 8 * n * LINE_LANES <= 5 * n_sm * threads_per_sm \
+        else 1
 
 
 # ---------------------------------------------------------------------------
@@ -271,18 +292,22 @@ def _launch(name: str, group: TableGroup, q_hi: torch.Tensor,
                              .cuda_stream)
     ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (q_hi, q_lo, out)]
     if name == "probe_lines":
-        err = lib.repro_probe_lines(desc, n_tables, ends, *ptrs, n, stream)
+        lanes = lines_lanes(n, *_card_of(lib, group.device))
+        err = lib.repro_probe_lines(desc, n_tables, ends, *ptrs, n, lanes,
+                                    stream)
     else:
         if group.smem_bytes > SMEM_LIMIT:
             raise ValueError(f"group needs {group.smem_bytes} B of shared "
                              f"memory; a block has {SMEM_LIMIT}")
         err = lib.repro_probe_smem(desc, group.desc_rows, n_tables, ends,
                                    group.slice_words,
-                                   _sm_count(lib, group.device), *ptrs, n,
+                                   _card_of(lib, group.device)[0], *ptrs, n,
                                    stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
+    if name == "probe_lines":
+        lanes_launches[lanes] += 1
     return out
 
 

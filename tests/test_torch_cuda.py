@@ -9,6 +9,8 @@ test_torch_two_tower.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -58,7 +60,26 @@ def _device_table(t, device):
 KERNELS = {"lines": nl.probe_lines, "smem": nl.probe_smem}
 
 
-def _check(group, q, impl):
+@contextlib.contextmanager
+def _forced_lanes(lanes):
+    """probe_lines with ``lanes`` lanes a query whatever the batch (the
+    wrapper's pick, ``lines_lanes``, forced); every launch in the block
+    takes that form."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nl, "lines_lanes", lambda n, n_sm, threads: lanes)
+        before = dict(nl.lanes_launches)
+        yield
+    grown = {k: v - before[k] for k, v in nl.lanes_launches.items()}
+    assert grown[lanes] > 0 and sum(grown.values()) == grown[lanes]
+
+
+def _check(group, q, impl, lanes=None):
+    """``lanes``: probe_lines with that many lanes a query, not the
+    wrapper's pick."""
+    if lanes is not None:
+        assert impl == "lines"
+        with _forced_lanes(lanes):
+            return _check(group, q, impl)
     qh, ql = (nl.to_device(x, group.device) for x in hc.key_split_np(q))
     seg = [0, len(q)]
     if len(group.tables) > 1:
@@ -232,6 +253,118 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     assert bool((f.view(torch.int32) == 1).all())
 
 
+# ---------------------------------------------------------------------------
+# probe_lines: 8 lanes a query, one coalesced line read a step, for
+# batches that fit the card's threads; one thread a query past that
+# ---------------------------------------------------------------------------
+LANES = [1, nl.LINE_LANES]
+
+
+def _line_steps(t, q):
+    """(chain steps, chain steps to a bucket of the line the step left)
+    of the host trace of q on built table t."""
+    steps = in_line = 0
+    for k in q.tolist():
+        line = [v // nl.BUCKETS_PER_LINE for v in t.probe_trace(k)[2]]
+        steps += len(line) - 1
+        in_line += sum(a == b for a, b in zip(line, line[1:]))
+    return steps, in_line
+
+
+def _lodger_misses(t, n, seed):
+    """Absent keys whose home bucket holds a resident homed elsewhere."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(2**62, 2**63, 50 * n).astype(np.uint64)
+    hi, lo = hc.key_split_np(q)
+    home = hc.bucket_of_np(hi, lo, t.home_capacity)
+    r_hi, r_lo = t.key_hi[home], t.key_lo[home]
+    occupied = ~((r_hi == hc.EMPTY_HI) & (r_lo == hc.EMPTY_LO))
+    lodger = occupied & (hc.bucket_of_np(r_hi, r_lo, t.home_capacity) != home)
+    return q[lodger][:n]
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("variant", ["neighborhash", "neighbor_probing",
+                                     "linear_lodger", "coalesced"])
+def test_probe_lines_chains_in_line_and_across_lines(variant, lanes):
+    """A dense table's chains: steps that stay in the line held (no load)
+    and steps to another line, both in one batch."""
+    keys, t = _table(variant, 6000, seed=51, lf=0.95)
+    q = _queries(keys, 3000, 0.9, seed=9)
+    steps, in_line = _line_steps(t, q)
+    assert steps > in_line > 0 or variant == "coalesced" and steps > 0
+    _check(nl.TableGroup([_device_table(t, "cuda")]), q, "lines", lanes)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("variant", nh.VARIANTS)
+def test_probe_lines_last_line_and_lodger_misses(variant, lanes):
+    """Keys whose probe reads the table's last line (a partial line past
+    the capacity reads empty buckets) and absent keys whose home holds a
+    lodger (a resident homed elsewhere)."""
+    keys, t = _table(variant, 2000, seed=4)
+    n_lines = -(-t.capacity // nl.BUCKETS_PER_LINE)
+    last = np.array([k for k in keys.tolist()
+                     if any(v // nl.BUCKETS_PER_LINE == n_lines - 1
+                            for v in t.probe_trace(k)[2])], np.uint64)
+    lodgers = _lodger_misses(t, 200, seed=3)
+    assert len(last) > 0 and len(lodgers) > 0
+    _check(nl.TableGroup([_device_table(t, "cuda")]),
+           np.concatenate([last, lodgers, keys[:100]]), "lines", lanes)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("max_probes", [0, 1, 2, 3])
+@pytest.mark.parametrize("variant", ["neighborhash", "coalesced"])
+def test_probe_lines_max_probes_cuts_chains_mid_line(variant, max_probes,
+                                                     lanes):
+    """max_probes below the chains' lengths ends chains inside a line and
+    across lines; the kernel stops exactly where the plain probe does."""
+    keys, t = _table(variant, 6000, seed=52, lf=0.95)
+    full = _device_table(t, "cuda")
+    cut = nl.DeviceTable(full.lines, full.next_idx, full.capacity,
+                         full.home_capacity, full.host_check, max_probes)
+    _check(nl.TableGroup([cut]), _queries(keys, 4096, 0.9, seed=5), "lines",
+           lanes)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("variant", nh.VARIANTS)
+@pytest.mark.parametrize("n_q", [1, 7, 8, 9, 31, 33, 1000])
+def test_probe_lines_unpadded_batches(variant, n_q, lanes):
+    """Batches straight into the kernel, not padded to a block (at 8 lanes
+    32 queries a block, the last block partly empty); segments that end
+    before the batch, so the last queries come back zero."""
+    keys, t = _table(variant, 3000, seed=17)
+    group = nl.TableGroup([_device_table(t, "cuda")])
+    q = _queries(keys, n_q, 0.7, seed=n_q)
+    qh, ql = (nl.to_device(x, "cuda") for x in hc.key_split_np(q))
+    for seg in ([0, n_q], [0, n_q - 1 if n_q > 1 else 0]):
+        with _forced_lanes(lanes):
+            got = nl.probe_lines(group, qh, ql, seg)
+        want = ref.probe_group(group, qh, ql, seg)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_probe_lines_lanes_by_the_batch():
+    """The wrapper probes a batch whose 8-lane groups fill at most 5/8 of
+    the card's resident threads with 8 lanes a query, one a block larger
+    (and a far larger one) with one thread a query; all bitwise equal to
+    the plain probe."""
+    keys, t = _table("neighborhash", 200_000, seed=41)
+    group = nl.TableGroup([_device_table(t, "cuda")])
+    n_sm, threads = nl._card_of(nl._library(), torch.device("cuda", 0))
+    most = 5 * n_sm * threads // (8 * nl.LINE_LANES)
+    last = most // ops.BLOCK_Q * ops.BLOCK_Q    # padded to a block: itself
+    for n_q, lanes in ((last, nl.LINE_LANES), (last + 1, 1),
+                       (4 * most, 1)):
+        before = dict(nl.lanes_launches)
+        _check(group, _queries(keys, n_q, 0.9, seed=n_q), "lines")
+        assert {k: v - before[k] for k, v in nl.lanes_launches.items()} == {
+            k: int(k == lanes) for k in nl.lanes_launches}
+
+
 def test_engine_on_card_matches_engine_on_cpu():
     item_keys, item_payloads = nh.random_kv(20_000, seed=1)
     cat_keys, cat_payloads = nh.random_kv(3_000, seed=2)
@@ -267,15 +400,42 @@ def test_engine_on_card_matches_engine_on_cpu():
 FM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _fm_check(shape, dtype, tol, seed=0):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(shape, generator=g, device="cuda").to(FM_DTYPES[dtype])
-    before = fm.launches["fused_fm"]
+def _fm_bound(x):
+    """Per sample, how far an fp32 FM term summed in any order may stray
+    from the exact one: the terms that cancel are each column's (sum_f x)^2
+    and sum_f x^2, M = sum_d[(sum_f x)^2 + sum_f x^2] in all; a column's
+    sums of F values lose up to ~F u of that (u = 2^-24), and the D column
+    terms, met in a tree (kernel) or pairwise (plain), ~sqrt(D) u; with a
+    factor 4 of room.  A misread element moves a term by ~|x| |sum_f x|,
+    far more at these shapes; one fixed tolerance cannot follow M."""
+    x64 = x.double()
+    m = (x64.sum(dim=1) ** 2 + (x64 * x64).sum(dim=1)).sum(dim=-1)
+    return 4 * (x.shape[1] + x.shape[2] ** 0.5) * 2.0 ** -24 * m
+
+
+def _fm_check(shape, dtype, tol, seed=0, branch=None, x=None):
+    """``tol`` None: the kernel and the plain FM each within _fm_bound of
+    the FM term in float64."""
+    if x is None:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(shape, generator=g, device="cuda").to(
+            FM_DTYPES[dtype])
+    before, paths = fm.launches["fused_fm"], dict(fm.paths)
     got = ops.fm_interaction(x)
     assert fm.launches["fused_fm"] == before + 1
+    if branch is not None:
+        assert {k: v - paths[k] for k, v in fm.paths.items()} == {
+            k: int(k == branch) for k in fm.paths}
     want = ref.fused_fm(x)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (shape[0],)
+    if tol is None:
+        x64 = x.double()
+        exact = 0.5 * (x64.sum(dim=1) ** 2 - (x64 * x64).sum(dim=1)).sum(-1)
+        bound = _fm_bound(x)
+        assert bool(((got.double() - exact).abs() <= bound).all())
+        assert bool(((want.double() - exact).abs() <= bound).all())
+        return
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
@@ -314,6 +474,83 @@ def test_fused_fm_rejects_what_it_does_not_take():
         fm.fused_fm(torch.zeros(4, 3, device="cuda"))
     assert fm.launches["fused_fm"] == before
     _fm_check((64, 39, 10), "float32", 1e-4)        # contiguous: launches
+
+
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", list(FM_DTYPES))
+@pytest.mark.parametrize("where", ["tile", "stage_tile", "all_sms",
+                                   "one_wave", "two_waves"])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_fused_fm_bulk_around_tiles_and_waves(dtype, where, delta):
+    """DeepFM's [B, 39, 10] on the bulk branch, B one below, at and one
+    above: the least tile (S), a stage's tile, a tile for every SM, one
+    persistent wave of tiles and two.  B % S != 0 leaves a partial last
+    tile, whose span ends off 16 B and is finished by plain loads."""
+    elt = 4 if dtype == "float32" else 2
+    n_sm = _sm_count()
+    least = fm.plan(1, 39, 10, elt, n_sm, True).tile
+    stage = fm.plan(10**7, 39, 10, elt, n_sm, True).tile
+    wave = stage * fm.BLOCKS_PER_SM * n_sm
+    b = {"tile": least, "stage_tile": stage, "all_sms": least * n_sm,
+         "one_wave": wave, "two_waves": 2 * wave}[where] + delta
+    assert fm.plan(b, 39, 10, elt, n_sm, True).branch == "bulk"
+    _fm_check((b, 39, 10), dtype, None, seed=b, branch="bulk")
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((77, 39, 10), "bfloat16"),        # 780 B a sample
+    ((1, 39, 10), "bfloat16"),         # one sample, 12 B past 16 B
+    ((1000, 13, 9), "float32"),        # odd F * D: 468 B a sample
+    ((333, 3, 7), "float32"),          # 84 B a sample
+    ((129, 3, 7), "bfloat16"),         # 42 B a sample
+    ((17, 1, 1), "float32")])          # 4 B a sample
+def test_fused_fm_spans_off_16_bytes(shape, dtype):
+    """Samples whose span is not a multiple of 16 B: tiles of a multiple of
+    the least count that is, by bulk copy; the last tile's ragged end by
+    plain loads."""
+    elt = 4 if dtype == "float32" else 2
+    b, f, d = shape
+    assert (f * d * elt) % 16 != 0
+    p = fm.plan(b, f, d, elt, _sm_count(), True)
+    assert p.branch == "bulk" and (p.tile * f * d * elt) % 16 == 0
+    _fm_check(shape, dtype, None, seed=b, branch="bulk")
+
+
+@pytest.mark.parametrize("dtype", list(FM_DTYPES))
+@pytest.mark.parametrize("shape", [(64, 39, 256), (5, 100, 200),
+                                   (3, 4, 20000), (9, 300, 33)])
+def test_fused_fm_sample_larger_than_a_stage(dtype, shape):
+    """F = 39, D = 256 fp32 is 39,936 B a sample, past a 16 KB stage: the
+    loads branch, whole samples in its buffer; larger still (80 KB, 320 KB
+    with a row of 20,000), one sample a tile summed where it lies."""
+    elt = 4 if dtype == "float32" else 2
+    b, f, d = shape
+    assert f * d * elt > fm.STAGE_BYTES
+    assert fm.plan(b, f, d, elt, _sm_count(), True).branch == "loads"
+    _fm_check(shape, dtype, None, seed=f, branch="loads")
+
+
+@pytest.mark.parametrize("dtype", list(FM_DTYPES))
+@pytest.mark.parametrize("shape", [(512, 39, 10), (130, 7, 16), (5, 1, 3)])
+def test_fused_fm_branch_by_alignment(dtype, shape):
+    """The same values from a 16 B aligned tensor (bulk) and from a view
+    off a 16 B boundary (loads: scalar head and tail, 16 B between)."""
+    g = torch.Generator(device="cuda").manual_seed(shape[0])
+    n = shape[0] * shape[1] * shape[2]
+    flat = torch.randn(n + 1, generator=g, device="cuda").to(FM_DTYPES[dtype])
+    off = flat[1:].view(shape)
+    assert off.data_ptr() % 16 != 0
+    _fm_check(shape, dtype, None, branch="loads", x=off)
+    _fm_check(shape, dtype, None, branch="bulk", x=off.clone())
+
+
+def test_fused_fm_no_dim():
+    out = fm.fused_fm(torch.ones(5, 3, 0, device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros(5, device="cuda"))
 
 
 def test_fm_interaction_raises_when_the_library_cannot_load(monkeypatch):
