@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs four phases.  Two send batch queries through
+together, then runs six phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -38,6 +38,25 @@ batch against the version it reports.
   more traced.  Every ``embedding_bag`` launch is held against the plain
   bag lookup on the same tensors, every request's user vectors against the
   same model with the plain bag lookup, and their norms against 1.
+
+* **E** — DeepFM's ``retrieval_cand`` cell (``configs/deepfm.CONFIG``,
+  after C's model is freed): one warm-up and 16 timed requests, each
+  1,000,000 candidate rows from ``synthetic.recsys_batch`` ranked through
+  ``serve_step.bulk_rank_fn`` (one ``fused_fm`` launch at
+  [1,000,000, 39, 10] a request), then one more traced.
+* **F** — two-tower's ``retrieval_cand`` cell on D's model: one warm-up and
+  16 timed requests, each one user against 1,000,000 zipf candidates
+  through ``serve_step.retrieval_fn`` (the item tower over every candidate,
+  one ``embedding_bag`` launch at [1, 50]), then one more traced.
+
+E and F hold each kernel launch against its plain version, and each
+request's top 100 against the same model with the plain FM or bag on the
+same device batch: values within 1e-5, every returned value its index's
+score, the order ``jax.lax.top_k``'s on the card's own scores (equal
+scores by ascending index), and the two lists equal but where neighbouring
+scores lie within 1e-5.  F also says whether repeated (item, category)
+candidates got bitwise-equal scores, and E splits its upload into the host
+concatenation of the columns and the pageable copy to the card.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
@@ -114,6 +133,9 @@ SATURATION_BATCHES = (1 << 14, 20_480, 21_120, 21_121, 24_576, 1 << 15,
 D_REQUESTS, D_ROWS = 64, 512   # the serve_p99 cell's batch
 BAG_TOL = 1e-5                 # kernel vs plain bag, both fp32 sums
 BAG_BULK_ROWS = 262_144        # the serve_bulk cell's batch
+# phases E and F: the retrieval_cand cell (1 user, 1M candidates, top 100)
+R_CANDIDATES, R_REQUESTS, TOP_K = 1_000_000, 16, 100
+TOP_K_TOL = 1e-5               # kernel path vs plain path, fp32 scores
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
@@ -622,24 +644,33 @@ class BagLog(OpLog):
         super().__init__("embedding_bag", ref.embedding_bag, BAG_TOL, 0.0)
 
 
-class Uploads:
-    """Keeps the host batch each request hands to ``serve_step._upload``:
-    its dense columns are the spliced features."""
+class Calls:
+    """Keeps each call of ``owner.<attr>`` while the block runs, as (its
+    first argument, its result) in ``calls``: the host batch each request
+    hands to ``serve_step._upload`` (whose dense columns are the spliced
+    features) with its columns on the card, or the scores each
+    ``rec.lax_top_k`` ranks with its answer."""
 
-    def __init__(self):
-        self.orig = serve_step._upload
-        self.last = None
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+        self.orig = getattr(owner, attr)
+        self.calls = []
 
     def __enter__(self):
-        serve_step._upload = self._record
+        setattr(self.owner, self.attr, self._record)
         return self
 
     def __exit__(self, *exc):
-        serve_step._upload = self.orig
+        setattr(self.owner, self.attr, self.orig)
 
-    def _record(self, batch, device):
-        self.last = (batch, self.orig(batch, device))
-        return self.last[1]
+    @property
+    def last(self):
+        return self.calls[-1]
+
+    def _record(self, first, *args, **kw):
+        out = self.orig(first, *args, **kw)
+        self.calls.append((first, out))
+        return out
 
 
 def check_request(probs, batch, uploads, model, fm_log, feats, pop, n_items,
@@ -733,9 +764,9 @@ def run_phase_c(device, log, fm_log, cfg=deepfm.CONFIG, n_items=C_ITEMS):
 
     def score(step, batch, timed, prof=contextlib.nullcontext()):
         nonlocal max_err, scored
-        # the clock wraps _upload first, so Uploads sees the timed call
+        # the clock wraps _upload first, so Calls sees the timed call
         with clock if timed else contextlib.nullcontext(), \
-                Uploads() as uploads, prof:
+                Calls(serve_step, "_upload") as uploads, prof:
             t0 = time.perf_counter()
             probs = step(batch)
             t1 = time.perf_counter()
@@ -811,40 +842,60 @@ def fm_bound_ms(shape):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def measure_fm(fm_log, flush):
-    """fused_fm at the main path's shape (the last launch's input) and at
-    the serve_bulk batch, beside the plain FM."""
-    (emb,) = fm_log.last
+def fm_timing(emb, flush, iters, plain_iters):
+    """fused_fm on ``emb`` (fp32) by events and by profiler, cold L2, beside
+    the plain FM and its bound; first held against the plain FM, with the
+    branch the launch took."""
     kernel = functools.partial(fm.fused_fm, emb)
+    before = dict(fm.paths)
+    got, want = kernel(), ref.fused_fm(emb)
+    branch = [k for k in fm.paths if fm.paths[k] != before[k]]
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=FM_TOL, atol=FM_TOL):
+        fail(f"fused_fm differs from the plain FM at {tuple(emb.shape)} "
+             f"(max abs err {err})")
+    del got, want
     bound, by = fm_bound_ms(tuple(emb.shape))
+    return {"shape": list(emb.shape), "branch": branch[0],
+            "max_abs_err": err,
+            "ms": time_ms(kernel, iters, flush),
+            "kernel_ms": kernel_ms(kernel, "fused_fm_", iters, flush),
+            "host_ms": host_ms(kernel, iters),
+            "plain_ms": time_ms(lambda: ref.fused_fm(emb), plain_iters,
+                                flush),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def measure_fm(fm_log, flush, retrieval):
+    """fused_fm at phase C's shape (the last launch's input), at the
+    serve_bulk batch, and at phase E's retrieval_cand batch (``retrieval``:
+    its last launch's input), beside the plain FM."""
+    (emb,) = fm_log.last
     row = {"name": "fused_fm", "route": "cuda",
            "source": SOURCE["fused_fm"], "replaces": REPLACES["fused_fm"],
-           "launches": None, "max_abs_err": fm_log.max_err,
-           "shape": list(emb.shape),
-           "ms": time_ms(kernel, 50, flush),
-           "kernel_ms": kernel_ms(kernel, "fused_fm_", 50, flush),
-           "host_ms": host_ms(kernel, 50),
-           "plain_ms": time_ms(lambda: ref.fused_fm(emb), 50, flush),
-           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "launches": None, **fm_timing(emb, flush, 50, 50),
+           "max_abs_err": fm_log.max_err,
            "library_note": "no single PyTorch call computes the FM term"}
     g = torch.Generator(device=emb.device).manual_seed(11)
     bulk = torch.randn(FM_BULK, generator=g, device=emb.device).mul_(0.05)
-    before = dict(fm.paths)
-    got, want = fm.fused_fm(bulk), ref.fused_fm(bulk)
-    branch = [k for k in fm.paths if fm.paths[k] != before[k]]
-    bulk_err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=FM_TOL, atol=FM_TOL):
-        fail(f"fused_fm differs from the plain FM at {FM_BULK} "
-             f"(max abs err {bulk_err})")
-    bound, by = fm_bound_ms(FM_BULK)
-    kernel = functools.partial(fm.fused_fm, bulk)
-    row["bulk"] = {"shape": list(FM_BULK), "branch": branch[0],
-                   "max_abs_err": bulk_err,
-                   "ms": time_ms(kernel, 20, flush),
-                   "kernel_ms": kernel_ms(kernel, "fused_fm_", 20, flush),
-                   "plain_ms": time_ms(lambda: ref.fused_fm(bulk), 5, flush),
-                   "bound_ms": bound, "bound_by": by}
+    row["bulk"] = fm_timing(bulk, flush, 20, 5)
+    del bulk
+    row["retrieval"] = fm_timing(retrieval, flush, 20, 5)
     return row
+
+
+def fm_plan_line(emb, paths):
+    """fused_fm's plan for ``emb`` and launches by branch (``paths``)."""
+    n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
+    p = fm.plan(*emb.shape, emb.element_size(), n_sm,
+                emb.data_ptr() % 16 == 0)
+    n_tiles = -(-emb.shape[0] // p.tile)
+    return {"shape": list(emb.shape), "branch": p.branch,
+            "tile_samples": p.tile, "stages": p.stages, "blocks": p.blocks,
+            "threads": p.threads, "tiles": n_tiles,
+            "last_tile_samples": emb.shape[0] - (n_tiles - 1) * p.tile,
+            **{f"{k}_launches": v for k, v in paths.items()},
+            "bulk_share": paths["bulk"] / max(1, sum(paths.values()))}
 
 
 def fm_design(fm_log, paths):
@@ -852,16 +903,9 @@ def fm_design(fm_log, paths):
     and at the serve_bulk batch, and the main path's launches by branch."""
     (emb,) = fm_log.last
     n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
-    main = fm.plan(*emb.shape, emb.element_size(), n_sm,
-                   emb.data_ptr() % 16 == 0)
     bulk = fm.plan(*FM_BULK, 4, n_sm, True)
-    return {"shape": list(emb.shape), "branch": main.branch,
-            "tile_samples": main.tile, "stages": main.stages,
-            "blocks": main.blocks, "threads": main.threads,
-            "bulk_shape_tile_samples": bulk.tile,
-            "bulk_shape_blocks": bulk.blocks,
-            **{f"{k}_launches": v for k, v in paths.items()},
-            "bulk_share": paths["bulk"] / max(1, sum(paths.values()))}
+    return {**fm_plan_line(emb, paths), "bulk_shape_tile_samples": bulk.tile,
+            "bulk_shape_blocks": bulk.blocks}
 
 
 def lines_design(launch, row, lanes_counts, flush):
@@ -911,13 +955,9 @@ def check_user_vectors(vecs, batch, uploads, model, bag_log, what):
     return err, norm_err
 
 
-def run_phase_d(device, bag_log, cfg=two_tower_retrieval.CONFIG,
-                requests=D_REQUESTS):
-    """Two-tower user-tower serving (by default at full published width)
-    through ``recsys_score_fn`` with no feature source, as the JAX
-    launcher's serve_p99 cell serves it; returns the phase's metrics."""
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+def two_tower_model(device, cfg=two_tower_retrieval.CONFIG):
+    """The two-tower model of phases D and F (by default at full published
+    width), random weights from seed 0."""
     t0 = time.perf_counter()
     model = rec.recsys_init(cfg, seed=0, device=device)
     if device.type == "cuda":
@@ -926,6 +966,21 @@ def run_phase_d(device, bag_log, cfg=two_tower_retrieval.CONFIG,
           f"card (users {cfg.user_vocab}, items {cfg.item_vocab}, cats "
           f"{cfg.cat_vocab} x {cfg.embed_dim}; towers {cfg.tower_mlp}), "
           f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    return model
+
+
+def max_memory(device):
+    return (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+            else None)
+
+
+def run_phase_d(model, bag_log, requests=D_REQUESTS):
+    """Two-tower user-tower serving through ``recsys_score_fn`` with no
+    feature source, as the JAX launcher's serve_p99 cell serves it; returns
+    the phase's metrics."""
+    cfg, device = model.cfg, model.device
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     step = serve_step.recsys_score_fn(cfg, model)
     clock = LayerClock((
         (serve_step, "_upload", "upload"),
@@ -937,9 +992,9 @@ def run_phase_d(device, bag_log, cfg=two_tower_retrieval.CONFIG,
 
     def score(batch, timed, prof=contextlib.nullcontext()):
         nonlocal scored
-        # the clock wraps _upload first, so Uploads sees the timed call
+        # the clock wraps _upload first, so Calls sees the timed call
         with clock if timed else contextlib.nullcontext(), \
-                Uploads() as uploads, prof:
+                Calls(serve_step, "_upload") as uploads, prof:
             t0 = time.perf_counter()
             vecs = step(batch)
             t1 = time.perf_counter()
@@ -977,8 +1032,7 @@ def run_phase_d(device, bag_log, cfg=two_tower_retrieval.CONFIG,
         "max_abs_err_user_vectors": errs[0], "max_norm_err": errs[1],
         "max_abs_err_bag": bag_log.max_err,
         "param_bytes": model.param_bytes(),
-        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
-                                 if device.type == "cuda" else None),
+        "max_memory_allocated": max_memory(device),
         "host_ms_per_request": split,
         "traced_request": {
             "ms": traced_ms, "device_busy_ms": busy_ms,
@@ -1044,10 +1098,11 @@ def bag_timing(table, ids, flush, iters, plain_iters):
     return row
 
 
-def measure_bag(bag_log, flush):
-    """embedding_bag at the main path's shape (the last launch's input) and
-    at the serve_bulk batch of CONFIG's zipf histories over the same item
-    table."""
+def measure_bag(bag_log, retrieval_log, flush):
+    """embedding_bag at phase D's shape (the last launch's input), at the
+    serve_bulk batch of CONFIG's zipf histories over the same item table,
+    and at phase F's retrieval_cand shape (``retrieval_log``'s last
+    launch)."""
     table, ids, *_ = bag_log.last
     row = {"name": "embedding_bag", "route": "cuda",
            "source": SOURCE["embedding_bag"],
@@ -1058,7 +1113,309 @@ def measure_bag(bag_log, flush):
                                    two_tower_retrieval.CONFIG, BAG_BULK_ROWS)
     bulk = torch.from_numpy(batch["hist_items"]).to(table.device)
     row["bulk"] = bag_timing(table, bulk, flush, 20, 3)
+    del bulk
+    table, ids, *_ = retrieval_log.last
+    row["retrieval"] = {**bag_timing(table, ids, flush, 50, 20),
+                        "max_abs_err": retrieval_log.max_err}
     return row
+
+
+# ---------------------------------------------------------------------------
+# phases E and F: the retrieval_cand cell
+# ---------------------------------------------------------------------------
+def check_top_k(got, scores, want, want_scores, what):
+    """A request's top k (``got``: values and indices, of ``scores``)
+    against the plain path's (``want``, of ``want_scores``): values within
+    TOP_K_TOL; every returned value its index's score, bitwise; the order
+    ``jax.lax.top_k``'s on ``scores`` (descending, equal scores by ascending
+    index), rebuilt on the host; the indices the plain path's but where a
+    neighbouring score (the plain path's (k+1)-th included) lies within
+    TOP_K_TOL.  Returns the distinct values of each row and how many
+    positions hold another index than the plain path's."""
+    (gv, gi), (wv, wi) = got, want
+    k, n = gv.shape[-1], scores.shape[-1]
+    if gv.shape != wv.shape or not bool(gv.isfinite().all()):
+        fail(f"{what}: top-{k} values are not finite of shape "
+             f"{tuple(wv.shape)}")
+    err = float((gv - wv).abs().max())
+    if not err <= TOP_K_TOL:
+        fail(f"{what}: top-{k} values differ from the plain path's by {err}")
+    s2, gv2, gi2 = (t.reshape(-1, t.shape[-1]) for t in (scores, gv, gi))
+    if not torch.equal(s2.gather(1, gi2), gv2):
+        fail(f"{what}: a returned value is not its index's score")
+    s_host, gi_host = s2.cpu().numpy(), gi2.cpu().numpy()
+    for r in range(len(s_host)):
+        cand = np.flatnonzero(s_host[r] >= s_host[r][gi_host[r][-1]])
+        order = cand[np.lexsort((cand, -s_host[r][cand]))][:k]
+        if not np.array_equal(order, gi_host[r]):
+            fail(f"{what}: the top {k} are not in lax.top_k's order "
+                 "(descending, equal scores by ascending index)")
+    w2 = want_scores.reshape(-1, n)
+    nxt = (torch.topk(w2, k + 1).values[:, -1] if k < n
+           else torch.full((len(w2),), float("-inf"), device=w2.device))
+    wv2, wi2 = wv.reshape(-1, k), wi.reshape(-1, k)
+    inf = torch.full((1,), float("inf"), device=wv2.device)
+    moved = 0
+    for r in range(len(wv2)):
+        v = torch.cat([inf, wv2[r], nxt[r:r + 1]])
+        apart = (v[1:-1] - v[2:] > TOP_K_TOL) & (v[:-2] - v[1:-1] > TOP_K_TOL)
+        differ = gi2[r] != wi2[r]
+        if bool((apart & differ).any()):
+            fail(f"{what}: the top {k} differ from the plain path's at a "
+                 f"score more than {TOP_K_TOL} from its neighbours")
+        moved += int(differ.sum())
+    return {"max_abs_err": err, "positions_moved": moved,
+            "distinct_values": [int(torch.unique(row).numel())
+                                for row in gv2]}
+
+
+def repeated_pair_scores(scores, ids, cats, cat_vocab):
+    """Whether candidates that repeat an (item, category) pair got
+    bitwise-equal scores: the pairs that repeat, how many of them scored
+    equal in every copy, and the candidates they cover."""
+    key = ids.long() * cat_vocab + cats.long()
+    _, inv, counts = torch.unique(key, return_inverse=True,
+                                  return_counts=True)
+    hi = torch.full(counts.shape, float("-inf"), device=scores.device)
+    lo = torch.full(counts.shape, float("inf"), device=scores.device)
+    hi = hi.scatter_reduce(0, inv, scores, "amax")
+    lo = lo.scatter_reduce(0, inv, scores, "amin")
+    rep = counts > 1
+    return {"pairs": int(counts.numel()), "repeated_pairs": int(rep.sum()),
+            "candidates_in_repeated_pairs": int(counts[rep].sum()),
+            "repeated_pairs_bitwise_equal": int((rep & (hi == lo)).sum())}
+
+
+def draw_requests(draw, n, seed):
+    """``n`` requests ``draw(rng)``, each from its own generator spawned from
+    ``seed``, drawn in parallel threads (numpy's generators release the
+    interpreter lock) before any is timed."""
+    rngs = [np.random.default_rng(s)
+            for s in np.random.SeedSequence(seed).spawn(n)]
+    with concurrent.futures.ThreadPoolExecutor(min(8, n)) as pool:
+        return list(pool.map(draw, rngs))
+
+
+def kernels_by_device_ms(prof, top=6):
+    """The ``top`` kernels (and copies) of a trace by device ms."""
+    ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.name[:80]] = ms.get(e.name[:80], 0.0) + \
+                (e.time_range.end - e.time_range.start) / 1e3
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:top])
+
+
+def mlp_flops(dims, rows):
+    """Multiply-adds of an MLP over ``rows`` rows, as operations."""
+    return 2 * rows * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
+
+
+def run_retrieval(name, step, requests, check, clock, launched, device):
+    """Phase E or F's loop: ``requests`` (host arguments of ``step``) of
+    which the first is a warm-up, the last traced and the rest timed;
+    ``check(out, uploads, topk, what)`` holds each answer against the plain
+    path after ``launched(what)`` has checked its kernel launch.  Returns
+    the latencies, the waits, the checks' results and the traced request's
+    profiler and ms."""
+    lat, wait, checks = [], [], []
+    prof = request_profiler(device)
+    traced_ms = None
+    for r, args in enumerate(requests):
+        timed = 0 < r < len(requests) - 1
+        traced = r == len(requests) - 1
+        # the clock wraps first, so Calls sees the timed calls
+        with clock if timed else contextlib.nullcontext(), \
+                Calls(serve_step, "_upload") as uploads, \
+                Calls(rec, "lax_top_k") as topk, \
+                prof if traced else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            values, indices = step(*args)
+            t1 = time.perf_counter()
+            values.cpu(), indices.cpu()                 # waits for the card
+            t2 = time.perf_counter()
+        if timed:
+            lat.append(t2 - t0)
+            wait.append(t2 - t1)
+        if traced:
+            traced_ms = (t2 - t0) * 1e3
+        what = f"[{name}] request {r}"
+        launched(what)
+        checks.append(check((values, indices), uploads, topk, what))
+    return lat, wait, checks, prof, traced_ms
+
+
+def launch_check(op_log, arg, shape):
+    """-> ``check(what)``: the request launched ``op_log``'s op exactly
+    once, its input ``arg`` of ``shape``; then held against the plain
+    version."""
+    def check(what):
+        shapes = [tuple(args[arg].shape) for args, _, _ in op_log.pending]
+        if shapes != [tuple(shape)]:
+            fail(f"{what}: {op_log.op} launched at {shapes}, expected once "
+                 f"at {tuple(shape)}")
+        op_log.check_pending()
+    return check
+
+
+def retrieval_metrics(name, cfg, n, lat, wait, checks, clock, prof,
+                      traced_ms, device):
+    lat_ms = np.array(lat) * 1e3
+    k = len(lat)
+    split = {key: v * 1e3 / k for key, v in clock.seconds.items()}
+    split["wait"] = float(np.sum(wait)) * 1e3 / k
+    busy_ms, busy_events = device_busy_ms(prof)
+    p50 = float(np.percentile(lat_ms, 50))
+    return {"phase": name, "model": cfg.name, "candidates": n,
+            "top_k": TOP_K, "requests_checked": len(checks),
+            "requests_timed": k,
+            "request_p50_ms": p50,
+            "request_p99_ms": float(np.percentile(lat_ms, 99)),
+            "candidates_per_s": n * k / float(np.sum(lat)),
+            "max_abs_err_top_k": max(c["max_abs_err"] for c in checks),
+            "positions_moved": sum(c["positions_moved"] for c in checks),
+            "distinct_values_in_top_k": [c["distinct_values"][0]
+                                         for c in checks],
+            "max_memory_allocated": max_memory(device),
+            "matmul_precision": torch.get_float32_matmul_precision(),
+            "host_ms_per_request": split,
+            "traced_request": {
+                "ms": traced_ms, "device_busy_ms": busy_ms,
+                "device_events": busy_events,
+                "busy_share": busy_ms / traced_ms,
+                "busy_share_of_p50": busy_ms / p50,
+                "device_ms_by_kernel": kernels_by_device_ms(prof)}}
+
+
+def upload_split(batch, names, device, reps=3):
+    """``serve_step._upload`` of ``batch``'s columns ``names`` (already
+    int32 or float32, as a request's are), split: the host concatenation
+    into one buffer, and the pageable host-to-device copy of that buffer,
+    each the median host time of ``reps``, the card drained."""
+    cols = [np.asarray(batch[k]).reshape(-1).view(np.int32) for k in names]
+    concat, copy = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        words = np.concatenate(cols)
+        t1 = time.perf_counter()
+        torch.from_numpy(words).to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        concat.append(t1 - t0)
+        copy.append(t2 - t1)
+    h2d = float(np.median(copy))
+    return {"bytes": words.nbytes,
+            "concat_ms": float(np.median(concat)) * 1e3,
+            "h2d_ms": h2d * 1e3, "h2d_bytes_per_s": words.nbytes / h2d}
+
+
+def run_phase_e(device, fm_log, cfg=deepfm.CONFIG, n=R_CANDIDATES,
+                requests=R_REQUESTS):
+    """DeepFM's retrieval_cand cell (by default at full published width):
+    ``n`` candidate rows a request ranked through ``bulk_rank_fn``; returns
+    the phase's metrics."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = rec.recsys_init(cfg, seed=0, device=device)
+    print(f"[E] {cfg.name}: {model.param_bytes()} parameter bytes, drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def draw(rng):
+        batch = synthetic.recsys_batch(rng, cfg, n)
+        batch.pop("label")
+        return (batch,)
+    t0 = time.perf_counter()
+    batches = draw_requests(draw, requests + 2, seed=5)
+    print(f"[E] drew {requests + 2} requests of {n} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    step = serve_step.bulk_rank_fn(cfg, model, top_k=TOP_K)
+    clock = LayerClock((
+        (serve_step, "_upload", "upload"),
+        (es, "embed_lookup", "gathers"),
+        (ops, "fm_interaction", "fm"),
+        (rec, "_mlp_apply", "mlp"),
+        (rec, "lax_top_k", "top_k")))
+
+    def check(got, uploads, topk, what):
+        (scores, _), = topk.calls
+        with fm_log.plain(), Calls(rec, "lax_top_k") as plain:
+            want = rec.bulk_rank(model, uploads.last[1], TOP_K)
+        return check_top_k(got, scores, want, plain.calls[0][0], what)
+
+    launched = launch_check(fm_log, 0, (n, cfg.n_sparse_fields,
+                                        cfg.embed_dim))
+    lat, wait, checks, prof, traced_ms = run_retrieval(
+        "E", step, batches, check, clock, launched, device)
+    m = retrieval_metrics("E", cfg, n, lat, wait, checks, clock, prof,
+                          traced_ms, device)
+    dims = (cfg.n_sparse_fields * cfg.embed_dim + cfg.n_dense,) \
+        + tuple(cfg.mlp) + (1,)
+    flops = mlp_flops(dims, n)
+    gathered = n * cfg.n_sparse_fields * (cfg.embed_dim + 1) * 4
+    upload = n * (cfg.n_sparse_fields + cfg.n_dense) * 4
+    m["bound"] = {"mlp_flops": flops, "gathered_bytes": gathered,
+                  "upload_bytes": upload,
+                  "flops_ms": flops / FP32_OPS_PER_S * 1e3,
+                  "gathered_bytes_ms": gathered / HBM_BYTES_PER_S * 1e3}
+    m["fm_max_abs_err"] = fm_log.max_err
+    m["upload_split"] = upload_split(batches[-1][0], model.inputs, device)
+    return m
+
+
+def run_phase_f(model, bag_log, n=R_CANDIDATES, requests=R_REQUESTS):
+    """Two-tower's retrieval_cand cell on ``model``: one user against ``n``
+    zipf candidates a request through ``retrieval_fn``; returns the
+    phase's metrics."""
+    cfg, device = model.cfg, model.device
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def draw(rng):
+        user = synthetic.recsys_batch(rng, cfg, 1)
+        for col in ("item_id", "item_cat"):
+            user.pop(col)
+        return (user, synthetic.zipf_ids(rng, cfg.item_vocab, n),
+                synthetic.zipf_ids(rng, cfg.cat_vocab, n))
+    requests = draw_requests(draw, requests + 2, seed=6)
+    step = serve_step.retrieval_fn(cfg, model, top_k=TOP_K)
+    clock = LayerClock((
+        (serve_step, "_upload", "upload"),
+        (es, "embed_lookup", "gathers_bag"),
+        (es, "embed_bag", "gathers_bag"),
+        (rec, "_mlp_apply", "mlp"),
+        (rec, "lax_top_k", "top_k")))
+    pairs = []
+
+    def check(got, uploads, topk, what):
+        (scores, _), = topk.calls
+        dev = uploads.last[1]
+        with bag_log.plain(), Calls(rec, "lax_top_k") as plain:
+            want = rec.retrieval_scores(model, dev, dev["cand_ids"],
+                                        dev["cand_cats"], TOP_K)
+        pairs.append(repeated_pair_scores(scores[0], dev["cand_ids"],
+                                          dev["cand_cats"], cfg.cat_vocab))
+        return check_top_k(got, scores, want, plain.calls[0][0], what)
+
+    launched = launch_check(bag_log, 1, (1, cfg.seq_len))
+    lat, wait, checks, prof, traced_ms = run_retrieval(
+        "F", step, requests, check, clock, launched, device)
+    m = retrieval_metrics("F", cfg, n, lat, wait, checks, clock, prof,
+                          traced_ms, device)
+    m["repeated_pairs"] = pairs[-1]
+    m["repeated_pairs_all_bitwise_equal"] = all(
+        p["repeated_pairs_bitwise_equal"] == p["repeated_pairs"]
+        for p in pairs)
+    flops = mlp_flops((2 * cfg.embed_dim,) + tuple(cfg.tower_mlp), n) \
+        + 2 * n * cfg.tower_mlp[-1]
+    gathered = n * 2 * cfg.embed_dim * 4
+    m["bound"] = {"item_tower_and_score_flops": flops,
+                  "gathered_bytes": gathered, "upload_bytes": 2 * n * 4,
+                  "flops_ms": flops / FP32_OPS_PER_S * 1e3,
+                  "gathered_bytes_ms": gathered / HBM_BYTES_PER_S * 1e3}
+    m["bag_max_abs_err"] = bag_log.max_err
+    return m
 
 
 def build_kernels() -> None:
@@ -1078,6 +1435,13 @@ def build_kernels() -> None:
 
 
 # ---------------------------------------------------------------------------
+def zero(*tallies) -> None:
+    """Every count of ``tallies`` to 0, just before a phase drives them."""
+    for tally in tallies:
+        for k in tally:
+            tally[k] = 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1097,9 +1461,7 @@ def main() -> int:
           f"host builder inserts one key at a time, ~23-28 us a key); "
           f"shards stay {CONFIG.max_shard_bytes} B")
 
-    for tally in (nl.launches, nl.lanes_launches):
-        for k in tally:
-            tally[k] = 0
+    zero(nl.launches, nl.lanes_launches)
     with LaunchLog() as log:
         eng_b, m_b = run_phase(
             "B", n_items=SMOKE.n_items, emb_rows=SMOKE.n_items,
@@ -1122,9 +1484,7 @@ def main() -> int:
         fail(f"kernel launches {counts} disagree with the engines' counts "
              f"A={m_a['launches']} B={m_b['launches']}")
 
-    for tally in (nl.launches, fm.launches, fm.paths):
-        for k in tally:
-            tally[k] = 0
+    zero(nl.launches, fm.launches, fm.paths)
     with LaunchLog() as log_c, FMLog() as fm_log:
         m_c = run_phase_c(device, log_c, fm_log)
     c_counts = {**nl.launches, **fm.launches}
@@ -1137,14 +1497,34 @@ def main() -> int:
     if not any(c_counts[k] for k in nl.launches):
         fail("no probe kernel was launched on phase C's feature queries")
 
+    # Phase C's model (1.72 GB) went with run_phase_c's frame; give its
+    # cached blocks back before E draws the same model anew.
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero(nl.launches, fm.launches, fm.paths, bagk.launches)
+    with FMLog() as fm_log_e:
+        m_e = run_phase_e(device, fm_log_e)
+    e_counts = {**nl.launches, **fm.launches, **bagk.launches}
+    m_e["launches"] = e_counts
+    print("[E] " + json.dumps(m_e), flush=True)
+    if e_counts["fused_fm"] != m_e["requests_checked"]:
+        fail(f"fused_fm launched {e_counts['fused_fm']} times for "
+             f"{m_e['requests_checked']} requests")
+    print("[E] fused_fm plan: " + json.dumps(fm_plan_line(
+        fm_log_e.last[0], dict(fm.paths))), flush=True)
+
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     kernels = []
     for name in ("probe_lines", "probe_smem"):
         row = measure(name, log.last[name], (eng_a, eng_b), log, flush)
         row["launches"] = counts[name]
         kernels.append(row)
-    row = measure_fm(fm_log, flush)
-    row["launches"] = c_counts["fused_fm"]
+    row = measure_fm(fm_log, flush, fm_log_e.last[0])
+    row["launches"] = c_counts["fused_fm"] + e_counts["fused_fm"]
+    row["max_abs_err"] = max(fm_log.max_err, fm_log_e.max_err)
+    row["retrieval"].update(launches=e_counts["fused_fm"],
+                            max_abs_err=fm_log_e.max_err)
+    fm_log_e.last = None                # E's 1.56 GB batch
     kernels.append(row)
     print("fused_fm design: " + json.dumps(fm_design(fm_log, c_paths)),
           flush=True)
@@ -1183,17 +1563,16 @@ def main() -> int:
         print("probe_saturation " + json.dumps(saturation(eng_a, flush, n)),
               flush=True)
 
-    # Phase C's model (1.72 GB) went with run_phase_c's frame; give its
+    # Phase E's model (1.72 GB) went with run_phase_e's frame; give its
     # cached blocks back, so that the two-tower tables (30.8 GB) and the
     # plain bag lookup's two [262144, 50, 256] fp32 intermediates at
     # serve_bulk (13.4 GB each) fit the card's 80 GB together.
     gc.collect()
     torch.cuda.empty_cache()
-    for counts in (nl.launches, fm.launches, bagk.launches, bagk.paths):
-        for k in counts:
-            counts[k] = 0
+    zero(nl.launches, fm.launches, bagk.launches, bagk.paths)
+    two_tower = two_tower_model(device)
     with BagLog() as bag_log:
-        m_d = run_phase_d(device, bag_log)
+        m_d = run_phase_d(two_tower, bag_log)
     d_counts = {**nl.launches, **fm.launches, **bagk.launches}
     m_d["launches"] = d_counts
     print("[D] " + json.dumps(m_d), flush=True)
@@ -1206,8 +1585,21 @@ def main() -> int:
         "staged_share": bagk.paths["staged"]
         / max(1, sum(bagk.paths.values()))}),
         flush=True)
-    row = measure_bag(bag_log, flush)
-    row["launches"] = d_counts["embedding_bag"]
+
+    zero(nl.launches, fm.launches, bagk.launches, bagk.paths)
+    with BagLog() as bag_log_f:
+        m_f = run_phase_f(two_tower, bag_log_f)
+    f_counts = {**nl.launches, **fm.launches, **bagk.launches}
+    m_f["launches"] = f_counts
+    m_f["embedding_bag_paths"] = dict(bagk.paths)
+    print("[F] " + json.dumps(m_f), flush=True)
+    if f_counts["embedding_bag"] != m_f["requests_checked"]:
+        fail(f"embedding_bag launched {f_counts['embedding_bag']} times for "
+             f"{m_f['requests_checked']} requests")
+    row = measure_bag(bag_log, bag_log_f, flush)
+    row["launches"] = d_counts["embedding_bag"] + f_counts["embedding_bag"]
+    row["max_abs_err"] = max(bag_log.max_err, bag_log_f.max_err)
+    row["retrieval"]["launches"] = f_counts["embedding_bag"]
     kernels.append(row)
 
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """Recsys models, from the JAX package's ``models/recsys.py``: DeepFM and
-the two-tower user tower.
+the two-tower towers, with the serving heads of the ``retrieval_cand``
+cell.
 
 DeepFM scores a request of ``sparse_ids`` [B, F] (one id per field) and
 ``dense`` [B, n_dense] features: an FM branch over the fields' embeddings,
@@ -11,8 +12,14 @@ Two-tower serving scores a request of ``user_id`` [B], ``hist_items``
 [B, L] (-1 pad) and ``dense`` [B, n_dense] with the user tower: the user's
 row, the mean of the history's item rows (the ``embedding_bag`` CUDA kernel
 on the card, ``embedding_service.embed_bag``) and the dense features
-through an MLP, L2-normalised.  The item tower and retrieval wait (ROADMAP
-queue 1).
+through an MLP, L2-normalised.  The item tower maps candidates
+(``item_id``, ``item_cat``) through their rows and its own MLP, also
+L2-normalised.
+
+``retrieval_scores`` (two-tower: user vectors against every candidate's
+item vector) and ``bulk_rank`` (DeepFM: the logits of a batch of candidate
+rows) end in ``lax_top_k``, which keeps ``jax.lax.top_k``'s order: values
+descending, equal values by ascending index.
 
 The port runs one card: every table lives whole on it.  DIN and BST wait
 for their own layers (DIN's target-attention pooling, BST's transformer
@@ -31,9 +38,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import embedding_service as es
 
-NOT_PORTED = ("{arch} is not ported: the port serves deepfm and two_tower; "
-              "DIN waits for its target-attention pooling and BST for its "
-              "transformer block (ROADMAP queue 1, item 11)")
+NOT_PORTED = ("{arch} is not ported: the port serves deepfm and two_tower "
+              "(scoring, bulk ranking and retrieval); DIN waits for its "
+              "target-attention pooling and BST for its transformer block "
+              "(ROADMAP queue 1, item 11)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,8 +170,7 @@ class TwoTower(_Recsys):
     ``item_table`` [item_vocab, D], ``cat_table`` [cat_vocab, D], and the
     ``(w [in, out], b [out])`` layers of ``user_mlp`` (2·D + n_dense ->
     tower_mlp) and ``item_mlp`` (2·D -> tower_mlp).  ``forward`` is the
-    user tower; ``cat_table`` and ``item_mlp`` serve the item tower, which
-    is not ported yet (ROADMAP queue 1)."""
+    user tower, ``item_tower`` the item tower."""
 
     inputs = ("user_id", "hist_items", "dense")
 
@@ -189,9 +196,25 @@ class TwoTower(_Recsys):
         hist = es.embed_bag(self.item_table, hist_items.to(torch.int32),
                             None, "mean")                            # [B, D]
         x = torch.cat([u, hist.to(u.dtype), dense], dim=-1)
-        v = _mlp_apply(list(zip(self.user_mlp_w, self.user_mlp_b)), x)
-        return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp(
-            min=1e-6)
+        return _l2_normalise(
+            _mlp_apply(list(zip(self.user_mlp_w, self.user_mlp_b)), x))
+
+    def item_tower(self, item_id: torch.Tensor,
+                   item_cat: torch.Tensor) -> torch.Tensor:
+        """item_id [N], item_cat [N] -> the L2-normalised item vector
+        [N, tower_mlp[-1]]: the JAX package's ``item_tower`` ('xla'
+        lookups)."""
+        e = torch.cat([es.embed_lookup(self.item_table, item_id),
+                       es.embed_lookup(self.cat_table, item_cat)], dim=-1)
+        return _l2_normalise(
+            _mlp_apply(list(zip(self.item_mlp_w, self.item_mlp_b)), e))
+
+
+def _l2_normalise(v: torch.Tensor) -> torch.Tensor:
+    """``v`` over its L2 norm, the norm clamped at 1e-6 (a zero vector stays
+    zero), as both JAX towers end."""
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp(
+        min=1e-6)
 
 
 def two_tower_init(cfg: RecsysConfig, *, generator: torch.Generator,
@@ -234,8 +257,59 @@ def recsys_score(model: nn.Module, batch: dict) -> torch.Tensor:
     if not isinstance(model, (DeepFM, TwoTower)):
         raise NotImplementedError(NOT_PORTED.format(
             arch=type(model).__name__))
-    cols = [torch.as_tensor(batch[k], device=model.device)
-            for k in model.inputs]
     with torch.inference_mode():
-        out = model(*cols)
+        out = model(*_columns(model, batch))
     return torch.sigmoid(out) if isinstance(model, DeepFM) else out
+
+
+def _columns(model: _Recsys, batch: dict) -> list:
+    """The model's ``inputs`` from ``batch``, as tensors on its device."""
+    return [torch.as_tensor(batch[k], device=model.device)
+            for k in model.inputs]
+
+
+def lax_top_k(scores: torch.Tensor,
+              k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` of ``scores`` [..., N] -> (values, indices), each
+    [..., k]: the k largest of each row in descending order, equal values
+    by ascending index.  A stable descending sort keeps equal values in
+    index order on every device, where ``torch.topk`` promises no order
+    among ties on the card."""
+    if not 0 <= k <= scores.shape[-1]:
+        raise ValueError(f"top_k of {k} from {scores.shape[-1]} scores")
+    values, indices = torch.sort(scores, dim=-1, descending=True,
+                                 stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def retrieval_scores(model: TwoTower, batch: dict, cand_ids, cand_cats,
+                     top_k: int = 100) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``retrieval_scores``: the user vectors ``u``
+    [B, D] of ``batch`` (the user tower's ``inputs``), the item vectors
+    ``c`` [N, D] of the candidates ``cand_ids``, ``cand_cats`` [N], and the
+    top ``top_k`` of ``u @ c.T`` [B, N] -> (values, indices), each
+    [B, top_k].  Every input is moved to the model's device."""
+    if not isinstance(model, TwoTower):
+        raise NotImplementedError(
+            f"retrieval_scores takes a two-tower model, not "
+            f"{type(model).__name__}")
+    dev = model.device
+    with torch.inference_mode():
+        u = model(*_columns(model, batch))                      # [B, D]
+        c = model.item_tower(torch.as_tensor(cand_ids, device=dev),
+                             torch.as_tensor(cand_cats, device=dev))
+        return lax_top_k(u @ c.T, top_k)                       # [B, N]
+
+
+def bulk_rank(model: DeepFM, batch: dict,
+              top_k: int = 100) -> tuple[torch.Tensor, torch.Tensor]:
+    """``retrieval_cand`` for a pointwise arch, as the JAX package's
+    ``bulk_rank_fn`` does it: the logits [N] of a batch of N candidate rows
+    (not probabilities) and their top ``top_k`` -> (values, indices), each
+    [top_k]."""
+    if not isinstance(model, DeepFM):
+        raise NotImplementedError(
+            f"bulk_rank takes a pointwise model (DeepFM), not "
+            f"{type(model).__name__}")
+    with torch.inference_mode():
+        return lax_top_k(model(*_columns(model, batch)), top_k)

@@ -1,12 +1,14 @@
-"""The recsys scoring step, from the JAX package's ``serve/serve_step.py``.
+"""The recsys serving steps, from the JAX package's ``serve/serve_step.py``.
 
-The step serves both ported archs (DeepFM, the two-tower user tower).  The
-columns the model reads cross to the card in one copy and the model scores
-them there.  With a feature source, a request's feature columns are first
-resolved in ONE fused, version-pinned ``FeatureClient`` query over the
-port's ``MultiTableEngine`` (whose probe runs on the card) and spliced into
-the batch's dense columns on the host (paper Fig 2's query side in front of
-the model).
+``recsys_score_fn`` scores a batch with either ported arch (DeepFM, the
+two-tower user tower); ``retrieval_fn`` (two-tower) and ``bulk_rank_fn``
+(DeepFM) serve the ``retrieval_cand`` cell, the top candidates of one user.
+Each step sends the columns the model reads (and the candidates) to the
+card in one copy and the model scores them there.  With a feature source,
+a scoring request's feature columns are first resolved in ONE fused,
+version-pinned ``FeatureClient`` query over the port's ``MultiTableEngine``
+(whose probe runs on the card) and spliced into the batch's dense columns
+on the host (paper Fig 2's query side in front of the model).
 """
 from __future__ import annotations
 
@@ -131,3 +133,40 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
         return step(batch)
 
     return step_with_store
+
+
+def retrieval_fn(cfg, model, top_k: int = 100):
+    """Retrieval step ``step(batch, cand_ids, cand_cats)`` on the model's
+    device (two-tower): ``rec.retrieval_scores`` of the user columns of
+    ``batch`` against the candidates ``cand_ids``, ``cand_cats`` [N], all
+    uploaded in one copy -> (values, indices), each [B, top_k].  No
+    feature source, as in the JAX package's ``retrieval_cand`` cell."""
+    if cfg.arch != "two_tower":
+        raise ValueError(f"retrieval_fn serves two_tower, not {cfg.arch}; "
+                         "a pointwise arch ranks through bulk_rank_fn")
+    device = model.device
+
+    def step(batch, cand_ids, cand_cats):
+        cols = _upload({**{k: batch[k] for k in model.inputs},
+                        "cand_ids": cand_ids, "cand_cats": cand_cats},
+                       device)
+        return rec.retrieval_scores(model, cols, cols["cand_ids"],
+                                    cols["cand_cats"], top_k)
+    return step
+
+
+def bulk_rank_fn(cfg, model, top_k: int = 100):
+    """``retrieval_cand`` for a pointwise arch (DeepFM): ``step(batch)``
+    uploads the model's columns of N candidate rows in one copy and returns
+    ``rec.bulk_rank`` of them on the model's device -> (values, indices) of
+    the top ``top_k`` logits."""
+    if cfg.arch != "deepfm":
+        raise ValueError(f"bulk_rank_fn ranks DeepFM, the pointwise arch "
+                         f"the port serves, not {cfg.arch}; two_tower "
+                         "retrieves through retrieval_fn")
+    device = model.device
+
+    def step(batch):
+        return rec.bulk_rank(model, _upload(
+            {k: batch[k] for k in model.inputs}, device), top_k)
+    return step

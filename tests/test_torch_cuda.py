@@ -1,11 +1,11 @@
 """The hand-written kernels on the card, each held against its plain PyTorch
 version (kernels/ref.py) on the same inputs: the probe kernels bitwise, the
 FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM
-and two-tower serving on the card against the same models on the CPU.  No
-JAX here: the parity with the JAX package is pinned on the CPU by
-test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
-test_torch_embedding_bag.py, test_torch_recsys.py and
-test_torch_two_tower.py.  Run on a CUDA machine with
+and two-tower serving and retrieval on the card against the same models on
+the CPU.  No JAX here: the parity with the JAX package is pinned on the CPU
+by test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
+test_torch_embedding_bag.py, test_torch_recsys.py, test_torch_two_tower.py
+and test_torch_retrieval.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -28,6 +28,7 @@ from repro_torch.kernels import neighbor_lookup as nl
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import recsys as rec
+from repro_torch.serve import serve_step
 
 pytestmark = [
     pytest.mark.cuda,
@@ -830,3 +831,128 @@ def test_two_tower_serve_launcher_on_card():
                              "--requests", "3", "--batch", "300"])
     assert out["device"].startswith("cuda") and out["finite"]
     assert bag.launches["embedding_bag"] == before + 4     # warm-up + 3
+
+
+# ---------------------------------------------------------------------------
+# retrieval_cand: the kernels at its shapes, the steps and the tie rule
+# ---------------------------------------------------------------------------
+TOP_K_TOL = 1e-5        # the card's and the CPU's products differ ~1e-7
+
+
+@pytest.mark.parametrize("rows,dtype", [(1_000_000, "float32"),
+                                        (999_999, "float32"),
+                                        (999_999, "bfloat16")])
+def test_fused_fm_retrieval_cand_batch_on_the_bulk_branch(rows, dtype):
+    """DeepFM's retrieval_cand batch, [1,000,000, 39, 10] fp32 (1.56 GB,
+    100,000 tiles); 999,999 rows, whose last tile is partial and ends off
+    16 B; and the same in bf16, whose tile (20) does not divide the rows.
+    Each sample within the rounding bound of the float64 FM term."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = fm.plan(rows, 39, 10, FM_DTYPES[dtype].itemsize, n_sm, True)
+    assert p.branch == "bulk"
+    assert (rows % p.tile == 0) == (rows == 1_000_000)
+    _fm_check((rows, 39, 10), dtype, None, seed=rows, branch="bulk")
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("padding", ["none", "tail", "all"])
+def test_embedding_bag_one_bag_of_fifty(padding, mode):
+    """The user tower's bag in retrieval_cand: one bag of 50 over rows of
+    256 fp32, one block on the staged branch; a history padded at its
+    tail, and one of only padding, which gives zeros."""
+    table, ids, _ = _bag_inputs(1, BAG_L, 100_000, 256, torch.float32,
+                                seed=50, weighted=False)
+    ids = ids.abs()
+    if padding == "tail":
+        ids[0, 17:] = -1
+    elif padding == "all":
+        ids[:] = -1
+    paths = _paths_of(lambda: _bag_check(table, ids, None, mode))
+    assert paths == {"staged": 1, "registers": 0}
+    if padding == "all":
+        assert bool((ops.embedding_bag(table, ids, mode=mode) == 0).all())
+
+
+def _same_top_k(got, want, want_next):
+    """The card's (values, indices) against the CPU's: values within
+    TOP_K_TOL; indices equal wherever the CPU list's neighbouring scores
+    (``want_next``, its (k+1)-th, included) lie more than TOP_K_TOL apart;
+    equal values on the card in ascending index order."""
+    gv, gi = (t.cpu().reshape(-1, t.shape[-1]) for t in got)
+    wv, wi = (t.reshape(-1, t.shape[-1]) for t in want)
+    torch.testing.assert_close(gv, wv, rtol=0, atol=TOP_K_TOL)
+    nxt = want_next.reshape(-1)
+    for r in range(len(wv)):
+        s = torch.cat([torch.tensor([float("inf")]), wv[r], nxt[r:r + 1]])
+        apart = (s[1:-1] - s[2:] > TOP_K_TOL) & (s[:-2] - s[1:-1] > TOP_K_TOL)
+        assert torch.equal(gi[r][apart], wi[r][apart])
+        tied = gv[r][1:] == gv[r][:-1]
+        assert bool((gi[r][1:][tied] > gi[r][:-1][tied]).all())
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+def test_retrieval_fn_on_card_matches_cpu(n):
+    """Two-tower retrieval at SMOKE: 8 users against n zipf candidates,
+    one embedding_bag launch a request, the top 100 (at most n) as the
+    same model gives it on the CPU."""
+    cfg = two_tower_retrieval.SMOKE
+    on_cpu = rec.recsys_init(cfg, seed=0, device="cpu")
+    on_card = rec.recsys_init(cfg, seed=0, device="cpu").to("cuda")
+    rng = np.random.default_rng(n)
+    user = synthetic.recsys_batch(rng, cfg, 8)
+    ids = synthetic.zipf_ids(rng, cfg.item_vocab, n)
+    cats = synthetic.zipf_ids(rng, cfg.cat_vocab, n)
+    k = min(100, n)
+    before = bag.launches["embedding_bag"]
+    got = serve_step.retrieval_fn(cfg, on_card, top_k=k)(user, ids, cats)
+    assert bag.launches["embedding_bag"] == before + 1
+    assert got[0].device.type == "cuda" and got[0].shape == (8, k)
+    wv, wi = serve_step.retrieval_fn(cfg, on_cpu, top_k=min(k + 1, n))(
+        user, ids, cats)
+    nxt = wv[:, k] if k < n else torch.full((8,), float("-inf"))
+    _same_top_k(got, (wv[:, :k], wi[:, :k]), nxt)
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+def test_bulk_rank_fn_on_card_matches_cpu(n):
+    """DeepFM bulk ranking at SMOKE: n candidate rows, one fused_fm launch,
+    the top 100 (at most n) logits as the same model gives them on the
+    CPU."""
+    cfg = deepfm.SMOKE
+    on_cpu = rec.recsys_init(cfg, seed=0, device="cpu")
+    on_card = rec.recsys_init(cfg, seed=0, device="cpu").to("cuda")
+    batch = synthetic.recsys_batch(np.random.default_rng(n), cfg, n)
+    k = min(100, n)
+    before = fm.launches["fused_fm"]
+    got = serve_step.bulk_rank_fn(cfg, on_card, top_k=k)(batch)
+    assert fm.launches["fused_fm"] == before + 1
+    wv, wi = serve_step.bulk_rank_fn(cfg, on_cpu, top_k=min(k + 1, n))(batch)
+    nxt = wv[k:k + 1] if k < n else torch.tensor([float("-inf")])
+    _same_top_k(got, (wv[:k], wi[:k]), nxt)
+
+
+@pytest.mark.parametrize("n,levels,k", [(300, 5, 50), (4096, 9, 100),
+                                        (1_000_000, 40, 100),
+                                        (1_000_000, 3, 1000)])
+def test_lax_top_k_breaks_ties_by_index_on_the_card(n, levels, k):
+    """Bitwise-equal scores on the card (a few levels, so the top k is a
+    handful of values repeated, ties across the cut): exactly the values
+    and indices of a (value descending, index ascending) order."""
+    rng = np.random.default_rng(n + levels)
+    scores = (rng.integers(0, levels, n) * 0.5 - 3).astype(np.float32)
+    order = np.lexsort((np.arange(n), -scores))[:k]
+    gv, gi = rec.lax_top_k(torch.from_numpy(scores).cuda(), k)
+    np.testing.assert_array_equal(gv.cpu().numpy(), scores[order])
+    np.testing.assert_array_equal(gi.cpu().numpy(), order)
+
+
+@pytest.mark.parametrize("arch,kernel", [("deepfm", "fused_fm"),
+                                         ("two-tower-retrieval",
+                                          "embedding_bag")])
+def test_retrieval_cand_launcher_on_card(arch, kernel):
+    launches = fm.launches if kernel == "fused_fm" else bag.launches
+    before = launches[kernel]
+    out = launch_serve.main(["--arch", arch, "--shape", "retrieval_cand",
+                             "--smoke", "--requests", "2"])
+    assert out["device"].startswith("cuda") and out["finite"]
+    assert launches[kernel] == before + 3            # warm-up + 2

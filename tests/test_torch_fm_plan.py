@@ -26,6 +26,9 @@ DEEPFM = (39, 10)                           # fields, embed_dim
 SHAPES = {
     "deepfm-request": ((512, 39, 10, 4, True), "bulk"),
     "deepfm-serve-bulk": ((262144, 39, 10, 4, True), "bulk"),
+    "deepfm-retrieval-cand": ((1_000_000, 39, 10, 4, True), "bulk"),
+    "deepfm-retrieval-partial": ((999_999, 39, 10, 4, True), "bulk"),
+    "deepfm-retrieval-partial-bf16": ((999_999, 39, 10, 2, True), "bulk"),
     "deepfm-bf16": ((512, 39, 10, 2, True), "bulk"),
     "bf16-one-sample": ((1, 39, 10, 2, True), "bulk"),
     "odd-fd-fp32": ((1000, 13, 9, 4, True), "bulk"),
@@ -42,6 +45,9 @@ SHAPES = {
     "no-fields": ((5, 0, 10, 4, True), "loads"),
     "no-dim": ((5, 3, 0, 4, True), "loads"),
 }
+# batches whose last tile is partial and ends off 16 B; the walk is
+# mirrored with the full batch's plan over two whole tiles and that tail
+PARTIAL = ("deepfm-retrieval-partial", "deepfm-retrieval-partial-bf16")
 
 
 def _plan(shape):
@@ -93,10 +99,12 @@ def test_bulk_tiles_start_and_span_on_16_bytes(name):
         assert start % 16 == 0 and start == covered
         bulk_bytes, tail = span // 16 * 16, span % 16
         if t < n_tiles - 1:
-            assert tail == 0
+            assert tail == 0 and n == p.tile
         assert tail % elt == 0 and bulk_bytes + tail == span
         covered += span
     assert covered == b * sample
+    if name in PARTIAL:      # the last tile partial, its span off 16 B
+        assert 0 < n < p.tile and tail and bulk_bytes <= stage
 
 
 @pytest.mark.parametrize("name", [n for n, (_, br) in SHAPES.items()
@@ -185,12 +193,36 @@ def _mirror(x: np.ndarray, p) -> np.ndarray:
                                   "odd-fd-bf16", "bf16-one-sample",
                                   "tiny-sample", "wide-dim", "unaligned",
                                   "larger-than-the-buffer", "no-fields",
-                                  "no-dim"])
+                                  "no-dim", *PARTIAL])
 def test_mirror_of_the_walk_gives_the_plain_fm(name):
     (b, f, d, elt, aligned), _ = SHAPES[name]
-    b = min(b, 64)
-    p = fm.plan(b, f, d, elt, N_SM, aligned)
+    if name in PARTIAL:
+        p = fm.plan(b, f, d, elt, N_SM, aligned)
+        b = 2 * p.tile + b % p.tile
+        assert 0 < b % p.tile
+    else:
+        b = min(b, 64)
+        p = fm.plan(b, f, d, elt, N_SM, aligned)
     rng = np.random.default_rng(b + f + d)
     x = rng.normal(size=(b, f, d)).astype(np.float32)
     want = ref.fused_fm(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(_mirror(x, p), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the retrieval_cand batch: 1,000,000 DeepFM rows
+# ---------------------------------------------------------------------------
+def test_retrieval_cand_tiles_fill_the_batch_in_a_persistent_grid():
+    """[1,000,000, 39, 10] fp32 (1.56 GB): tiles of 10 samples, 100,000 of
+    them, the last one full; 528 blocks walk 189-190 tiles each; the
+    batch's last byte lies past 2^30, inside the int64 offsets the kernel
+    computes (``t * tile * sample`` elements)."""
+    b, f, d, elt, aligned = SHAPES["deepfm-retrieval-cand"][0]
+    p = _plan(SHAPES["deepfm-retrieval-cand"][0])
+    assert (p.branch, p.tile, p.lanes, p.threads) == ("bulk", 10, 16, 160)
+    assert p.blocks == fm.BLOCKS_PER_SM * N_SM == 528
+    n_tiles = -(-b // p.tile)
+    assert n_tiles == 100_000 and b % p.tile == 0
+    assert {len(range(k, n_tiles, p.blocks)) for k in range(p.blocks)} == \
+        {189, 190}
+    assert 2**30 < b * f * d * elt < 2**31

@@ -379,9 +379,9 @@ def test_upload_is_one_copy_of_both_columns():
 def test_launcher_scores_on_the_cpu(capsys):
     out = launch_serve.main(["--arch", "deepfm", "--smoke", "--device", "cpu",
                              "--requests", "2"])
-    assert out["finite"] and out["requests"] == 2 and out["rows"] == 512
+    assert out["finite"] and out["requests"] == 2 and out["rows"] == 8
     assert out["p99_ms"] >= out["p50_ms"] > 0
-    assert "deepfm-smoke/serve: 2 requests of 512 rows on cpu" in \
+    assert "deepfm-smoke/serve_p99: 2 requests of 8 rows on cpu" in \
         capsys.readouterr().out
 
 

@@ -238,11 +238,11 @@ def test_launcher_scores_two_tower_on_the_cpu(capsys):
     before = bag.launches["embedding_bag"]
     out = launch_serve.main(["--arch", "two-tower-retrieval", "--smoke",
                              "--device", "cpu", "--requests", "2"])
-    assert out["finite"] and out["requests"] == 2 and out["rows"] == 512
+    assert out["finite"] and out["requests"] == 2 and out["rows"] == 8
     assert out["arch"] == CFG.name
     assert out["p99_ms"] >= out["p50_ms"] > 0
     assert bag.launches["embedding_bag"] == before      # the plain version
-    assert "two-tower-smoke/serve: 2 requests of 512 rows on cpu" in \
+    assert "two-tower-smoke/serve_p99: 2 requests of 8 rows on cpu" in \
         capsys.readouterr().out
 
 
