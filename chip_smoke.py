@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs six phases.  Two send batch queries through
+together, then runs eight phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -58,6 +58,18 @@ scores lie within 1e-5.  F also says whether repeated (item, category)
 candidates got bitwise-equal scores, and E splits its upload into the host
 concatenation of the columns and the pageable copy to the card.
 
+* **G** — DIN serving (``configs/din.CONFIG``, full published width:
+  7.2 GB of tables) and **H** — BST serving (``configs/bst.CONFIG``:
+  12.8 GB), after F's model is freed, one model at a time, each through
+  the launcher's ``cell_requests`` (``serve_step.recsys_score_fn``, no
+  feature source, as the JAX cell): ``serve_p99`` (a warm-up, 64 timed
+  requests of 512 rows, one traced) and ``serve_bulk`` (a warm-up, 8 timed
+  requests of 262,144 rows, one traced), every request drawn before the
+  first is timed.  Neither model reaches a kernel: any launch of the four
+  fails the run.  Every request's probabilities are held within 1e-5 of a
+  float64 recompute on the card written here from the model's tensors
+  (every row at ``serve_p99``, 4,096 fixed rows at ``serve_bulk``).
+
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (the RA
@@ -97,7 +109,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import api  # noqa: E402
-from repro_torch.configs import deepfm, two_tower_retrieval  # noqa: E402
+from repro_torch.configs import (bst, deepfm, din, registry,  # noqa: E402
+                                 two_tower_retrieval)
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import hashcore as hc  # noqa: E402
@@ -136,6 +149,11 @@ BAG_BULK_ROWS = 262_144        # the serve_bulk cell's batch
 # phases E and F: the retrieval_cand cell (1 user, 1M candidates, top 100)
 R_CANDIDATES, R_REQUESTS, TOP_K = 1_000_000, 16, 100
 TOP_K_TOL = 1e-5               # kernel path vs plain path, fp32 scores
+# phases G and H: DIN and BST serving, the serve_p99 and serve_bulk cells
+SEQ_P99_ROWS, SEQ_P99_REQUESTS = 512, 64
+SEQ_BULK_ROWS, SEQ_BULK_REQUESTS = 262_144, 8
+SEQ_CHECK_ROWS = 4096          # fixed rows of each serve_bulk request
+SEQ_TOL = 1e-5                 # fp32 model vs float64 recompute, probs
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
@@ -1206,6 +1224,16 @@ def kernels_by_device_ms(prof, top=6):
     return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:top])
 
 
+def ops_by_device_ms(prof, top=8):
+    """The ``top`` PyTorch operations of a trace by the device ms of the
+    kernels they launched themselves (an ``aten::`` op's own kernels, not
+    those of the ops it calls)."""
+    ms = {e.key: e.self_device_time_total / 1e3
+          for e in prof.key_averages() if e.self_device_time_total > 0
+          and e.device_type == torch.autograd.DeviceType.CPU}
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1])[:top])
+
+
 def mlp_flops(dims, rows):
     """Multiply-adds of an MLP over ``rows`` rows, as operations."""
     return 2 * rows * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
@@ -1418,6 +1446,198 @@ def run_phase_f(model, bag_log, n=R_CANDIDATES, requests=R_REQUESTS):
     return m
 
 
+# ---------------------------------------------------------------------------
+# phases G and H: DIN and BST serving (serve_p99 and serve_bulk)
+# ---------------------------------------------------------------------------
+def _rows64(table, ids):
+    """``table``'s rows of ``ids`` in float64, as ``jnp.take`` reads them: a
+    negative id gives zeros, an id past the table NaN."""
+    ids = ids.long()
+    out = table[ids.clamp(0, table.shape[0] - 1)].double()
+    out[ids < 0] = 0
+    out[ids >= table.shape[0]] = float("nan")
+    return out
+
+
+def _mlp64(weights, biases, x, act):
+    """``x @ w + b`` per layer in float64, ``act`` between layers."""
+    layers = list(zip(weights, biases))
+    for i, (w, b) in enumerate(layers):
+        x = x @ w.double() + b.double()
+        if i + 1 < len(layers):
+            x = act(x)
+    return x
+
+
+def din_fp64(model, cols):
+    """DIN's CTR probabilities of ``cols`` (the model's columns on the card)
+    recomputed in float64 from the model's tensors: the gathers, the
+    concatenation ``[e, et, e - et, e * et]``, the attention MLP (sigmoids
+    between layers, the last linear), the weights zeroed where the step is
+    padding, the weighted sum and the head MLP."""
+    hi, hc = cols["hist_items"], cols["hist_cats"]
+    hist = torch.cat([_rows64(model.item_table, hi),
+                      _rows64(model.cat_table, hc)], dim=-1)
+    target = torch.cat([_rows64(model.item_table, cols["target_item"]),
+                        _rows64(model.cat_table, cols["target_cat"])],
+                       dim=-1)
+    tgt = target[:, None].expand_as(hist)
+    feat = torch.cat([hist, tgt, hist - tgt, hist * tgt], dim=-1)
+    w = _mlp64(model.attn_mlp_w, model.attn_mlp_b, feat, torch.sigmoid)
+    w = w[..., 0] * (hi >= 0)
+    pooled = (w[..., None] * hist).sum(dim=1)
+    x = torch.cat([pooled, target, cols["dense"].double()], dim=-1)
+    return torch.sigmoid(
+        _mlp64(model.mlp_w, model.mlp_b, x, torch.relu)[..., 0])
+
+
+def _layer_norm64(x, g, b, eps=1e-5):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) / torch.sqrt(var + eps) * g.double() + b.double()
+
+
+def bst_fp64(model, cols):
+    """BST's CTR probabilities of ``cols`` recomputed in float64 from the
+    model's tensors: the history and target rows plus positions, each block
+    (scores over sqrt(dh), padded keys at -1e30, softmax, output
+    projection, layer norm, ReLU FFN, layer norm), the flattened sequence
+    beside the dense features through the head MLP."""
+    seq = torch.cat([cols["hist_items"], cols["target_item"][:, None]],
+                    dim=1)
+    x = _rows64(model.item_table, seq) + model.pos_table.double()[None]
+    b, s, d = x.shape
+    h = model.cfg.n_heads
+    dh = d // h
+    for p in model.blocks:
+        q, k, v = ((x @ p[w].double()).reshape(b, s, h, dh)
+                   for w in ("wq", "wk", "wv"))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / dh ** 0.5
+        sc = sc.masked_fill(~(seq >= 0)[:, None, None, :], -1e30)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1), v)
+        x = _layer_norm64(x + o.reshape(b, s, d) @ p["wo"].double(),
+                          p["ln1_g"], p["ln1_b"])
+        f = torch.relu(x @ p["ffn1"].double()) @ p["ffn2"].double()
+        x = _layer_norm64(x + f, p["ln2_g"], p["ln2_b"])
+    x = torch.cat([x.reshape(b, -1), cols["dense"].double()], dim=-1)
+    return torch.sigmoid(
+        _mlp64(model.mlp_w, model.mlp_b, x, torch.relu)[..., 0])
+
+
+FP64 = {"din": din_fp64, "bst": bst_fp64}
+
+
+def run_seq_cell(name, model, cell, rows, requests, check_rows, seed):
+    """One cell of phase G or H: ``requests`` + 2 requests of ``rows`` rows
+    (``launch_serve.cell_requests``: ``synthetic.recsys_batch`` through
+    ``serve_step.recsys_score_fn``), all drawn before the first is timed;
+    the first a warm-up, the last traced, the rest timed.  Every request's
+    columns on the card are held against the host batch, and its
+    probabilities against the float64 recompute on ``check_rows`` fixed
+    rows (every row when None).  Returns the cell's metrics."""
+    cfg, device = model.cfg, model.device
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    step, draw = launch_serve.cell_requests(cfg, cell, rows, model)
+    t0 = time.perf_counter()
+    batches = draw_requests(draw, requests + 2, seed)
+    draw_s = time.perf_counter() - t0
+    idx = (None if check_rows is None else torch.from_numpy(np.sort(
+        np.random.default_rng(seed).choice(rows, check_rows,
+                                           replace=False))).to(device))
+    clock = LayerClock((
+        (serve_step, "_upload", "upload"),
+        (rec, "recsys_score", "model_enqueue"),
+        (es, "embed_lookup", "of_which_gathers"),
+        (rec, "_mlp_apply", "of_which_mlps"),
+        (rec, "_bst_block", "of_which_blocks")))
+    lat, wait, errs = [], [], []
+    prof = request_profiler(device)
+    traced_ms = None
+    for r, (batch,) in enumerate(batches):
+        timed, traced = 0 < r < len(batches) - 1, r == len(batches) - 1
+        # the clock wraps _upload first, so Calls sees the timed call
+        with clock if timed else contextlib.nullcontext(), \
+                Calls(serve_step, "_upload") as uploads, \
+                prof if traced else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            probs = step(batch)
+            t1 = time.perf_counter()
+            probs.cpu()                                 # waits for the card
+            t2 = time.perf_counter()
+        if timed:
+            lat.append(t2 - t0)
+            wait.append(t2 - t1)
+        if traced:
+            traced_ms = (t2 - t0) * 1e3
+        what = f"[{name}] {cell.name} request {r}"
+        dev = uploads.last[1]
+        for k in model.inputs:
+            if not np.array_equal(dev[k].cpu().numpy(), batch[k]):
+                fail(f"{what}: {k} on the card differs from the request's")
+        if probs.shape != (rows,) or not bool(probs.isfinite().all()):
+            fail(f"{what}: probabilities are not finite of shape ({rows},)")
+        cols = {k: dev[k] if idx is None else dev[k][idx]
+                for k in model.inputs}
+        want = FP64[cfg.arch](model, cols)
+        got = probs if idx is None else probs[idx]
+        err = float((got.double() - want).abs().max())
+        if not err <= SEQ_TOL:
+            fail(f"{what}: probabilities differ from the float64 recompute "
+                 f"by {err}")
+        errs.append(err)
+    lat_ms = np.array(lat) * 1e3
+    n = len(lat)
+    split = {k: v * 1e3 / n for k, v in clock.seconds.items()}
+    split["wait"] = float(np.sum(wait)) * 1e3 / n
+    busy_ms, busy_events = device_busy_ms(prof)
+    p50 = float(np.percentile(lat_ms, 50))
+    return {"phase": name, "model": cfg.name, "cell": cell.name,
+            "rows": rows, "requests_checked": len(errs),
+            "requests_timed": n,
+            "rows_checked_per_request": rows if idx is None else check_rows,
+            "drawn_s": draw_s,
+            "request_p50_ms": p50,
+            "request_p99_ms": float(np.percentile(lat_ms, 99)),
+            "rows_per_s": rows * n / float(np.sum(lat)),
+            "max_abs_err_vs_fp64": max(errs),
+            "max_memory_allocated": max_memory(device),
+            "matmul_precision": torch.get_float32_matmul_precision(),
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "host_ms_per_request": split,
+            "traced_request": {
+                "ms": traced_ms, "device_busy_ms": busy_ms,
+                "device_events": busy_events,
+                "busy_share": busy_ms / traced_ms,
+                "busy_share_of_p50": busy_ms / p50,
+                "device_ms_by_kernel": kernels_by_device_ms(prof),
+                "device_ms_by_op": ops_by_device_ms(prof)}}
+
+
+def run_phase_seq(name, cfg, device, p99_rows=SEQ_P99_ROWS,
+                  p99_requests=SEQ_P99_REQUESTS, bulk_rows=SEQ_BULK_ROWS,
+                  bulk_requests=SEQ_BULK_REQUESTS,
+                  check_rows=SEQ_CHECK_ROWS):
+    """DIN (G) or BST (H), by default at full published width, through the
+    launcher's serve_p99 cell (every row checked) and serve_bulk cell
+    (``check_rows`` fixed rows of each request checked), printing each
+    cell's metrics."""
+    t0 = time.perf_counter()
+    model = rec.recsys_init(cfg, seed=0, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[{name}] {cfg.name}: {model.param_bytes()} parameter bytes on "
+          f"the card (items {cfg.item_vocab} x {cfg.embed_dim}, history "
+          f"{cfg.seq_len}, mlp {cfg.mlp}), drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    p99 = run_seq_cell(name, model, registry.cell_by_name("serve_p99"),
+                       p99_rows, p99_requests, None, seed=7)
+    print(f"[{name}] " + json.dumps(p99), flush=True)
+    bulk = run_seq_cell(name, model, registry.cell_by_name("serve_bulk"),
+                        bulk_rows, bulk_requests, check_rows, seed=8)
+    print(f"[{name}] " + json.dumps(bulk), flush=True)
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -1601,6 +1821,20 @@ def main() -> int:
     row["max_abs_err"] = max(bag_log.max_err, bag_log_f.max_err)
     row["retrieval"]["launches"] = f_counts["embedding_bag"]
     kernels.append(row)
+
+    # G and H reach none of the four kernels: the two-tower tables (30.8 GB,
+    # also held by the bag logs' last launches) go first, then DIN's tables
+    # (7.2 GB) go with run_phase_seq's frame before BST draws its 12.8 GB.
+    del two_tower, bag_log, bag_log_f
+    for name, cfg in (("G", din.CONFIG), ("H", bst.CONFIG)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero(nl.launches, fm.launches, bagk.launches)
+        run_phase_seq(name, cfg, device)
+        launched = {**nl.launches, **fm.launches, **bagk.launches}
+        print(f"[{name}] launches: " + json.dumps(launched), flush=True)
+        if any(launched.values()):
+            fail(f"{cfg.name} serving launched a kernel: {launched}")
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -3,13 +3,14 @@
 ``cell_by_name``; ``reduce_cell`` is the recsys branch of the JAX
 launcher's ``launch/cells.py::_reduce_cell`` (the ``--smoke`` sizes).
 
-``ARCHS`` maps only the ported archs to their config modules.
+``ARCHS`` maps the JAX launcher's four recsys archs to their config
+modules.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import deepfm, two_tower_retrieval
+from repro_torch.configs import bst, deepfm, din, two_tower_retrieval
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +28,8 @@ REC_CELLS = (
          {"batch": 1, "n_candidates": 1_000_000}),
 )
 
-ARCHS = {"deepfm": deepfm, "two-tower-retrieval": two_tower_retrieval}
+ARCHS = {"din": din, "bst": bst, "two-tower-retrieval": two_tower_retrieval,
+         "deepfm": deepfm}
 
 
 def cell_by_name(name: str) -> Cell:

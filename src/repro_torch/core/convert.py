@@ -55,14 +55,16 @@ def _mlp_shapes(name: str, dims) -> dict:
 
 
 def _checked(params: dict, want: dict, cfg, device) -> dict:
-    """The reference's parameter tree (numpy leaves, MLPs as lists of
-    ``{"w", "b"}``) flattened by name and checked against ``want``'s
+    """The reference's parameter tree (numpy leaves; MLPs as lists of
+    ``{"w", "b"}`` layers, BST's ``blocks`` as a list of dicts) flattened
+    by name (``mlp.0.w``, ``blocks.0.wq``) and checked against ``want``'s
     names and shapes -> tensors of ``cfg``'s dtype on ``device``."""
     got = {}
     for k, v in params.items():
         if isinstance(v, (list, tuple)):
             for i, layer in enumerate(v):
-                got[f"{k}.{i}.w"], got[f"{k}.{i}.b"] = layer["w"], layer["b"]
+                for name, leaf in layer.items():
+                    got[f"{k}.{i}.{name}"] = leaf
         else:
             got[k] = v
     if set(got) != set(want):
@@ -121,3 +123,49 @@ def two_tower_from_reference(params: dict, cfg, device):
         cat_table=t["cat_table"],
         user_mlp=_layers(t, "user_mlp", len(tower)),
         item_mlp=_layers(t, "item_mlp", len(tower)))
+
+
+def din_from_reference(params: dict, cfg, device):
+    """The JAX package's unboxed DIN parameters (``item_table``,
+    ``cat_table``, ``attn_mlp`` and ``mlp`` as lists of ``{"w", "b"}``,
+    every leaf a numpy array) -> the port's ``DIN`` of ``cfg`` on
+    ``device``.  Raises on any name or shape that ``cfg`` does not give."""
+    if cfg.arch != "din":
+        raise ValueError(f"{cfg.name} is a {cfg.arch} config, not din")
+    d = cfg.embed_dim
+    attn = (8 * d,) + tuple(cfg.attn_mlp) + (1,)
+    head = (4 * d + cfg.n_dense,) + tuple(cfg.mlp) + (1,)
+    t = _checked(params, {"item_table": (cfg.item_vocab, d),
+                          "cat_table": (cfg.cat_vocab, d),
+                          **_mlp_shapes("attn_mlp", attn),
+                          **_mlp_shapes("mlp", head)}, cfg, device)
+    return recsys.DIN(cfg, item_table=t["item_table"],
+                      cat_table=t["cat_table"],
+                      attn_mlp=_layers(t, "attn_mlp", len(attn) - 1),
+                      mlp=_layers(t, "mlp", len(head) - 1))
+
+
+def bst_from_reference(params: dict, cfg, device):
+    """The JAX package's unboxed BST parameters (``item_table``,
+    ``pos_table``, ``blocks`` as a list of dicts of ``recsys.BST_BLOCK``'s
+    names, ``mlp`` as a list of ``{"w", "b"}``, every leaf a numpy array)
+    -> the port's ``BST`` of ``cfg`` on ``device``.  Raises on any name or
+    shape that ``cfg`` does not give."""
+    if cfg.arch != "bst":
+        raise ValueError(f"{cfg.name} is a {cfg.arch} config, not bst")
+    d, s = cfg.embed_dim, cfg.seq_len + 1
+    block = {"wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d),
+             "ln1_g": (d,), "ln1_b": (d,), "ffn1": (d, 4 * d),
+             "ffn2": (4 * d, d), "ln2_g": (d,), "ln2_b": (d,)}
+    head = (s * d + cfg.n_dense,) + tuple(cfg.mlp) + (1,)
+    t = _checked(params, {"item_table": (cfg.item_vocab, d),
+                          "pos_table": (s, d),
+                          **{f"blocks.{i}.{k}": shape
+                             for i in range(cfg.n_blocks)
+                             for k, shape in block.items()},
+                          **_mlp_shapes("mlp", head)}, cfg, device)
+    return recsys.BST(
+        cfg, item_table=t["item_table"], pos_table=t["pos_table"],
+        blocks=[{k: t[f"blocks.{i}.{k}"] for k in recsys.BST_BLOCK}
+                for i in range(cfg.n_blocks)],
+        mlp=_layers(t, "mlp", len(head) - 1))

@@ -1,13 +1,13 @@
 """Serving launcher for the port, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch deepfm|two-tower-retrieval \
+        --arch din|bst|two-tower-retrieval|deepfm \
         [--shape serve_p99|serve_bulk|retrieval_cand] [--smoke] \
         [--requests 20] [--batch ROWS] [--device cuda|cpu]
 
-Builds the model at its published width (``configs/deepfm.CONFIG`` or
-``configs/two_tower_retrieval.CONFIG``; ``--smoke`` takes ``SMOKE`` and the
-cell at ``registry.reduce_cell``'s size) with random weights from a seed
+Builds the model at its published width (the arch's ``CONFIG`` in
+``configs/``; ``--smoke`` takes ``SMOKE`` and the cell at
+``registry.reduce_cell``'s size) with random weights from a seed
 and answers ``--requests`` synthetic requests of the ``--shape`` cell
 (``configs/registry.REC_CELLS``, default ``serve_p99``), one client in
 sequence, printing the request latency's p50 and p99.
@@ -21,13 +21,16 @@ sequence, printing the request latency's p50 and p99.
   keyed by ``item_id = sparse_ids[:, 0] % n_items + 1``);
   ``two-tower-retrieval`` serves the user tower with no feature source, as
   the JAX launcher's cell does for this arch: each request's answer is its
-  L2-normalised user vectors.
+  L2-normalised user vectors.  ``din`` and ``bst`` score CTR with no
+  feature source either (their batches have no ``sparse_ids`` to key a
+  feature lookup), as the JAX cell does.
 * ``retrieval_cand`` ranks the cell's candidates for one user and answers
   the top 100 (at most the candidates), with no feature source, as the JAX
   launcher's ``build_cell`` does: two-tower through
   ``serve_step.retrieval_fn`` (one user's columns, zipf candidate items and
   categories), DeepFM through ``serve_step.bulk_rank_fn`` (a batch of
-  candidate rows).
+  candidate rows).  For ``din`` and ``bst`` it exits naming ROADMAP:
+  their ``retrieval_cand`` is not ported.
 * ``train_batch`` raises: training is not ported.
 
 The model (and the probe) run on ``--device`` (default ``cuda``; there is
@@ -137,6 +140,10 @@ def main(argv=None) -> dict:
     if cell.kind == "rec_train":
         raise SystemExit(f"--shape {cell.name}: training is not ported "
                          "(ROADMAP queue 1, item 12)")
+    if cell.kind == "rec_retrieval" and \
+            configs.CONFIG.arch not in serve_step.RETRIEVAL_ARCHS:
+        raise SystemExit(f"--shape {cell.name}: "
+                         + serve_step.RANK_NOT_PORTED.format(arch=args.arch))
     if args.batch is not None and cell.kind != "rec_serve":
         ap.error(f"--batch sets a scoring cell's rows; {cell.name} ranks "
                  "its cell's candidates")

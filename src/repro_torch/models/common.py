@@ -1,5 +1,6 @@
 """What the port's models share: the JAX package's initializers
-(``models/common.py``), on an explicit ``torch.Generator`` and device.
+(``models/common.py``), on an explicit ``torch.Generator`` and device, and
+its ``layer_norm``.
 
 The JAX package boxes every parameter with a ``PartitionSpec`` and shards it
 over a mesh (``Boxed``, ``MeshInfo``).  The port runs on one card and has
@@ -28,3 +29,16 @@ def dense_param(in_dim: int, out_dim: int, *, generator: torch.Generator,
     """A [in_dim, out_dim] weight, scaled by 1/sqrt(in_dim)."""
     return normal_init((in_dim, out_dim), 1.0 / math.sqrt(in_dim),
                        generator=generator, device=device, dtype=dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The JAX package's ``layer_norm`` over the last axis: in fp32, the
+    variance as the mean of the squared deviation, ``rsqrt(var + eps)``,
+    then ``gamma`` and ``beta``, and a cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(dt)

@@ -1,6 +1,6 @@
-"""Recsys models, from the JAX package's ``models/recsys.py``: DeepFM and
-the two-tower towers, with the serving heads of the ``retrieval_cand``
-cell.
+"""Recsys models, from the JAX package's ``models/recsys.py``: DeepFM, the
+two-tower towers, DIN and BST, with the serving heads of the
+``retrieval_cand`` cell.
 
 DeepFM scores a request of ``sparse_ids`` [B, F] (one id per field) and
 ``dense`` [B, n_dense] features: an FM branch over the fields' embeddings,
@@ -16,19 +16,30 @@ through an MLP, L2-normalised.  The item tower maps candidates
 (``item_id``, ``item_cat``) through their rows and its own MLP, also
 L2-normalised.
 
+DIN scores a request of ``hist_items``, ``hist_cats`` [B, L] (-1 pad),
+``target_item``, ``target_cat`` [B] and ``dense`` [B, n_dense]: each
+history step's item and category rows against the target's, through an
+attention MLP with sigmoids between its layers and a linear last layer,
+give one unnormalised weight a step (zero where the step is padding); the
+weighted sum of the steps, the target and the dense features go through
+the head MLP.  BST scores ``hist_items`` [B, L], ``target_item`` [B] and
+``dense``: the L + 1 item rows plus a position table through transformer
+blocks (multi-head attention with padded keys masked, layer norms, a
+ReLU FFN), flattened beside the dense features into the head MLP.  Both
+reach no kernel: their gathers are ``embed_lookup`` and their layers
+plain PyTorch, as the JAX package computes them outside any Pallas kernel.
+
 ``retrieval_scores`` (two-tower: user vectors against every candidate's
 item vector) and ``bulk_rank`` (DeepFM: the logits of a batch of candidate
 rows) end in ``lax_top_k``, which keeps ``jax.lax.top_k``'s order: values
 descending, equal values by ascending index.
 
-The port runs one card: every table lives whole on it.  DIN and BST wait
-for their own layers (DIN's target-attention pooling, BST's transformer
-block), not for a kernel: their entry points here raise
-``NotImplementedError``.
+The port runs one card: every table lives whole on it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -38,10 +49,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import embedding_service as es
 
-NOT_PORTED = ("{arch} is not ported: the port serves deepfm and two_tower "
-              "(scoring, bulk ranking and retrieval); DIN waits for its "
-              "target-attention pooling and BST for its transformer block "
-              "(ROADMAP queue 1, item 11)")
+NOT_PORTED = ("{arch} is not ported: the port serves the four recsys archs "
+              "(din, bst, two_tower, deepfm); the GNN and LM archs wait "
+              "for ROADMAP queue 1, items 14 and 15")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +79,12 @@ class RecsysConfig:
 
 
 def _mlp_apply(layers: Sequence[tuple[torch.Tensor, torch.Tensor]],
-               x: torch.Tensor) -> torch.Tensor:
-    """``x @ w + b`` per layer, ReLU after every layer but the last."""
+               x: torch.Tensor, act=torch.relu) -> torch.Tensor:
+    """``x @ w + b`` per layer, ``act`` after every layer but the last."""
     for i, (w, b) in enumerate(layers):
         x = x @ w + b
         if i + 1 < len(layers):
-            x = torch.relu(x)
+            x = act(x)
     return x
 
 
@@ -234,7 +244,166 @@ def two_tower_init(cfg: RecsysConfig, *, generator: torch.Generator,
         item_mlp=_mlp_init((2 * d,) + tuple(cfg.tower_mlp), **kw))
 
 
-INIT = {"deepfm": deepfm_init, "two_tower": two_tower_init}
+class DIN(_Recsys):
+    """DIN's parameters on one device, as the JAX package's ``din_init``
+    lays them out: ``item_table`` [item_vocab, D], ``cat_table``
+    [cat_vocab, D], the ``(w [in, out], b [out])`` layers of ``attn_mlp``
+    (8·D -> attn_mlp -> 1) and of the head ``mlp`` (4·D + n_dense -> mlp
+    -> 1)."""
+
+    inputs = ("hist_items", "hist_cats", "target_item", "target_cat",
+              "dense")
+
+    def __init__(self, cfg: RecsysConfig, *, item_table: torch.Tensor,
+                 cat_table: torch.Tensor,
+                 attn_mlp: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 mlp: Sequence[tuple[torch.Tensor, torch.Tensor]]):
+        super().__init__()
+        self.cfg = cfg
+        self.item_table = self._param(item_table)
+        self.cat_table = self._param(cat_table)
+        self.attn_mlp_w, self.attn_mlp_b = self._mlp(attn_mlp)
+        self.mlp_w, self.mlp_b = self._mlp(mlp)
+
+    def attention(self, hist_items: torch.Tensor, hist_cats: torch.Tensor,
+                  target_item: torch.Tensor, target_cat: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (weights [B, L], hist [B, L, 2·D], target [B, 2·D]): the
+        attention MLP (sigmoid between its layers, the last linear) over
+        ``[e, et, e - et, e * et]`` of each step's item||cat rows ``e`` and
+        the target's ``et``, zeroed after the MLP where the step is padding.
+        Not normalised (DIN paper §4.3)."""
+        hist = torch.cat([es.embed_lookup(self.item_table, hist_items),
+                          es.embed_lookup(self.cat_table, hist_cats)],
+                         dim=-1)
+        target = torch.cat([es.embed_lookup(self.item_table, target_item),
+                            es.embed_lookup(self.cat_table, target_cat)],
+                           dim=-1)
+        tgt = target[:, None].expand_as(hist)
+        feat = torch.cat([hist, tgt, hist - tgt, hist * tgt], dim=-1)
+        score = _mlp_apply(list(zip(self.attn_mlp_w, self.attn_mlp_b)), feat,
+                           act=torch.sigmoid)[..., 0]
+        return score * (hist_items >= 0).to(score.dtype), hist, target
+
+    def forward(self, hist_items: torch.Tensor, hist_cats: torch.Tensor,
+                target_item: torch.Tensor, target_cat: torch.Tensor,
+                dense: torch.Tensor) -> torch.Tensor:
+        """The batch's columns (ids of any int dtype, -1 pad) -> logits
+        [B]: the JAX package's ``din_forward``."""
+        weights, hist, target = self.attention(hist_items, hist_cats,
+                                               target_item, target_cat)
+        pooled = torch.einsum("bl,bld->bd", weights, hist)
+        x = torch.cat([pooled, target, dense], dim=-1)
+        return _mlp_apply(list(zip(self.mlp_w, self.mlp_b)), x)[..., 0]
+
+
+def din_init(cfg: RecsysConfig, *, generator: torch.Generator,
+             device) -> DIN:
+    """Random DIN weights drawn on ``device`` (the JAX package's
+    ``din_init``: tables at scale 0.05, dense weights at 1/sqrt(in), zero
+    biases)."""
+    d = cfg.embed_dim
+    kw = dict(generator=generator, device=device, dtype=cfg.torch_dtype)
+    return DIN(
+        cfg,
+        item_table=es.table_init(es.TableCfg("item", cfg.item_vocab, d), **kw),
+        cat_table=es.table_init(es.TableCfg("cat", cfg.cat_vocab, d), **kw),
+        attn_mlp=_mlp_init((8 * d,) + tuple(cfg.attn_mlp) + (1,), **kw),
+        mlp=_mlp_init((4 * d + cfg.n_dense,) + tuple(cfg.mlp) + (1,), **kw))
+
+
+BST_BLOCK = ("wq", "wk", "wv", "wo", "ln1_g", "ln1_b", "ffn1", "ffn2",
+             "ln2_g", "ln2_b")
+
+
+def _bst_block(p, x: torch.Tensor, n_heads: int,
+               mask: torch.Tensor) -> torch.Tensor:
+    """One transformer block, the JAX package's ``_bst_block``: ``p`` maps
+    ``BST_BLOCK``'s names to tensors, ``x`` [B, S, D], ``mask`` [B, S]
+    (True where the key is a real step).  Masked scores are the finite
+    -1e30, the softmax runs in fp32, and a row with no real key spreads its
+    weight evenly, as in the JAX code."""
+    b, s, d = x.shape
+    dh = d // n_heads
+    q = (x @ p["wq"]).reshape(b, s, n_heads, dh)
+    k = (x @ p["wk"]).reshape(b, s, n_heads, dh)
+    v = (x @ p["wv"]).reshape(b, s, n_heads, dh)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+    sc = torch.where(mask[:, None, None, :], sc, -1e30)
+    a = torch.softmax(sc.float(), dim=-1).to(x.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(b, s, d)
+    x = cm.layer_norm(x + o @ p["wo"], p["ln1_g"], p["ln1_b"])
+    h = torch.relu(x @ p["ffn1"]) @ p["ffn2"]
+    return cm.layer_norm(x + h, p["ln2_g"], p["ln2_b"])
+
+
+class BST(_Recsys):
+    """BST's parameters on one device, as the JAX package's ``bst_init``
+    lays them out: ``item_table`` [item_vocab, D], ``pos_table``
+    [seq_len + 1, D], ``blocks`` (each ``BST_BLOCK``'s weights: the
+    attention's [D, D] projections, the FFN's [D, 4·D] and [4·D, D], no
+    biases, and two layer norms' [D] gains and offsets) and the head
+    ``mlp`` ((seq_len + 1)·D + n_dense -> mlp -> 1)."""
+
+    inputs = ("hist_items", "target_item", "dense")
+
+    def __init__(self, cfg: RecsysConfig, *, item_table: torch.Tensor,
+                 pos_table: torch.Tensor, blocks: Sequence[dict],
+                 mlp: Sequence[tuple[torch.Tensor, torch.Tensor]]):
+        super().__init__()
+        self.cfg = cfg
+        self.item_table = self._param(item_table)
+        self.pos_table = self._param(pos_table)
+        self.blocks = nn.ModuleList(
+            nn.ParameterDict({k: self._param(blk[k]) for k in BST_BLOCK})
+            for blk in blocks)
+        self.mlp_w, self.mlp_b = self._mlp(mlp)
+
+    def forward(self, hist_items: torch.Tensor, target_item: torch.Tensor,
+                dense: torch.Tensor) -> torch.Tensor:
+        """The batch's columns (ids of any int dtype, -1 pad) -> logits
+        [B]: the JAX package's ``bst_forward``.  A padded step keeps its
+        zero row plus its position through the blocks and into the head,
+        as there."""
+        seq_ids = torch.cat([hist_items, target_item[:, None]], dim=1)
+        x = es.embed_lookup(self.item_table, seq_ids) + self.pos_table[None]
+        mask = seq_ids >= 0
+        for blk in self.blocks:
+            x = _bst_block(blk, x, self.cfg.n_heads, mask)
+        x = torch.cat([x.reshape(x.shape[0], -1), dense], dim=-1)
+        return _mlp_apply(list(zip(self.mlp_w, self.mlp_b)), x)[..., 0]
+
+
+def bst_init(cfg: RecsysConfig, *, generator: torch.Generator,
+             device) -> BST:
+    """Random BST weights drawn on ``device`` (the JAX package's
+    ``bst_init``: the item table at scale 0.05, positions at 0.02, dense
+    weights at 1/sqrt(in), layer-norm gains 1, offsets and biases 0)."""
+    d, s, dt = cfg.embed_dim, cfg.seq_len + 1, cfg.torch_dtype
+    kw = dict(generator=generator, device=device, dtype=dt)
+
+    def block():
+        ones = torch.ones(d, dtype=dt, device=device)
+        zeros = torch.zeros(d, dtype=dt, device=device)
+        return {"wq": cm.dense_param(d, d, **kw),
+                "wk": cm.dense_param(d, d, **kw),
+                "wv": cm.dense_param(d, d, **kw),
+                "wo": cm.dense_param(d, d, **kw),
+                "ln1_g": ones, "ln1_b": zeros,
+                "ffn1": cm.dense_param(d, 4 * d, **kw),
+                "ffn2": cm.dense_param(4 * d, d, **kw),
+                "ln2_g": ones.clone(), "ln2_b": zeros.clone()}
+
+    return BST(
+        cfg,
+        item_table=es.table_init(es.TableCfg("item", cfg.item_vocab, d), **kw),
+        pos_table=cm.normal_init((s, d), 0.02, **kw),
+        blocks=[block() for _ in range(cfg.n_blocks)],
+        mlp=_mlp_init((s * d + cfg.n_dense,) + tuple(cfg.mlp) + (1,), **kw))
+
+
+INIT = {"din": din_init, "bst": bst_init, "two_tower": two_tower_init,
+        "deepfm": deepfm_init}
 
 
 def recsys_init(cfg: RecsysConfig, *, seed: int = 0,
@@ -248,18 +417,15 @@ def recsys_init(cfg: RecsysConfig, *, seed: int = 0,
     return INIT[cfg.arch](cfg, generator=generator, device=device)
 
 
-def recsys_score(model: nn.Module, batch: dict) -> torch.Tensor:
-    """Serving, as the JAX package's ``recsys_score``: DeepFM's CTR
-    probability [B], or two-tower's L2-normalised user vector
-    [B, tower_mlp[-1]] (not a probability).  ``batch`` holds the model's
-    ``inputs`` as tensors on its device, or arrays, which are moved
-    there."""
-    if not isinstance(model, (DeepFM, TwoTower)):
-        raise NotImplementedError(NOT_PORTED.format(
-            arch=type(model).__name__))
+def recsys_score(model: _Recsys, batch: dict) -> torch.Tensor:
+    """Serving, as the JAX package's ``recsys_score``: the CTR probability
+    [B] of a pointwise arch (DIN, BST, DeepFM: the sigmoid of its logits),
+    or two-tower's L2-normalised user vector [B, tower_mlp[-1]] (not a
+    probability).  ``batch`` holds the model's ``inputs`` as tensors on its
+    device, or arrays, which are moved there."""
     with torch.inference_mode():
         out = model(*_columns(model, batch))
-    return torch.sigmoid(out) if isinstance(model, DeepFM) else out
+    return out if isinstance(model, TwoTower) else torch.sigmoid(out)
 
 
 def _columns(model: _Recsys, batch: dict) -> list:

@@ -1,8 +1,9 @@
 """The recsys serving steps, from the JAX package's ``serve/serve_step.py``.
 
-``recsys_score_fn`` scores a batch with either ported arch (DeepFM, the
-two-tower user tower); ``retrieval_fn`` (two-tower) and ``bulk_rank_fn``
-(DeepFM) serve the ``retrieval_cand`` cell, the top candidates of one user.
+``recsys_score_fn`` scores a batch with any of the four recsys archs (DIN,
+BST, DeepFM, the two-tower user tower); ``retrieval_fn`` (two-tower) and
+``bulk_rank_fn`` (DeepFM) serve the ``retrieval_cand`` cell, the top
+candidates of one user.
 Each step sends the columns the model reads (and the candidates) to the
 card in one copy and the model scores them there.  With a feature source,
 a scoring request's feature columns are first resolved in ONE fused,
@@ -20,6 +21,14 @@ import torch
 from repro_torch.api.client import FeatureClient
 from repro_torch.api.types import QoSClass
 from repro_torch.models import recsys as rec
+
+# the archs whose retrieval_cand is ported: two_tower through retrieval_fn,
+# deepfm through bulk_rank_fn
+RETRIEVAL_ARCHS = ("two_tower", "deepfm")
+RANK_NOT_PORTED = ("retrieval_cand for {arch} is not ported: a batch of 1M "
+                   "candidate rows with their histories needs a row-chunked "
+                   "plan for one card (ROADMAP queue 1, 'retrieval_cand for "
+                   "DIN and BST')")
 
 
 def _upload(batch: dict, device: torch.device) -> dict:
@@ -75,8 +84,11 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
                     feature_qos="RANKING",
                     feature_budget_s: Optional[float] = None):
     """Scoring step ``step(batch)`` on the model's device: ``recsys_score``
-    of the batch (DeepFM's CTR probabilities [B], two-tower's user vectors
-    [B, tower_mlp[-1]]).  With a feature source the step first resolves
+    of the batch's ``model.inputs`` columns, uploaded in one copy (the CTR
+    probabilities [B] of DIN, BST and DeepFM, two-tower's user vectors
+    [B, tower_mlp[-1]]).  DIN and BST are served with no feature source, as
+    the JAX launcher serves them (their batches have no ``sparse_ids``
+    keys to look up).  With a feature source the step first resolves
     ``feature_fields`` — ``(table_name, batch_field)`` pairs — in one fused
     batch query and splices the returned float32 rows into the batch's
     dense columns before the model runs.
@@ -159,7 +171,10 @@ def bulk_rank_fn(cfg, model, top_k: int = 100):
     """``retrieval_cand`` for a pointwise arch (DeepFM): ``step(batch)``
     uploads the model's columns of N candidate rows in one copy and returns
     ``rec.bulk_rank`` of them on the model's device -> (values, indices) of
-    the top ``top_k`` logits."""
+    the top ``top_k`` logits.  DIN's and BST's are not ported."""
+    if cfg.arch not in RETRIEVAL_ARCHS:
+        raise ValueError(f"bulk_rank_fn ranks DeepFM, not {cfg.arch}; "
+                         + RANK_NOT_PORTED.format(arch=cfg.arch))
     if cfg.arch != "deepfm":
         raise ValueError(f"bulk_rank_fn ranks DeepFM, the pointwise arch "
                          f"the port serves, not {cfg.arch}; two_tower "

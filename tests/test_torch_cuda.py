@@ -1,11 +1,12 @@
 """The hand-written kernels on the card, each held against its plain PyTorch
 version (kernels/ref.py) on the same inputs: the probe kernels bitwise, the
-FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM
-and two-tower serving and retrieval on the card against the same models on
-the CPU.  No JAX here: the parity with the JAX package is pinned on the CPU
-by test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
-test_torch_embedding_bag.py, test_torch_recsys.py, test_torch_two_tower.py
-and test_torch_retrieval.py.  Run on a CUDA machine with
+FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM,
+two-tower, DIN and BST serving and retrieval on the card against the same
+models on the CPU.  No JAX here: the parity with the JAX package is pinned
+on the CPU by test_torch_lookup.py, test_torch_engine.py,
+test_torch_fused_fm.py, test_torch_embedding_bag.py, test_torch_recsys.py,
+test_torch_two_tower.py, test_torch_retrieval.py and
+test_torch_seq_recsys.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -19,7 +20,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core import hashcore as hc
 from repro_torch.core import lookup as lk
 from repro_torch.core import neighborhash as nh
-from repro_torch.configs import deepfm, two_tower_retrieval
+from repro_torch.configs import bst, deepfm, din, two_tower_retrieval
 from repro_torch.data import synthetic
 from repro_torch.kernels import build
 from repro_torch.kernels import embedding_bag as bag
@@ -956,3 +957,54 @@ def test_retrieval_cand_launcher_on_card(arch, kernel):
                              "--smoke", "--requests", "2"])
     assert out["device"].startswith("cuda") and out["finite"]
     assert launches[kernel] == before + 3            # warm-up + 2
+
+
+# ---------------------------------------------------------------------------
+# DIN and BST serving on the card: no kernel, fp32 products without TF32
+# ---------------------------------------------------------------------------
+def _kernel_launches():
+    return {**nl.launches, **fm.launches, **bag.launches}
+
+
+@pytest.mark.parametrize("cfg", [din.SMOKE, bst.SMOKE], ids=["din", "bst"])
+@pytest.mark.parametrize("rows", [1, 512, 4099])
+def test_seq_recsys_on_card_matches_cpu(cfg, rows):
+    """The scoring step on the card against the same weights on the CPU,
+    TF32 off while it runs; none of the four kernels launches."""
+    on_cpu = rec.recsys_init(cfg, seed=0, device="cpu")
+    on_card = rec.recsys_init(cfg, seed=0, device="cpu").to("cuda")
+    assert on_card.device.type == "cuda"
+    batch = synthetic.recsys_batch(np.random.default_rng(rows), cfg, rows)
+    batch["hist_items"][0] = -1                   # a row of padding only
+    before = _kernel_launches()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    got = serve_step.recsys_score_fn(cfg, on_card)(batch)
+    torch.cuda.synchronize()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert _kernel_launches() == before
+    want = rec.recsys_score(on_cpu, batch)
+    assert got.shape == (rows,) and bool(got.isfinite().all())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cfg", [din.SMOKE, bst.SMOKE], ids=["din", "bst"])
+def test_seq_recsys_id_past_the_table_on_card(cfg):
+    """An id past the table gives NaN on the card as on the CPU (the
+    gather is clamped, never out of range); the other rows stay finite."""
+    model = rec.recsys_init(cfg, seed=1, device="cuda")
+    batch = synthetic.recsys_batch(np.random.default_rng(2), cfg, 64)
+    batch["target_item"][3] = cfg.item_vocab
+    got = rec.recsys_score(model, batch).cpu()
+    assert torch.isnan(got[3])
+    assert bool(got[torch.arange(64) != 3].isfinite().all())
+
+
+@pytest.mark.parametrize("shape", ["serve_p99", "serve_bulk"])
+@pytest.mark.parametrize("arch", ["din", "bst"])
+def test_seq_recsys_serve_launcher_on_card(arch, shape):
+    before = _kernel_launches()
+    out = launch_serve.main(["--arch", arch, "--shape", shape, "--smoke",
+                             "--requests", "3", "--batch", "300"])
+    assert out["device"].startswith("cuda") and out["finite"]
+    assert _kernel_launches() == before

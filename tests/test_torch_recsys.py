@@ -23,7 +23,7 @@ from repro.models import embedding_service as jes
 from repro.models import recsys as jrec
 from repro.serve import serve_step as jserve
 from repro_torch import api
-from repro_torch.configs import deepfm
+from repro_torch.configs import deepfm, registry
 from repro_torch.core import convert
 from repro_torch.data import synthetic
 from repro_torch.launch import serve as launch_serve
@@ -192,13 +192,22 @@ def test_deepfm_from_reference_rejects_another_config(jparams):
 
 @pytest.mark.parametrize("arch", ["din", "bst"])
 def test_other_archs_name_the_roadmap_item(arch):
+    """DIN and BST score, but their retrieval_cand is not ported: the
+    bulk-ranking step and the launcher's retrieval_cand refuse them, naming
+    ROADMAP, and the model's bulk_rank takes DeepFM alone."""
     cfg = dataclasses.replace(deepfm.SMOKE, arch=arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rec.recsys_init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_step.recsys_score_fn(cfg, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rec.recsys_score(torch.nn.Linear(2, 2), {})
+    with pytest.raises(ValueError, match=f"not {arch}; retrieval_cand "
+                                         f"for {arch} .*ROADMAP"):
+        serve_step.bulk_rank_fn(cfg, None)
+    model = rec.recsys_init(registry.ARCHS[arch].SMOKE, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=f"pointwise model \\(DeepFM\\), not "
+                             f"{arch.upper()}"):
+        rec.bulk_rank(model, {})
+    with pytest.raises(SystemExit, match=f"retrieval_cand for {arch}.*"
+                                         "ROADMAP"):
+        launch_serve.main(["--arch", arch, "--shape", "retrieval_cand",
+                           "--smoke", "--device", "cpu"])
 
 
 def test_entry_points_default_to_the_card():
@@ -387,5 +396,9 @@ def test_launcher_scores_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["din", "qwen3_14b"])
 def test_launcher_refuses_unported_archs(arch):
+    """An arch the port does not serve (qwen3_14b), or a cell it does not
+    serve for the arch (DIN's retrieval_cand), exits naming ROADMAP before
+    any model is built (here at CONFIG width)."""
     with pytest.raises(SystemExit, match="ROADMAP"):
-        launch_serve.main(["--arch", arch, "--device", "cpu"])
+        launch_serve.main(["--arch", arch, "--shape", "retrieval_cand",
+                           "--device", "cpu"])
