@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs eight phases.  Two send batch queries through
+together, then runs nine phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -31,6 +31,23 @@ batch against the version it reports.
   FM on the same tensor, every request's probabilities against the same
   model with the plain FM, and the spliced features against the rows as
   written.
+* **I** — right after C, on C's model and feature engine: DeepFM behind
+  the ported ``QueryServer`` (``BatchPolicy(max_batch_keys=4096)``, a
+  ``Tracer`` sampling every request), as the launcher's
+  ``--feature-server`` mode drives it: after one warm-up, 8 scoring client
+  threads of 16 requests of 512 rows (drawn as C draws them) through
+  ``recsys_score_fn(feature_server=...)``, 2 PREFETCH threads, and an
+  ``item_pop`` delta (the next version, the 64 hottest items) published
+  once 16 requests are answered.  Every probe and ``fused_fm`` launch is
+  held against its plain version, every request as C holds its requests
+  against the rows written at the version its response names, and every
+  traced request's micro-batch must name one version, both versions
+  served.  It reports each lane's p50/p99 and sheds, requests and launches
+  a micro-batch, the keys eliminated before the card, the median of each
+  span of the server's chain, and beside them phase C's single-client p50
+  and the same 8 clients through ``FeatureClient(EngineBackend(engine))``
+  with no server (timed per request by wall clock; not counted as the
+  main path's launches).
 * **D** — two-tower user-tower serving (``configs/two_tower_retrieval.
   CONFIG``, full published width: 30.8 GB of tables on the card) as the
   ``serve_p99`` cell serves it, through ``serve_step.recsys_score_fn`` with
@@ -95,12 +112,14 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -124,7 +143,10 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import embedding_service as es  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
+from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serve import serve_step  # noqa: E402
+from repro_torch.serve.scheduler import BatchPolicy  # noqa: E402
+from repro_torch.serve.server import QueryServer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate, H100 SXM
@@ -135,6 +157,11 @@ DELTA_KEYS = 64
 ZIPF_A = 1.1
 # phase C: DeepFM serving
 C_ITEMS, C_REQUESTS, C_ROWS, C_ABSENT = 200_000, 64, 512, 0.10
+# phase I: C's DeepFM and engine behind the QueryServer, concurrent clients
+I_CLIENTS, I_REQUESTS, I_PREFETCH = 8, 16, 2
+I_SETTLED = 16                 # requests answered before the delta goes out
+SPAN_NAMES = ("serve", "admission", "lane_wait", "coalesce", "version_pin",
+              "begin", "device", "finish", "scatter")
 FM_TOL = 1e-5                  # kernel vs plain FM, both fp32 sums
 FM_BULK = (262_144, 39, 10)    # the serve_bulk cell's batch, DeepFM widths
 # probe_saturation's batches: the paper's yardstick at 2^16 and 2^20 keys,
@@ -691,12 +718,13 @@ class Calls:
         return out
 
 
-def check_request(probs, batch, uploads, model, fm_log, feats, pop, n_items,
+def check_request(probs, batch, upload, model, fm_log, feats, pop, n_items,
                   what):
     """The request's probabilities against the same model with the plain FM
     on the same device batch, and its spliced features against the rows as
-    written, times found."""
-    host, dev = uploads.last
+    written, times found.  ``upload``: the host batch the request handed to
+    ``serve_step._upload`` and its columns on the card."""
+    host, dev = upload
     rows = len(batch["item_id"])
     if probs.shape != (rows,) or not bool(probs.isfinite().all()):
         fail(f"{what}: probabilities are not finite of shape ({rows},)")
@@ -752,7 +780,7 @@ def device_busy_ms(prof) -> tuple[float, int]:
 
 def run_phase_c(device, log, fm_log, cfg=deepfm.CONFIG, n_items=C_ITEMS):
     """DeepFM (by default at full published width) behind the launcher's
-    feature engine; returns the phase's metrics."""
+    feature engine; returns the phase's metrics and what it served on."""
     t0 = time.perf_counter()
     model = rec.recsys_init(cfg, seed=0, device=device)
     if device.type == "cuda":
@@ -797,9 +825,9 @@ def run_phase_c(device, log, fm_log, cfg=deepfm.CONFIG, n_items=C_ITEMS):
         log.check_pending()
         fm_log.check_pending()
         what = f"[C] request {scored}"
-        max_err = max(max_err, check_request(probs, batch, uploads, model,
-                                             fm_log, feats, pop, n_items,
-                                             what))
+        max_err = max(max_err, check_request(probs, batch, uploads.last,
+                                             model, fm_log, feats, pop,
+                                             n_items, what))
         return (t2 - t0) * 1e3
 
     first_ms = score(step, c_request(rng, cfg, n_items), timed=False)
@@ -831,24 +859,224 @@ def run_phase_c(device, log, fm_log, cfg=deepfm.CONFIG, n_items=C_ITEMS):
     n = len(lat)
     split = {k: v * 1e3 / n for k, v in clock.seconds.items()}
     split["wait"] = float(np.sum(wait)) * 1e3 / n
-    return {"phase": "C", "model": cfg.name, "rows": C_ROWS,
-            "requests_scored": scored, "requests_timed": n,
-            "first_request_ms": first_ms,
-            "request_p50_ms": float(np.percentile(lat_ms, 50)),
-            "request_p99_ms": float(np.percentile(lat_ms, 99)),
-            "rows_per_s": C_ROWS * n / float(np.sum(lat)),
-            "max_abs_err_probs": max_err,
-            "max_abs_err_fm": fm_log.max_err,
-            "max_abs_err_probe": max(log.max_err.values()),
-            "param_bytes": model.param_bytes(), "build_s": build_s,
-            "shards": engine.window.get(None)[2].n_shards,
-            "host_ms_per_request": split,
-            "traced_request": {
-                "ms": traced_ms, "device_busy_ms": busy_ms,
-                "device_events": busy_events,
-                "busy_share": busy_ms / traced_ms,
-                "busy_share_of_p50": busy_ms / float(np.percentile(lat_ms,
-                                                                   50))}}
+    m = {"phase": "C", "model": cfg.name, "rows": C_ROWS,
+         "requests_scored": scored, "requests_timed": n,
+         "first_request_ms": first_ms,
+         "request_p50_ms": float(np.percentile(lat_ms, 50)),
+         "request_p99_ms": float(np.percentile(lat_ms, 99)),
+         "rows_per_s": C_ROWS * n / float(np.sum(lat)),
+         "max_abs_err_probs": max_err,
+         "max_abs_err_fm": fm_log.max_err,
+         "max_abs_err_probe": max(log.max_err.values()),
+         "param_bytes": model.param_bytes(), "build_s": build_s,
+         "shards": engine.window.get(None)[2].n_shards,
+         "host_ms_per_request": split,
+         "traced_request": {
+             "ms": traced_ms, "device_busy_ms": busy_ms,
+             "device_events": busy_events,
+             "busy_share": busy_ms / traced_ms,
+             "busy_share_of_p50": busy_ms / float(np.percentile(lat_ms,
+                                                                50))}}
+    # what phase I serves on: the model, the engine at its latest version
+    # and the rows as written there
+    return m, Served(cfg, model, engine, keys, feats, pop, n_items,
+                     engine.latest_version)
+
+
+# ---------------------------------------------------------------------------
+# phase I: C's DeepFM behind the QueryServer, concurrent clients and a delta
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Served:
+    """A DeepFM and the feature engine it scores behind, with the rows as
+    written at the engine's latest version."""
+    cfg: rec.RecsysConfig
+    model: torch.nn.Module
+    engine: eng.MultiTableEngine
+    keys: np.ndarray
+    feats: np.ndarray
+    pop: np.ndarray
+    n_items: int
+    version: int
+
+
+class ThreadCalls:
+    """Like ``Calls``, for a function called from several threads at once:
+    keeps each thread's last call of ``owner.<attr>`` as (its arguments,
+    its result), which ``last()`` reads back on that thread."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+        self.orig = getattr(owner, attr)
+        self._last = {}
+
+    def __enter__(self):
+        setattr(self.owner, self.attr, self._record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.orig)
+
+    def last(self):
+        return self._last[threading.get_ident()]
+
+    def _record(self, *args, **kw):
+        out = self.orig(*args, **kw)
+        self._last[threading.get_ident()] = (args, out)
+        return out
+
+
+def percentiles(ms) -> dict:
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def check_versions(tracer, versions):
+    """Every traced request (scoring and PREFETCH) by its micro-batch: each
+    batch names one version, and ``versions`` are all served.  -> requests
+    and micro-batches by version."""
+    by_batch = {}
+    for tid in tracer.trace_ids():
+        root = next(s for s in tracer.peek(tid) if s.name == "serve")
+        by_batch.setdefault(root.tags["batch_id"], set()).add(
+            root.tags["version"])
+    mixed = {b: sorted(v) for b, v in by_batch.items() if len(v) > 1}
+    if mixed:
+        fail(f"[I] micro-batches mix versions: {mixed}")
+    served = sorted({v for vs in by_batch.values() for v in vs})
+    if served != sorted(versions):
+        fail(f"[I] served versions {served}, expected {sorted(versions)}")
+    return {"micro_batches_by_version": {
+        str(v): sum(vs == {v} for vs in by_batch.values()) for v in served},
+        "mixed_micro_batches": len(mixed)}
+
+
+def span_medians(tracer, qos="RANKING") -> dict:
+    """Median ms of each span of the server's chain over ``qos``'s traced
+    requests."""
+    by_name = {name: [] for name in SPAN_NAMES}
+    for tid in tracer.trace_ids():
+        spans = tracer.peek(tid)
+        root = next(s for s in spans if s.name == "serve")
+        if root.tags["qos"] != qos:
+            continue
+        for span in spans:
+            by_name[span.name].append(span.duration_s * 1e3)
+    return {name: float(np.median(ms)) if ms else None
+            for name, ms in by_name.items()}
+
+
+def run_phase_i(served: Served, log, fm_log, c_p50_ms: float) -> dict:
+    """C's DeepFM and feature engine behind the QueryServer, as the
+    launcher's ``--feature-server`` mode serves them: I_CLIENTS scoring
+    threads of I_REQUESTS requests of C_ROWS rows (drawn as C draws them),
+    I_PREFETCH PREFETCH threads, and an ``item_pop`` delta (the next
+    version, DELTA_KEYS of the hottest items) published once I_SETTLED
+    requests are answered.  Every request is held as C holds its requests,
+    against the rows as written at the version its response names; no
+    micro-batch may mix versions.  Returns the phase's metrics."""
+    cfg, model, engine, n_items = (served.cfg, served.model, served.engine,
+                                   served.n_items)
+    v0 = served.version
+    tracer = Tracer(sample_rate=1.0, capacity=1 << 20, proc="server")
+    server = QueryServer(engine, BatchPolicy(
+        max_batch_keys=launch_serve.SERVER_BATCH_KEYS), tracer=tracer)
+    records, answered = [], threading.Event()
+    hot = served.keys[:DELTA_KEYS]             # the zipf draw's hottest ids
+    pops = {v0: served.pop, v0 + 1: served.pop.copy()}
+    pops[v0 + 1][:DELTA_KEYS] += np.uint64(1)
+    try:
+        session = api.FeatureClient(
+            server, default_budget_s=launch_serve.SCORING_BUDGET_S)
+        step = serve_step.recsys_score_fn(
+            cfg, model, feature_server=server,
+            feature_budget_s=launch_serve.SCORING_BUDGET_S,
+            feature_fields=launch_serve.FEATURE_FIELDS)
+        with ThreadCalls(serve_step, "_upload") as uploads, \
+                ThreadCalls(serve_step, "_splice") as splices:
+            def on_answer(batch, probs, ms):
+                (host, _), dev = uploads.last()
+                (_, response, _), _ = splices.last()
+                records.append((batch, probs, host, dev, response))
+                if len(records) >= I_SETTLED:
+                    answered.set()
+
+            def publish():
+                if not answered.wait(300):
+                    fail(f"[I] fewer than {I_SETTLED} requests answered "
+                         "in 300 s")
+                session.update(v0 + 1, upserts={"item_pop": (
+                    hot, pops[v0 + 1][:DELTA_KEYS])})
+
+            def draw(rng):
+                return c_request(rng, cfg, n_items)
+
+            launches0 = engine.stats.launches     # the warm-up's count too
+            batch = draw(np.random.default_rng(99))     # warm-up
+            on_answer(batch, step(batch), 0.0)
+            warm = records.pop()
+            server.reset_stats()
+            lat, shed, wall = launch_serve.concurrent_traffic(
+                step, session, draw, clients=I_CLIENTS, requests=I_REQUESTS,
+                prefetch_clients=I_PREFETCH, n_items=n_items,
+                publish=publish, on_answer=on_answer)
+        snap = server.stats_snapshot()
+    finally:
+        server.close()
+    engine_launches = engine.stats.launches - launches0
+    log.check_pending()
+    fm_log.check_pending()
+    versions = check_versions(tracer, (v0, v0 + 1))
+    max_err, by_version = 0.0, {}
+    for r, (batch, probs, host, dev, response) in enumerate(
+            [warm] + records):
+        v = response.version
+        if v not in pops:
+            fail(f"[I] request {r} answered from version {v}")
+        by_version[str(v)] = by_version.get(str(v), 0) + 1
+        max_err = max(max_err, check_request(
+            probs, batch, (host, dev), model, fm_log, served.feats, pops[v],
+            n_items, f"[I] request {r} (version {v})"))
+    lanes = {name: {"completed": c.completed, "p50_ms": c.p50_ms,
+                    "p99_ms": c.p99_ms, "shed": c.shed}
+             for name, c in snap.per_class.items() if c.submitted}
+    return {"phase": "I", "model": cfg.name, "rows": C_ROWS,
+            "clients": I_CLIENTS, "requests_a_client": I_REQUESTS,
+            "prefetch_clients": I_PREFETCH,
+            "requests_scored": len(records) + 1, "scoring_shed": shed,
+            **{f"request_{k}": v for k, v in percentiles(lat).items()},
+            "rows_per_s": C_ROWS * len(lat) / wall,
+            "phase_c_request_p50_ms": c_p50_ms,
+            "lanes": lanes, "micro_batches": snap.batches,
+            "requests_a_micro_batch": snap.mean_occupancy,
+            "keys_eliminated_before_the_card": snap.coalesce_rate,
+            "launches_a_micro_batch": snap.launches / snap.batches,
+            "engine_launches": engine_launches,
+            "scoring_requests_by_version": by_version, **versions,
+            "span_median_ms": span_medians(tracer),
+            "max_abs_err_probs": max_err, "max_abs_err_fm": fm_log.max_err,
+            "max_abs_err_probe": max(log.max_err.values())}
+
+
+def run_naive_i(served: Served) -> dict:
+    """Phase I's scoring clients (the same requests) through
+    ``FeatureClient(EngineBackend(engine))`` with no server: each request
+    its own feature query, as ``benchmarks/bench_serving.py``'s naive rows
+    query the engine.  A comparison: its launches are not the main path's.
+    """
+    cfg, model = served.cfg, served.model
+    step = serve_step.recsys_score_fn(
+        cfg, model, feature_fields=launch_serve.FEATURE_FIELDS,
+        feature_client=api.FeatureClient(api.EngineBackend(served.engine)))
+
+    def draw(rng):
+        return c_request(rng, cfg, served.n_items)
+    step(draw(np.random.default_rng(99))).cpu()             # warm-up
+    lat, _, wall = launch_serve.concurrent_traffic(
+        step, None, draw, clients=I_CLIENTS, requests=I_REQUESTS,
+        prefetch_clients=0, n_items=served.n_items)
+    return {**{f"request_{k}": v for k, v in percentiles(lat).items()},
+            "rows_per_s": C_ROWS * len(lat) / wall}
 
 
 def fm_bound_ms(shape):
@@ -1141,14 +1369,23 @@ def measure_bag(bag_log, retrieval_log, flush):
 # ---------------------------------------------------------------------------
 # phases E and F: the retrieval_cand cell
 # ---------------------------------------------------------------------------
+def total_order_np(scores):
+    """int64 keys of fp32 ``scores`` in the float total order that
+    ``jax.lax.top_k`` ranks by: +0.0 above -0.0, a positive NaN above +inf,
+    a negative NaN below -inf (the bits, the low 31 flipped for
+    negatives)."""
+    bits = np.ascontiguousarray(scores, dtype=np.float32).view(np.int32)
+    return (bits ^ ((bits >> 31) & 0x7FFFFFFF)).astype(np.int64)
+
+
 def check_top_k(got, scores, want, want_scores, what):
     """A request's top k (``got``: values and indices, of ``scores``)
     against the plain path's (``want``, of ``want_scores``): values within
     TOP_K_TOL; every returned value its index's score, bitwise; the order
-    ``jax.lax.top_k``'s on ``scores`` (descending, equal scores by ascending
-    index), rebuilt on the host; the indices the plain path's but where a
-    neighbouring score (the plain path's (k+1)-th included) lies within
-    TOP_K_TOL.  Returns the distinct values of each row and how many
+    ``jax.lax.top_k``'s on ``scores`` (descending by the float total order,
+    equal scores by ascending index), rebuilt on the host; the indices the
+    plain path's but where a neighbouring score (the plain path's (k+1)-th
+    included) lies within TOP_K_TOL.  Returns the distinct values of each row and how many
     positions hold another index than the plain path's."""
     (gv, gi), (wv, wi) = got, want
     k, n = gv.shape[-1], scores.shape[-1]
@@ -1159,15 +1396,17 @@ def check_top_k(got, scores, want, want_scores, what):
     if not err <= TOP_K_TOL:
         fail(f"{what}: top-{k} values differ from the plain path's by {err}")
     s2, gv2, gi2 = (t.reshape(-1, t.shape[-1]) for t in (scores, gv, gi))
-    if not torch.equal(s2.gather(1, gi2), gv2):
+    if not torch.equal(s2.gather(1, gi2).view(torch.int32),
+                       gv2.view(torch.int32)):
         fail(f"{what}: a returned value is not its index's score")
-    s_host, gi_host = s2.cpu().numpy(), gi2.cpu().numpy()
-    for r in range(len(s_host)):
-        cand = np.flatnonzero(s_host[r] >= s_host[r][gi_host[r][-1]])
-        order = cand[np.lexsort((cand, -s_host[r][cand]))][:k]
+    key, gi_host = total_order_np(s2.cpu().numpy()), gi2.cpu().numpy()
+    for r in range(len(key)):
+        cand = np.flatnonzero(key[r] >= key[r][gi_host[r][-1]])
+        order = cand[np.lexsort((cand, -key[r][cand]))][:k]
         if not np.array_equal(order, gi_host[r]):
             fail(f"{what}: the top {k} are not in lax.top_k's order "
-                 "(descending, equal scores by ascending index)")
+                 "(descending by the float total order, equal scores by "
+                 "ascending index)")
     w2 = want_scores.reshape(-1, n)
     nxt = (torch.topk(w2, k + 1).values[:, -1] if k < n
            else torch.full((len(w2),), float("-inf"), device=w2.device))
@@ -1706,7 +1945,7 @@ def main() -> int:
 
     zero(nl.launches, fm.launches, fm.paths)
     with LaunchLog() as log_c, FMLog() as fm_log:
-        m_c = run_phase_c(device, log_c, fm_log)
+        m_c, served = run_phase_c(device, log_c, fm_log)
     c_counts = {**nl.launches, **fm.launches}
     c_paths = dict(fm.paths)
     m_c["launches"] = c_counts
@@ -1717,8 +1956,24 @@ def main() -> int:
     if not any(c_counts[k] for k in nl.launches):
         fail("no probe kernel was launched on phase C's feature queries")
 
-    # Phase C's model (1.72 GB) went with run_phase_c's frame; give its
-    # cached blocks back before E draws the same model anew.
+    zero(nl.launches, fm.launches, fm.paths)
+    with LaunchLog() as log_i, FMLog() as fm_log_i:
+        m_i = run_phase_i(served, log_i, fm_log_i, m_c["request_p50_ms"])
+    i_counts = {**nl.launches, **fm.launches}
+    m_i["launches"] = i_counts
+    m_i["naive"] = run_naive_i(served)
+    print("[I] " + json.dumps(m_i), flush=True)
+    if i_counts["fused_fm"] != m_i["requests_scored"]:
+        fail(f"fused_fm launched {i_counts['fused_fm']} times for "
+             f"{m_i['requests_scored']} requests in phase I")
+    probes_i = sum(i_counts[k] for k in nl.launches)
+    if not probes_i or probes_i != m_i["engine_launches"]:
+        fail(f"phase I launched {probes_i} probes; its engine counts "
+             f"{m_i['engine_launches']}")
+
+    # Phase C's model (1.72 GB) goes with ``served``; give its cached
+    # blocks back before E draws the same model anew.
+    del served
     gc.collect()
     torch.cuda.empty_cache()
     zero(nl.launches, fm.launches, fm.paths, bagk.launches)
@@ -1737,11 +1992,16 @@ def main() -> int:
     kernels = []
     for name in ("probe_lines", "probe_smem"):
         row = measure(name, log.last[name], (eng_a, eng_b), log, flush)
-        row["launches"] = counts[name]
+        row["launches"] = counts[name] + c_counts[name] + i_counts[name]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 log_c.max_err.get(name, 0),
+                                 log_i.max_err.get(name, 0))
         kernels.append(row)
     row = measure_fm(fm_log, flush, fm_log_e.last[0])
-    row["launches"] = c_counts["fused_fm"] + e_counts["fused_fm"]
-    row["max_abs_err"] = max(fm_log.max_err, fm_log_e.max_err)
+    row["launches"] = (c_counts["fused_fm"] + e_counts["fused_fm"]
+                       + i_counts["fused_fm"])
+    row["max_abs_err"] = max(fm_log.max_err, fm_log_e.max_err,
+                             fm_log_i.max_err)
     row["retrieval"].update(launches=e_counts["fused_fm"],
                             max_abs_err=fm_log_e.max_err)
     fm_log_e.last = None                # E's 1.56 GB batch

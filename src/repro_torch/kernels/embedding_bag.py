@@ -130,6 +130,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
             ctypes.byref(staged))
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {err}")
-    launches["embedding_bag"] += 1
-    paths["staged" if staged.value else "registers"] += 1
+    with _lock:                       # launches may come from many threads
+        launches["embedding_bag"] += 1
+        paths["staged" if staged.value else "registers"] += 1
     return out

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import threading
 
 import torch
 
@@ -38,6 +39,7 @@ WARP = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # dtype codes of the .cu
 _BRANCHES = {"bulk": 0, "loads": 1}
 _n_sm: dict = {}                         # device index -> SM count
+_lock = threading.Lock()                 # the counts, from many threads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +153,7 @@ def fused_fm(emb: torch.Tensor) -> torch.Tensor:
             p.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"fused_fm launch failed: CUDA error {err}")
-    launches["fused_fm"] += 1
-    paths[p.branch] += 1
+    with _lock:
+        launches["fused_fm"] += 1
+        paths[p.branch] += 1
     return out

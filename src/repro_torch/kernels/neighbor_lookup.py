@@ -305,9 +305,10 @@ def _launch(name: str, group: TableGroup, q_hi: torch.Tensor,
                                    stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launches[name] += 1
-    if name == "probe_lines":
-        lanes_launches[lanes] += 1
+    with _lock:                       # launches may come from many threads
+        launches[name] += 1
+        if name == "probe_lines":
+            lanes_launches[lanes] += 1
     return out
 
 

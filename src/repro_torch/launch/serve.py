@@ -4,6 +4,9 @@
         --arch din|bst|two-tower-retrieval|deepfm \
         [--shape serve_p99|serve_bulk|retrieval_cand] [--smoke] \
         [--requests 20] [--batch ROWS] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \
+        --feature-server [--clients 8] [--prefetch-clients 2] [--smoke] \
+        [--requests 20] [--device cuda|cpu]
 
 Builds the model at its published width (the arch's ``CONFIG`` in
 ``configs/``; ``--smoke`` takes ``SMOKE`` and the cell at
@@ -33,12 +36,27 @@ sequence, printing the request latency's p50 and p99.
   their ``retrieval_cand`` is not ported.
 * ``train_batch`` raises: training is not ported.
 
+``--feature-server`` serves the feature lookups through the ported
+``QueryServer``, as the JAX launcher's feature-server mode does: over the
+same feature engine, ``--clients`` threads each score ``--requests``
+batches of the ``--shape`` cell's rows (``--batch`` overrides them)
+whose lookups ride the RANKING lane of a ``FeatureClient(server,
+default_budget_s=2.0)`` and coalesce with the other clients' into
+micro-batches of at most 4096 keys; ``--prefetch-clients`` threads send
+256 uniform ids at a time on the PREFETCH lane (0.5 s budget, shed
+requests dropped); an ``item_pop`` delta (version 2, 64 keys) is
+published while they run, after one warm-up request and a reset of the
+server's stats.  It prints the request p50 and p99, the shed count,
+rows/s and the server's ``StatsSnapshot.summary()``.  Only an arch whose
+batches carry ``sparse_ids`` to key the lookup (DeepFM) takes it.
+
 The model (and the probe) run on ``--device`` (default ``cuda``; there is
 no fallback to the CPU).
 """
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 
 import numpy as np
@@ -53,9 +71,15 @@ from repro_torch.data import synthetic
 from repro_torch.kernels import ops
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
+from repro_torch.serve.scheduler import BatchPolicy, ShedError
+from repro_torch.serve.server import QueryServer
 
 FEATURE_FIELDS = (("item_feats", "item_id"), ("item_pop", "item_id"))
 TOP_K = 100
+SERVER_BATCH_KEYS = 4096       # the feature server's micro-batch key budget
+SCORING_BUDGET_S = 2.0         # a scoring request's lookup budget
+PREFETCH_IDS, PREFETCH_BUDGET_S = 256, 0.5
+DELTA_KEYS = 64
 
 
 def feature_engine(n_items: int, max_shard_bytes: int, *, device):
@@ -119,6 +143,132 @@ def cell_requests(cfg, cell: registry.Cell, rows: int, model):
             lambda rng: (synthetic.recsys_batch(rng, cfg, rows),))
 
 
+def concurrent_traffic(step, session, draw, *, clients: int, requests: int,
+                       prefetch_clients: int, n_items: int, publish=None,
+                       on_answer=None):
+    """``clients`` threads at once, each scoring ``requests`` batches
+    ``draw(rng)`` through ``step`` (its own generator, seeded by the
+    client's number, so two calls draw the same requests), beside
+    ``prefetch_clients`` threads that look up PREFETCH_IDS uniform item ids
+    at a time on the PREFETCH lane of ``session`` until the scoring clients
+    are done.  ``publish()`` runs on
+    the calling thread once every thread has started; ``on_answer(batch,
+    probs, ms)`` sees each scored request on its client's thread.  A
+    request the server sheds counts in ``shed``; any other error in any
+    thread is raised here once every thread has been joined.  -> (request
+    latencies in ms, shed count, wall seconds of the scoring clients)."""
+    lat, shed, errors = [], [0], []
+    lock = threading.Lock()
+    scoring_done = threading.Event()
+
+    def scoring(cid):
+        rng = np.random.default_rng(100 + cid)
+        for _ in range(requests):
+            batch = draw(rng)
+            t0 = time.perf_counter()
+            try:
+                probs = step(batch)
+                probs.cpu()                     # waits for the card
+            except ShedError:
+                with lock:
+                    shed[0] += 1
+                continue
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                lat.append(ms)
+            if on_answer is not None:
+                on_answer(batch, probs, ms)
+
+    def prefetch(pid):
+        rng = np.random.default_rng(900 + pid)
+        while not scoring_done.is_set():
+            ids = rng.integers(1, n_items + 1, PREFETCH_IDS).astype(np.uint64)
+            try:
+                session.query({"item_feats": ids}, qos="PREFETCH",
+                              budget_s=PREFETCH_BUDGET_S)
+            except ShedError:
+                pass
+
+    def guarded(fn, i):
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 — raised after the joins
+            with lock:
+                errors.append(e)
+
+    scorers = [threading.Thread(target=guarded, args=(scoring, c))
+               for c in range(clients)]
+    fetchers = [threading.Thread(target=guarded, args=(prefetch, p))
+                for p in range(prefetch_clients)]
+    t0 = time.perf_counter()
+    for t in scorers + fetchers:
+        t.start()
+    try:
+        if publish is not None:
+            publish()
+    finally:
+        for t in scorers:
+            t.join()
+        wall = time.perf_counter() - t0
+        scoring_done.set()
+        for t in fetchers:
+            t.join()
+    if errors:
+        raise errors[0]
+    return lat, shed[0], wall
+
+
+def serve_with_feature_server(cfg, model, cell: registry.Cell, *, rows: int,
+                              clients: int, requests: int,
+                              prefetch_clients: int) -> dict:
+    """DeepFM behind the ported ``QueryServer`` over the launcher's feature
+    engine (the module docstring's ``--feature-server``)."""
+    fs = bili_feature_store.SMOKE
+    engine, keys, _, pop = feature_engine(fs.n_items, fs.max_shard_bytes,
+                                          device=model.device)
+    server = QueryServer(engine, BatchPolicy(max_batch_keys=SERVER_BATCH_KEYS))
+    finite = [True]
+    try:
+        session = FeatureClient(server, default_budget_s=SCORING_BUDGET_S)
+        step = serve_step.recsys_score_fn(
+            cfg, model, feature_client=session,
+            feature_budget_s=SCORING_BUDGET_S, feature_fields=FEATURE_FIELDS)
+
+        def draw(rng):
+            return request_batch(rng, cfg, rows, fs.n_items)
+
+        def publish():
+            session.update(2, upserts={"item_pop": (
+                keys[:DELTA_KEYS], pop[:DELTA_KEYS] + np.uint64(1))})
+
+        def on_answer(batch, probs, ms):
+            if not bool(probs.isfinite().all()):
+                finite[0] = False
+
+        step(draw(np.random.default_rng(99))).cpu()         # warm-up
+        server.reset_stats()
+        lat, shed, wall = concurrent_traffic(
+            step, session, draw, clients=clients, requests=requests,
+            prefetch_clients=prefetch_clients, n_items=fs.n_items,
+            publish=publish, on_answer=on_answer)
+        snap = server.stats_snapshot()
+    finally:
+        server.close()
+    res = {"device": str(model.device), "rows": rows, "scored": len(lat),
+           "shed": shed, "rows_per_s": rows * len(lat) / wall,
+           "p50_ms": float(np.percentile(lat, 50)) if lat else float("nan"),
+           "p99_ms": float(np.percentile(lat, 99)) if lat else float("nan"),
+           "versions_served": sorted(engine.stats.versions_served),
+           "finite": finite[0], "server": snap}
+    lat_line = (f"p50={res['p50_ms']:.2f}ms p99={res['p99_ms']:.2f}ms"
+                if lat else "no requests served")
+    print(f"{cfg.name}/{cell.name}/feature-server: {clients} clients x "
+          f"{requests} requests of {rows} rows on {model.device}, "
+          f"{lat_line} shed={shed} rows/s={res['rows_per_s']:.0f}")
+    print(f"  server: {snap.summary()}")
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -129,6 +279,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=None,
                     help="rows a scoring request (default: the cell's)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--feature-server", action="store_true",
+                    help="serve the feature lookups through the QueryServer "
+                         "to concurrent clients (DeepFM)")
+    ap.add_argument("--clients", type=int, default=8,
+                    help="scoring client threads for --feature-server")
+    ap.add_argument("--prefetch-clients", type=int, default=2,
+                    help="PREFETCH-lane lookup threads for --feature-server")
     args = ap.parse_args(argv)
     if args.arch not in registry.ARCHS:
         raise SystemExit(f"--arch {args.arch}: "
@@ -147,6 +304,18 @@ def main(argv=None) -> dict:
     if args.batch is not None and cell.kind != "rec_serve":
         ap.error(f"--batch sets a scoring cell's rows; {cell.name} ranks "
                  "its cell's candidates")
+    if args.feature_server:
+        if cell.kind != "rec_serve":
+            ap.error(f"--feature-server scores a serving cell's requests; "
+                     f"{cell.name} ranks candidates")
+        if "sparse_ids" not in synthetic.recsys_batch(
+                np.random.default_rng(0), configs.SMOKE, 1):
+            raise SystemExit(f"--feature-server needs an arch whose batches "
+                             f"carry sparse_ids to key the lookup (deepfm), "
+                             f"not {args.arch}")
+        if args.clients < 1 or args.prefetch_clients < 0:
+            ap.error("--clients must be at least 1, --prefetch-clients at "
+                     "least 0")
     rows = cell.dims["batch"] if args.batch is None else args.batch
     n_cand = cell.dims.get("n_candidates")
     if args.requests < 1 or rows < 1:
@@ -156,6 +325,10 @@ def main(argv=None) -> dict:
     if n_cand is not None and cfg.arch == "deepfm":
         rows = n_cand                           # one candidate a row
     model = rec.recsys_init(cfg, seed=0, device=device)
+    if args.feature_server:
+        return serve_with_feature_server(
+            cfg, model, cell, rows=rows, clients=args.clients,
+            requests=args.requests, prefetch_clients=args.prefetch_clients)
     step, draw = cell_requests(cfg, cell, rows, model)
 
     def answer(request):

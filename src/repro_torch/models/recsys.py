@@ -32,7 +32,8 @@ plain PyTorch, as the JAX package computes them outside any Pallas kernel.
 ``retrieval_scores`` (two-tower: user vectors against every candidate's
 item vector) and ``bulk_rank`` (DeepFM: the logits of a batch of candidate
 rows) end in ``lax_top_k``, which keeps ``jax.lax.top_k``'s order: values
-descending, equal values by ascending index.
+descending by the float total order (+0.0 above -0.0, NaN by its sign
+beyond the infinities), equal values by ascending index.
 
 The port runs one card: every table lives whole on it.
 """
@@ -436,16 +437,31 @@ def _columns(model: _Recsys, batch: dict) -> list:
 
 def lax_top_k(scores: torch.Tensor,
               k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` of ``scores`` [..., N] -> (values, indices), each
-    [..., k]: the k largest of each row in descending order, equal values
-    by ascending index.  A stable descending sort keeps equal values in
-    index order on every device, where ``torch.topk`` promises no order
-    among ties on the card."""
+    """``jax.lax.top_k`` of fp32 ``scores`` [..., N] -> (values, indices),
+    each [..., k]: the k largest of each row by the float total order, in
+    descending order, equal values by ascending index.  The total order
+    ranks +0.0 above -0.0, a positive NaN above +inf and a negative NaN
+    below -inf, as ``jax.lax.top_k`` does; a float sort treats the zeros
+    as equal and puts every NaN first.  So the rows are sorted on
+    ``total_order_key``, stably, which keeps equal keys in index order on
+    every device (``torch.topk`` promises no order among ties on the
+    card), and the values are gathered at the indices."""
     if not 0 <= k <= scores.shape[-1]:
         raise ValueError(f"top_k of {k} from {scores.shape[-1]} scores")
-    values, indices = torch.sort(scores, dim=-1, descending=True,
-                                 stable=True)
-    return values[..., :k], indices[..., :k]
+    _, indices = torch.sort(total_order_key(scores), dim=-1,
+                            descending=True, stable=True)
+    indices = indices[..., :k]
+    return scores.gather(-1, indices), indices
+
+
+def total_order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order fp32 ``scores`` as the float total order does:
+    the bits as int32, with the low 31 bits flipped for negatives (so a
+    larger magnitude ranks lower, and -0.0 just below +0.0)."""
+    if scores.dtype != torch.float32:
+        raise TypeError(f"total_order_key takes float32, got {scores.dtype}")
+    bits = scores.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
 
 def retrieval_scores(model: TwoTower, batch: dict, cand_ids, cand_cats,

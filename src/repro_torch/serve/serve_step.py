@@ -8,8 +8,10 @@ Each step sends the columns the model reads (and the candidates) to the
 card in one copy and the model scores them there.  With a feature source,
 a scoring request's feature columns are first resolved in ONE fused,
 version-pinned ``FeatureClient`` query over the port's ``MultiTableEngine``
-(whose probe runs on the card) and spliced into the batch's dense columns
-on the host (paper Fig 2's query side in front of the model).
+(whose probe runs on the card), directly or through a ``QueryServer`` that
+coalesces concurrent requests' lookups into micro-batches, and spliced
+into the batch's dense columns on the host (paper Fig 2's query side in
+front of the model).
 """
 from __future__ import annotations
 
@@ -93,16 +95,13 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
     batch query and splices the returned float32 rows into the batch's
     dense columns before the model runs.
 
-    The source is a ``feature_client`` (``api.FeatureClient``) or a
-    ``feature_engine`` (a ``MultiTableEngine``, wrapped in a client here);
-    at most one may be given.  Lookups ride the ``feature_qos`` lane with
-    ``feature_budget_s`` as their budget.  ``feature_server`` waits for the
-    port's ``QueryServer`` (ROADMAP queue 1, item 9) and raises."""
-    if feature_server is not None:
-        raise NotImplementedError(
-            "feature_server needs the QueryServer, which is not ported yet "
-            "(ROADMAP queue 1, item 9); pass feature_client or "
-            "feature_engine")
+    The source is a ``feature_client`` (``api.FeatureClient``; over a
+    ``QueryServer`` its lookups coalesce with other in-flight scoring
+    requests into QoS-laned micro-batches), a ``feature_engine`` (a
+    ``MultiTableEngine``) or a ``feature_server`` (a
+    ``serve.server.QueryServer``), the last two each wrapped in a client
+    here; at most one may be given.  Lookups ride the ``feature_qos`` lane
+    with ``feature_budget_s`` as their budget."""
     if cfg.arch not in rec.INIT:
         raise NotImplementedError(rec.NOT_PORTED.format(arch=cfg.arch))
     device = model.device
@@ -111,19 +110,21 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
         return rec.recsys_score(model, _upload(
             {k: batch[k] for k in model.inputs}, device))
 
-    sources = [s for s in (feature_engine, feature_client) if s is not None]
+    sources = [s for s in (feature_engine, feature_server, feature_client)
+               if s is not None]
     if len(sources) > 1:
         raise ValueError("pass exactly one of feature_client / "
-                         "feature_engine")
+                         "feature_engine / feature_server")
     if not sources:
         return step
 
     client = (feature_client if feature_client is not None
-              else FeatureClient(feature_engine))
+              else FeatureClient(sources[0]))
     qos = QoSClass.parse(feature_qos)
     fields = list(feature_fields or ())
     if not fields:
-        raise ValueError("feature engine/client given but no feature_fields")
+        raise ValueError("feature engine/server/client given but no "
+                         "feature_fields")
     names = [t for t, _ in fields]
     if len(set(names)) != len(names):
         raise ValueError("duplicate table names in feature_fields: one "

@@ -2,20 +2,24 @@
 version (kernels/ref.py) on the same inputs: the probe kernels bitwise, the
 FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM,
 two-tower, DIN and BST serving and retrieval on the card against the same
-models on the CPU.  No JAX here: the parity with the JAX package is pinned
+models on the CPU; the QueryServer over an engine on the card against the
+engine on the CPU.  No JAX here: the parity with the JAX package is pinned
 on the CPU by test_torch_lookup.py, test_torch_engine.py,
 test_torch_fused_fm.py, test_torch_embedding_bag.py, test_torch_recsys.py,
-test_torch_two_tower.py, test_torch_retrieval.py and
-test_torch_seq_recsys.py.  Run on a CUDA machine with
+test_torch_two_tower.py, test_torch_retrieval.py, test_torch_seq_recsys.py
+and test_torch_query_server.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
 import contextlib
+import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import api
 from repro_torch.core import engine as eng
 from repro_torch.core import hashcore as hc
 from repro_torch.core import lookup as lk
@@ -30,6 +34,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
+from repro_torch.serve.scheduler import BatchPolicy
+from repro_torch.serve.server import QueryServer
 
 pytestmark = [
     pytest.mark.cuda,
@@ -396,6 +402,85 @@ def test_engine_on_card_matches_engine_on_cpu():
     assert on_card.stats.launches == on_cpu.stats.launches
 
 
+def test_query_server_on_card_matches_cpu_across_a_delta():
+    """The port's QueryServer over an engine on the card, 8 client threads
+    and a delta published while they run: every response bitwise the CPU
+    engine's answer at the version it names, one version a micro-batch,
+    both versions served, and the probe launched from the scheduler
+    thread alone (one launch a shard a micro-batch)."""
+    keys, payloads = nh.random_kv(200_000, seed=3)
+    values = np.random.default_rng(4).integers(0, 255, (50_000, 32),
+                                               dtype=np.uint8)
+    scalars = [eng.ScalarTable("item_attr", keys, payloads)]
+    embeddings = [eng.EmbeddingTable("item_emb", keys[:50_000], values,
+                                     hot_fraction=0.25)]
+    kw = dict(max_shard_bytes=1 << 22,
+              buckets_per_line=hc.GPU_BUCKETS_PER_LINE)
+    on_card = eng.MultiTableEngine(scalars, embeddings, **kw)
+    on_cpu = eng.MultiTableEngine(scalars, embeddings, device="cpu", **kw)
+    upd = keys[np.random.default_rng(5).choice(50_000, 64, replace=False)]
+    delta = {"item_attr": (upd, np.arange(64, dtype=np.uint64)),
+             "item_emb": (upd, np.full((64, 32), 7, dtype=np.uint8))}
+    on_cpu.publish_delta(2, upserts=delta)
+    launchers, answers, errors = set(), [], []
+    probe = ops.probe_group
+
+    def spy(*args):
+        launchers.add(threading.get_ident())
+        return probe(*args)
+    started = threading.Barrier(9)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "probe_group", spy)
+        before = nl.launches["probe_lines"] + nl.launches["probe_smem"]
+        server = QueryServer(on_card, BatchPolicy(max_batch_keys=4096,
+                                                  max_wait_s=0.002))
+        client = api.FeatureClient(server)
+
+        def run(c):
+            rng = np.random.default_rng(100 + c)
+            try:
+                started.wait(30)
+                for _ in range(24):
+                    q = _queries(keys, 300, 0.9, seed=int(rng.integers(2**31)))
+                    q[:8] = upd[:8]
+                    req = {"item_attr": q, "item_emb": q[:100]}
+                    answers.append((req, client.query(req, timeout=60)))
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(c,)) for c in range(8)]
+        try:
+            for t in threads:
+                t.start()
+            started.wait(30)
+            while len(answers) < 16 and not errors:
+                time.sleep(0.001)
+            on_card.publish_delta(2, upserts=delta)
+            for t in threads:
+                t.join(120)
+        finally:
+            server.close()
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert len(answers) == 8 * 24
+    by_batch = {}
+    for req, res in answers:
+        by_batch.setdefault(res.batch_id, set()).add(res.version)
+        want = on_cpu.query(req, version=res.version, strict=True)
+        for name in req:
+            got, exp = res[name], want[name]
+            np.testing.assert_array_equal(got.found, exp.found)
+            if name == "item_attr":
+                np.testing.assert_array_equal(got.payloads, exp.payloads)
+            else:
+                np.testing.assert_array_equal(got.values, exp.values)
+    assert all(len(v) == 1 for v in by_batch.values())
+    assert {res.version for _, res in answers} == {1, 2}
+    launched = nl.launches["probe_lines"] + nl.launches["probe_smem"]
+    assert launched - before == server.stats_snapshot().launches > 0
+    assert len(launchers) == 1 and threading.get_ident() not in launchers
+
+
 # ---------------------------------------------------------------------------
 # fused_fm
 # ---------------------------------------------------------------------------
@@ -590,6 +675,19 @@ def test_serve_launcher_on_card():
                              "3", "--batch", "256"])
     assert out["device"].startswith("cuda") and out["finite"]
     assert fm.launches["fused_fm"] == before + 4     # warm-up + 3
+
+
+def test_feature_server_launcher_on_card():
+    """--feature-server on the card: 8 scoring threads, 2 PREFETCH threads,
+    a delta mid-traffic; one fused_fm launch a scored request, counted
+    exactly across the threads."""
+    before = fm.launches["fused_fm"]
+    out = launch_serve.main(["--arch", "deepfm", "--smoke", "--feature-server",
+                             "--clients", "8", "--prefetch-clients", "2",
+                             "--requests", "4", "--batch", "256"])
+    assert out["device"].startswith("cuda") and out["finite"]
+    assert out["scored"] + out["shed"] == 32 and out["server"].failed == 0
+    assert fm.launches["fused_fm"] == before + 1 + out["scored"]
 
 
 # ---------------------------------------------------------------------------
@@ -945,6 +1043,26 @@ def test_lax_top_k_breaks_ties_by_index_on_the_card(n, levels, k):
     gv, gi = rec.lax_top_k(torch.from_numpy(scores).cuda(), k)
     np.testing.assert_array_equal(gv.cpu().numpy(), scores[order])
     np.testing.assert_array_equal(gi.cpu().numpy(), order)
+
+
+NEG_NAN = np.array([0xFFC00000], dtype=np.uint32).view(np.float32)[0]
+
+
+@pytest.mark.parametrize("row", [
+    [0., -0., 0., -0., 1.], [-0., 0., -1.], [1., NEG_NAN, 3., 2.],
+    [np.nan, np.inf, -np.inf, NEG_NAN, 0., -0., np.nan, -np.inf]])
+def test_lax_top_k_signed_zeros_and_nan_on_the_card(row):
+    """The float total order on the card as on the CPU: the same indices,
+    the same value bits, for every k, also with the row repeated past a
+    block of the sort (4099 entries)."""
+    for scores in (np.array(row, dtype=np.float32),
+                   np.tile(np.array(row, dtype=np.float32), 4099)):
+        for k in sorted({0, 1, len(row), min(len(scores), 300)}):
+            gv, gi = rec.lax_top_k(torch.from_numpy(scores).cuda(), k)
+            wv, wi = rec.lax_top_k(torch.from_numpy(scores), k)
+            np.testing.assert_array_equal(gi.cpu().numpy(), wi.numpy())
+            np.testing.assert_array_equal(
+                gv.cpu().numpy().view(np.uint32), wv.numpy().view(np.uint32))
 
 
 @pytest.mark.parametrize("arch,kernel", [("deepfm", "fused_fm"),

@@ -1,10 +1,13 @@
 """The port's DeepFM serving slice against the JAX package, on the CPU:
 configs and synthetic batches, ``hash_ids`` and ``embed_lookup``, DeepFM
 scoring with the JAX parameters carried over, the scoring step behind a
-``FeatureClient`` across a delta and a ``min_version`` read, and the
-launcher.  The inputs are made with numpy from a seed and given to both
+``FeatureClient`` across a delta and a ``min_version`` read, the step
+behind the ``QueryServer`` with 4 concurrent clients against the JAX step
+behind the JAX server, and the launcher (its ``--feature-server`` mode
+too).  The inputs are made with numpy from a seed and given to both
 packages."""
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,8 @@ from repro.models import common as jcm
 from repro.models import embedding_service as jes
 from repro.models import recsys as jrec
 from repro.serve import serve_step as jserve
+from repro.serve.scheduler import BatchPolicy as JBatchPolicy
+from repro.serve.server import QueryServer as JQueryServer
 from repro_torch import api
 from repro_torch.configs import deepfm, registry
 from repro_torch.core import convert
@@ -30,6 +35,8 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import embedding_service as es
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
+from repro_torch.serve.scheduler import BatchPolicy
+from repro_torch.serve.server import QueryServer
 
 TOL = 1e-5                # fp32 forward, the same parameters in both
 N_ITEMS = 2000
@@ -217,6 +224,9 @@ def test_entry_points_default_to_the_card():
         rec.recsys_init(deepfm.SMOKE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "deepfm", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "deepfm", "--smoke", "--feature-server",
+                           "--requests", "1"])
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +331,93 @@ def test_score_fn_matches_jax_across_a_delta(jparams, model, mi,
                                   new_pop.astype(np.float32))
 
 
+def test_score_fn_behind_the_server_matches_jax(jparams, model, mi,
+                                                monkeypatch):
+    """DeepFM SMOKE's step behind the port's QueryServer against the JAX
+    step behind the JAX QueryServer, on the same requests from 4 clients at
+    once: before an item_pop delta, then through a min_version(2) session
+    after it.  Probabilities within TOL; every request's spliced columns
+    the rows as written at its version, times found."""
+    engine, keys, feats, pop = launch_serve.feature_engine(
+        N_ITEMS, SHARD_BYTES, device="cpu")
+    jengine = _jax_engine(N_ITEMS)
+    server = QueryServer(engine, BatchPolicy(max_batch_keys=4096))
+    jserver = JQueryServer(jengine, JBatchPolicy(max_batch_keys=4096))
+    jmesh = mesh_mod.make_local_mesh()
+    uploaded = {}                       # client thread -> its last batch
+    upload = serve_step._upload
+
+    def record(b, d):
+        uploaded[threading.get_ident()] = b
+        return upload(b, d)
+    monkeypatch.setattr(serve_step, "_upload", record)
+
+    def clients(step, jstep, seeds, pop, upd=None):
+        errors = []
+
+        def client(c):
+            try:
+                for seed in seeds[c::4]:
+                    batch = _request(seed)
+                    if upd is not None:
+                        batch["item_id"][:len(upd)] = upd.astype(np.int64)
+                    got = step(batch)
+                    dense = uploaded[threading.get_ident()]["dense"]
+                    want = jstep(jparams, batch)
+                    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                               rtol=TOL, atol=TOL)
+                    ids = batch["item_id"]
+                    found = ids <= N_ITEMS
+                    i = np.where(found, ids - 1, 0)
+                    np.testing.assert_array_equal(
+                        dense[:, :8], feats[i] * found[:, None])
+                    np.testing.assert_array_equal(
+                        dense[:, 8], pop[i].astype(np.float32) * found)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+
+    try:
+        step = serve_step.recsys_score_fn(
+            deepfm.SMOKE, model, feature_server=server,
+            feature_fields=FIELDS)
+        jstep = jserve.recsys_score_fn(
+            jdeepfm.SMOKE, jmesh, mi, feature_server=jserver,
+            feature_fields=FIELDS)
+        clients(step, jstep, list(range(8)), pop)
+        assert server.stats_snapshot().completed == 8
+        upd = keys[np.random.default_rng(7).choice(N_ITEMS, 16,
+                                                   replace=False)]
+        new_pop = np.arange(16, dtype=np.uint64) + 7
+        api.FeatureClient(server).update(2, upserts={"item_pop": (upd,
+                                                                   new_pop)})
+        JFeatureClient(jserver).update(2, upserts={"item_pop": (upd,
+                                                                 new_pop)})
+        pop2 = pop.copy()
+        pop2[(upd - 1).astype(np.int64)] = new_pop
+        step2 = serve_step.recsys_score_fn(
+            deepfm.SMOKE, model, feature_fields=FIELDS,
+            feature_client=api.FeatureClient(
+                server, default_consistency=api.Consistency.min_version(2)))
+        jstep2 = jserve.recsys_score_fn(
+            jdeepfm.SMOKE, jmesh, mi, feature_fields=FIELDS,
+            feature_client=JFeatureClient(
+                jserver, default_consistency=JConsistency.min_version(2)))
+        clients(step2, jstep2, list(range(8, 16)), pop2, upd)
+        assert engine.stats.versions_served == {1, 2}
+    finally:
+        server.close()
+        jserver.close()
+
+
 def test_score_fn_over_an_engine_and_without_a_source(model):
     engine, *_ = launch_serve.feature_engine(200, SHARD_BYTES, device="cpu")
     batch = _request(4)
@@ -348,10 +445,15 @@ def test_score_fn_validation(model, case):
     elif case == "duplicate":
         kw["feature_fields"] = [("item_pop", "item_id")] * 2
     elif case == "server":
-        kw = dict(feature_server=object(), feature_fields=FIELDS)
-    if case == "server":
-        with pytest.raises(NotImplementedError, match="QueryServer"):
-            serve_step.recsys_score_fn(deepfm.SMOKE, model, **kw)
+        # a server beside a client is two sources; alone it is served
+        # (test_score_fn_behind_the_server_matches_jax)
+        with QueryServer(engine, start=False) as server:
+            with pytest.raises(ValueError, match="feature_server"):
+                serve_step.recsys_score_fn(deepfm.SMOKE, model,
+                                           feature_server=server, **kw)
+            with pytest.raises(ValueError, match="feature_fields"):
+                serve_step.recsys_score_fn(deepfm.SMOKE, model,
+                                           feature_server=server)
         return
     if case != "field_shape":
         with pytest.raises(ValueError):
@@ -392,6 +494,34 @@ def test_launcher_scores_on_the_cpu(capsys):
     assert out["p99_ms"] >= out["p50_ms"] > 0
     assert "deepfm-smoke/serve_p99: 2 requests of 8 rows on cpu" in \
         capsys.readouterr().out
+
+
+def test_launcher_feature_server_on_the_cpu(capsys):
+    """--feature-server in process: 4 scoring clients and one PREFETCH
+    client behind the QueryServer, a delta while they run."""
+    out = launch_serve.main(["--arch", "deepfm", "--smoke", "--feature-server",
+                             "--clients", "4", "--prefetch-clients", "1",
+                             "--device", "cpu", "--requests", "3"])
+    assert out["finite"] and out["scored"] + out["shed"] == 12
+    assert out["rows"] == 8 and out["p99_ms"] >= out["p50_ms"] > 0
+    snap = out["server"]
+    assert snap.per_class["RANKING"].submitted == 12
+    assert snap.per_class["RANKING"].completed == out["scored"]
+    assert snap.per_class["PREFETCH"].submitted >= 1
+    assert snap.failed == 0
+    assert 1 in out["versions_served"]
+    assert set(out["versions_served"]) <= {1, 2}
+    printed = capsys.readouterr().out
+    assert "deepfm-smoke/serve_p99/feature-server: 4 clients x 3 requests " \
+        "of 8 rows on cpu" in printed
+    assert f"server: {snap.summary()}" in printed
+
+
+@pytest.mark.parametrize("arch", ["din", "two-tower-retrieval"])
+def test_launcher_feature_server_needs_sparse_ids(arch):
+    with pytest.raises(SystemExit, match="sparse_ids"):
+        launch_serve.main(["--arch", arch, "--smoke", "--feature-server",
+                           "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["din", "qwen3_14b"])

@@ -1,9 +1,9 @@
 """The port's ``retrieval_cand`` slice against the JAX package, on the CPU,
 at SMOKE with the JAX parameters carried over by ``core/convert``: the
-registry's cells, the two-tower item tower, ``lax_top_k``'s tie rule,
-``serve_step.retrieval_fn`` (two-tower) and ``bulk_rank_fn`` (DeepFM), and
-the launcher's ``--shape``.  The inputs are made with numpy from a seed and
-given to both packages.
+registry's cells, the two-tower item tower, ``lax_top_k``'s order (ties,
+signed zeros, NaN of either sign), ``serve_step.retrieval_fn`` (two-tower)
+and ``bulk_rank_fn`` (DeepFM), and the launcher's ``--shape``.  The inputs
+are made with numpy from a seed and given to both packages.
 
 Top-k lists are compared so: values within 1e-5; indices equal wherever
 the JAX list's neighbouring scores (the next unreturned one included) lie
@@ -18,6 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.configs import deepfm as jdeepfm
 from repro.configs import registry as jregistry
@@ -185,6 +187,50 @@ def test_lax_top_k_matches_jax_on_repeated_scores(shape, levels, k):
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     if levels < 1000:                  # the k-th value repeats
         assert ((scores == np.asarray(wv)[..., -1:]).sum(-1) > 1).all()
+
+
+NEG_NAN = np.array([0xFFC00000], dtype=np.uint32).view(np.float32)[0]
+
+
+def _same_as_jax_top_k(scores, k):
+    """``lax_top_k`` against ``jax.lax.top_k``: indices equal, values
+    bitwise (signed zeros and NaN payloads included)."""
+    gv, gi = rec.lax_top_k(torch.from_numpy(scores), k)
+    wv, wi = jax.lax.top_k(jnp.asarray(scores), k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gv.numpy().view(np.uint32),
+                                  np.asarray(wv).view(np.uint32))
+
+
+@pytest.mark.parametrize("row", [
+    [0., -0., 0., -0., 1.], [-0., 0., -1.], [1., NEG_NAN, 3., 2.],
+    [np.nan, np.inf, -np.inf, NEG_NAN, 0., -0., np.nan, -np.inf]])
+def test_lax_top_k_orders_signed_zeros_and_nan_as_jax(row):
+    """The float total order: +0.0 above -0.0, a positive NaN above +inf,
+    a negative NaN below -inf; equal keys by ascending index."""
+    scores = np.array(row, dtype=np.float32)
+    for k in range(len(row) + 1):
+        _same_as_jax_top_k(scores, k)
+
+
+_SPECIAL = [0.0, -0.0, np.inf, -np.inf, np.nan, float(NEG_NAN), 1.0, -1.0,
+            np.array([0x7F800001], dtype=np.uint32).view(np.float32)[0],
+            np.array([0xFF800001], dtype=np.uint32).view(np.float32)[0]]
+
+
+@settings(deadline=None, max_examples=60, database=None)
+@given(data=st.data(), n=st.integers(1, 40), rows=st.integers(1, 3))
+def test_lax_top_k_matches_jax_with_signed_zeros_and_nan(data, n, rows):
+    """Rows drawn from finite values, signed zeros, infinities and NaNs of
+    either sign (two payloads each): the same indices as ``jax.lax.top_k``
+    and bitwise the same values, for every k."""
+    vals = data.draw(st.lists(
+        st.one_of(st.sampled_from(_SPECIAL),
+                  st.floats(-2, 2, width=32, allow_nan=False)),
+        min_size=rows * n, max_size=rows * n))
+    scores = np.array(vals, dtype=np.float32).reshape(rows, n)
+    k = data.draw(st.integers(0, n))
+    _same_as_jax_top_k(scores, k)
 
 
 def test_lax_top_k_refuses_more_than_the_scores():
