@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs nine phases.  Two send batch queries through
+together, then runs ten phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -87,11 +87,30 @@ concatenation of the columns and the pageable copy to the card.
   float64 recompute on the card written here from the model's tensors
   (every row at ``serve_p99``, 4,096 fixed rows at ``serve_bulk``).
 
+* **J** — DeepFM training (``configs/deepfm.CONFIG``, full published
+  width, its own model from seed 0, after E's is freed) on the
+  ``train_batch`` cell's 65,536 rows, batches drawn and uploaded first:
+  the dense step (``make_train_step(recsys_loss_fn)``, what the JAX cell
+  builder runs) for a warm-up and 8 timed steps, then the sparse step
+  (``make_sparse_recsys_train_step``) the same from the same initial
+  parameters.  Every ``fused_fm`` and ``fused_fm_backward`` launch is held
+  against its plain version on the same tensors, and the first step is
+  taken again with the plain FM (loss within 1e-5, parameters within
+  1e-5 but where Adam's step is ill-conditioned).  The dense run is also
+  the incremental loop of ``examples/train_recsys.py``: every 4 steps the
+  touched rows of field 0 go into a ``MultiTableEngine`` (a seed
+  ``publish``, then ``publish_delta``) and 256 of them read back bitwise
+  at the new version; a checkpoint after step 4 restores bitwise and
+  gives step 5 again, bitwise; one step is traced for the card's busy
+  share and top kernels.
+
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (the RA
 gather, ``torch.take`` of the home value word, for the probe;
-``F.embedding_bag`` for the bag; none for the FM term) and its bound.
+``F.embedding_bag`` for the bag; none for the FM term or its gradient)
+and its bound; ``fused_fm`` also at J's [65536, 39, 10], and
+``fused_fm_backward`` there.
 Phase B's last group also goes through ``probe_lines`` for contrast, with
 the ratio of the two kernels' times; the redesigned kernels' constants get a
 line each: ``probe_smem``'s cluster and bytes a block; ``fused_fm``'s tile,
@@ -117,6 +136,7 @@ import functools
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -131,6 +151,7 @@ from repro_torch import api  # noqa: E402
 from repro_torch.configs import (bst, deepfm, din, registry,  # noqa: E402
                                  two_tower_retrieval)
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
+from repro_torch.core import convert  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import hashcore as hc  # noqa: E402
 from repro_torch.core import neighborhash as nh  # noqa: E402
@@ -147,6 +168,9 @@ from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serve import serve_step  # noqa: E402
 from repro_torch.serve.scheduler import BatchPolicy  # noqa: E402
 from repro_torch.serve.server import QueryServer  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
+from repro_torch.train import train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT_OPS_PER_S = 67e12          # non-tensor-core 32-bit rate, H100 SXM
@@ -181,16 +205,26 @@ SEQ_P99_ROWS, SEQ_P99_REQUESTS = 512, 64
 SEQ_BULK_ROWS, SEQ_BULK_REQUESTS = 262_144, 8
 SEQ_CHECK_ROWS = 4096          # fixed rows of each serve_bulk request
 SEQ_TOL = 1e-5                 # fp32 model vs float64 recompute, probs
+# phase J: DeepFM training, the train_batch cell
+J_ROWS = 65_536                # registry.REC_CELLS' train_batch
+J_STEPS = 8                    # timed steps of each train step
+J_PUBLISH_EVERY = 4            # steps between publishes to the engine
+J_CKPT_STEP = 4                # the checkpoint's step
+J_READBACK = 256               # published rows read back at each version
+J_TOL = 1e-5                   # a step's loss: FM kernels vs plain FM
+J_GRAD_TOL = 1e-5              # FM gradient kernel vs plain, x max |g|
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
-            "embedding_bag": "src/repro/kernels/embedding_bag.py:79"}
+            "embedding_bag": "src/repro/kernels/embedding_bag.py:79",
+            "fused_fm_backward": "src/repro/kernels/fused_fm.py:31"}
 LIBRARIES = {"probe": "src/repro_torch/csrc/probe.cu",
              "fused_fm": "src/repro_torch/csrc/fused_fm.cu",
              "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu"}
 SOURCE = {"probe_lines": LIBRARIES["probe"],
           "probe_smem": LIBRARIES["probe"],
           "fused_fm": LIBRARIES["fused_fm"],
+          "fused_fm_backward": LIBRARIES["fused_fm"],
           "embedding_bag": LIBRARIES["embedding_bag"]}
 
 
@@ -1877,6 +1911,373 @@ def run_phase_seq(name, cfg, device, p99_rows=SEQ_P99_ROWS,
     print(f"[{name}] " + json.dumps(bulk), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase J: DeepFM training on the card (train_batch at published width)
+# ---------------------------------------------------------------------------
+class BackwardLog:
+    """Wraps ``fused_fm.fused_fm_backward`` while the main path runs and
+    keeps each launch's inputs and output, checked after its step against
+    the plain gradient on the same tensors: |kernel - plain| at most
+    J_GRAD_TOL x max |g| (the gradient is g[b] times a column sum less an
+    element; g ~ 1/B makes any fixed absolute tolerance vacuous)."""
+
+    def __init__(self):
+        self.orig = fm.fused_fm_backward
+        self.pending = []
+        self.last = None                # the last launch's (emb, g)
+        self.max_err = 0.0
+        self.checked = 0
+
+    def __enter__(self):
+        fm.fused_fm_backward = self._record
+        return self
+
+    def __exit__(self, *exc):
+        fm.fused_fm_backward = self.orig
+
+    def _record(self, emb, g):
+        out = self.orig(emb, g)
+        self.pending.append((emb, g, out))
+        return out
+
+    def check_pending(self) -> None:
+        with torch.no_grad():
+            for emb, g, out in self.pending:
+                want = ref.fused_fm_backward(emb, g)
+                err = float((out.float() - want.float()).abs().max())
+                scale = float(g.abs().max())
+                self.max_err = max(self.max_err, err)
+                if err > J_GRAD_TOL * scale:
+                    fail(f"fused_fm_backward differs from the plain gradient "
+                         f"on {tuple(emb.shape)} (max abs err {err}, "
+                         f"max |g| {scale})")
+                self.last = (emb.detach(), g)
+                self.checked += 1
+        self.pending.clear()
+
+
+def fm_backward_bound_ms(shape):
+    """(bound ms, bound by) of the gradient at fp32 [B, F, D]: x read and
+    grad written once, g read once; a sub and a mul an element, an add a
+    column sum term."""
+    b, f, d = shape
+    t_bytes = (2 * b * f * d * 4 + b * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * b * f * d / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def measure_fm_backward(bwd_log, flush):
+    """fused_fm_backward at phase J's shape (its last launch's inputs), by
+    events and by profiler, cold L2, beside the plain gradient and the
+    bound; first held against the plain gradient once more."""
+    emb, g = bwd_log.last
+    kernel = functools.partial(fm.fused_fm_backward, emb, g)
+    got, want = kernel(), ref.fused_fm_backward(emb, g)
+    err = float((got - want).abs().max())
+    if err > J_GRAD_TOL * float(g.abs().max()):
+        fail(f"fused_fm_backward differs from the plain gradient at "
+             f"{tuple(emb.shape)} (max abs err {err})")
+    del got, want
+    bound, by = fm_backward_bound_ms(tuple(emb.shape))
+    n_sm = torch.cuda.get_device_properties(emb.device).multi_processor_count
+    p = fm.backward_plan(*emb.shape, emb.element_size(), n_sm,
+                         emb.data_ptr() % 16 == 0)
+    return {"name": "fused_fm_backward", "route": "cuda",
+            "source": SOURCE["fused_fm_backward"],
+            "replaces": REPLACES["fused_fm_backward"],
+            "replaces_note": "the gradient of that kernel's function: the "
+                             "JAX package has no gradient kernel and "
+                             "differentiates its jnp oracle "
+                             "(src/repro/kernels/ref.py:59)",
+            "launches": None, "max_abs_err": bwd_log.max_err,
+            "shape": list(emb.shape), "staged": p.staged,
+            "tile_samples": p.tile, "blocks": p.blocks,
+            "ms": time_ms(kernel, 50, flush),
+            "kernel_ms": kernel_ms(kernel, "fused_fm_backward", 50, flush),
+            "host_ms": host_ms(kernel, 50),
+            "plain_ms": time_ms(lambda: ref.fused_fm_backward(emb, g), 20,
+                                flush),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "library_note": "no single PyTorch call computes the FM term's "
+                            "gradient"}
+
+
+def _params_close(got, want, state, lr):
+    """(max abs err, leaf) of ``got`` against ``want`` after one step from
+    the same state; fails where an element is off by more than 1e-5 +
+    1e-5 |want|, or, where Adam's update was ill-conditioned (``state``'s
+    sqrt(v̂) < 1e-6: a gradient near Adam's eps of 1e-8, whose size a sum's
+    order decides, moves its weight by up to ``lr``), by more than
+    ``lr``."""
+    worst, where = 0.0, None
+    for k, w in want.items():
+        err = (got[k].float() - w.float()).abs()
+        bound = 1e-5 + 1e-5 * w.float().abs()
+        if "v" in state.get(k, {}):
+            vhat = state[k]["v"] / (1 - 0.999)
+            bound = torch.where(vhat.sqrt() < 1e-6, lr, bound)
+        if not bool((err <= bound).all()):
+            fail(f"{k} is off by {float(err.max())} beyond its tolerance")
+        if float(err.max()) > worst:
+            worst, where = float(err.max()), k
+    return worst, where
+
+
+class Publisher:
+    """The incremental loop of ``examples/train_recsys.py`` on the port's
+    engine: the rows touched since the last publish go in as a seed
+    ``publish`` (version 1) or a ``publish_delta`` (every later version),
+    keys ``row + 1``, values the trained rows' fp32 bytes; then a sample of
+    them is read at the new version and must equal the trained rows
+    bitwise."""
+
+    def __init__(self, device, seed=13):
+        self.engine = eng.MultiTableEngine(
+            max_shard_bytes=CONFIG.max_shard_bytes, retain=2, device=device)
+        self.touched: list = []
+        self.version = 0
+        self.rng = np.random.default_rng(seed)
+        self.log = []
+
+    def add(self, delta_ids, field_vocab):
+        """Keeps the distinct rows of field 0 among a step's flat field
+        ids (``delta_ids``), on the host."""
+        ids = torch.unique(delta_ids)
+        self.touched.append(
+            ids[ids < field_vocab].cpu().numpy().astype(np.int64))
+
+    def publish(self, table: torch.Tensor) -> dict:
+        rows = np.unique(np.concatenate(self.touched))
+        self.touched.clear()
+        keys = rows.astype(np.uint64) + np.uint64(1)
+        vals = table[torch.as_tensor(rows, device=table.device)].float() \
+            .cpu().numpy().view(np.uint8)
+        self.version += 1
+        t0 = time.perf_counter()
+        if self.version == 1:
+            self.engine.publish(self.version, embeddings=[eng.EmbeddingTable(
+                "field_table", keys, vals, hot_fraction=0.25)])
+            mode = "seed"
+        else:
+            self.engine.publish_delta(
+                self.version, upserts={"field_table": (keys, vals)})
+            mode = "delta"
+        ms = (time.perf_counter() - t0) * 1e3
+        pick = self.rng.choice(len(rows), min(J_READBACK, len(rows)),
+                               replace=False)
+        res = self.engine.query({"field_table": keys[pick]})
+        got = res["field_table"]
+        if res.version != self.version or not bool(got.found.all()) or \
+                not np.array_equal(got.values, vals[pick]):
+            fail(f"[J] version {self.version} ({mode}) does not read back "
+                 f"the trained rows bitwise")
+        entry = {"version": self.version, "mode": mode, "rows": int(
+            len(rows)), "ms": ms, "read_back": int(len(pick))}
+        self.log.append(entry)
+        print(f"[J] published v{self.version} ({mode}): {len(rows)} rows in "
+              f"{ms:.1f} ms; {len(pick)} read back bitwise", flush=True)
+        return entry
+
+
+def timed_steps(fn, params, state, step, batches, on_step=None):
+    """Runs ``fn`` over ``batches``, each step timed by CUDA events (on the
+    card) and by the host clock up to a synchronize; ``on_step(i, params,
+    metrics)`` runs after each step, outside its timing.  Returns the last
+    (params, state, step), the per-step ms and the metrics."""
+    ev_ms, host, metrics = [], [], []
+    cuda = next(iter(params.values())).device.type == "cuda"
+    for i, b in enumerate(batches):
+        if cuda:
+            torch.cuda.synchronize()
+            s, e = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            s.record()
+        t0 = time.perf_counter()
+        params, state, step, m = fn(params, state, step, b)
+        if cuda:
+            e.record()
+            torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            ev_ms.append(s.elapsed_time(e))
+        metrics.append(m)
+        if on_step is not None:
+            on_step(i, params, state, m)
+    return params, state, step, ev_ms, host, metrics
+
+
+def step_summary(rows, ev_ms, host, metrics):
+    return {"steps": len(host), "event_ms": ev_ms, "host_ms": host,
+            "event_ms_median": float(np.median(ev_ms)) if ev_ms else None,
+            "host_ms_median": float(np.median(host)),
+            "examples_per_s": rows / (float(np.median(host)) / 1e3),
+            "loss": [float(m["loss"]) for m in metrics],
+            "grad_norm": [float(m["grad_norm"]) for m in metrics]}
+
+
+def run_phase_j(device, fm_log, bwd_log, cfg=deepfm.CONFIG, rows=J_ROWS,
+                steps=J_STEPS, ckpt_dir=None):
+    """DeepFM's train_batch (by default at full published width) on the
+    card, through both train steps of the JAX package; returns the phase's
+    metrics and the number of steps that ran the FM kernels."""
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    ocfg = train_opt.OptConfig()
+    t0 = time.perf_counter()
+    params0 = convert.params_of(rec.recsys_init(cfg, seed=0, device=device))
+    n_bytes = sum(p.numel() * p.element_size() for p in params0.values())
+    print(f"[J] {cfg.name}: {n_bytes} parameter bytes, drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    batches = draw_requests(
+        lambda rng: (synthetic.recsys_batch(rng, cfg, rows),), steps + 2,
+        seed=21)
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in b.items()}
+               for (b,) in batches]
+    print(f"[J] drew and uploaded {steps + 2} batches of {rows} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kernel_steps = 0
+
+    def checked(n=1):
+        nonlocal kernel_steps
+        fm_log.check_pending()
+        bwd_log.check_pending()
+        kernel_steps += n
+
+    # the first step, kernels against the plain versions: every launch on
+    # the same tensors, then the whole step again with the plain FM
+    def fields(b):                    # the step's flat field ids
+        return {"field_table": rec.table_ids(cfg, b)["field_rows"][1]
+                .reshape(-1)}
+
+    dense = train_step.make_train_step(train_step.recsys_loss_fn(cfg), ocfg,
+                                       delta_ids_fn=fields)
+    s0 = train_opt.init_opt_state(params0, ocfg)
+    p1, s1, st, m1 = dense(params0, s0, 0, batches[0])
+    checked()
+    with fm_log.plain():
+        pp, sp, _, mp = dense(params0, s0, 0, batches[0])
+    loss_err = abs(float(m1["loss"]) - float(mp["loss"]))
+    if loss_err > J_TOL:
+        fail(f"[J] the step's loss with the FM kernels differs from the "
+             f"plain FM's by {loss_err}")
+    param_err, param_where = _params_close(p1, pp, sp, ocfg.lr)
+    del pp, sp, mp
+    publisher = Publisher(device)
+    publisher.add(m1["delta_ids"]["field_table"], cfg.field_vocab)
+
+    # dense: 8 timed steps after that warm-up, a publish every 4 steps, a
+    # checkpoint after step 4 (global), step 5's output kept
+    saved = {}
+
+    def after_dense(i, params, state, m):
+        step = i + 2                                  # the global step
+        publisher.add(m["delta_ids"]["field_table"], cfg.field_vocab)
+        checked()
+        if step % J_PUBLISH_EVERY == 0:
+            publisher.publish(params["field_table"])
+        if step == J_CKPT_STEP and ckpt_dir:
+            t0 = time.perf_counter()
+            train_ckpt.save(ckpt_dir, params=params, opt_state=state,
+                            step=step, meta={"arch": cfg.name})
+            saved["save_s"] = time.perf_counter() - t0
+            saved["at_save"] = (params, state)
+        if step == J_CKPT_STEP + 1:
+            saved["params"], saved["loss"] = params, float(m["loss"])
+
+    p, s, st, ev, host, ms = timed_steps(dense, p1, s1, st,
+                                         batches[1:steps + 1], after_dense)
+    m_dense = step_summary(rows, ev, host, ms)
+    m_dense["peak_bytes"] = max_memory(device)
+    del p, s
+    # the checkpoint: restore into fresh tensors, take step 5 again
+    ck = {}
+    if ckpt_dir:
+        t0 = time.perf_counter()
+        rp, rs, rstep, _ = train_ckpt.restore(
+            ckpt_dir, params_like=params0, opt_like=s0)
+        ck = {"save_s": saved["save_s"],
+              "restore_s": time.perf_counter() - t0, "step": rstep}
+        # the restore gives back exactly what was saved...
+        at_params, at_state = saved.pop("at_save")
+        if rstep != J_CKPT_STEP or not all(
+                torch.equal(rp[k], at_params[k]) for k in rp) or not all(
+                torch.equal(rs[k][n], at_state[k][n])
+                for k in rs for n in rs[k]):
+            fail("[J] the checkpoint did not restore what was saved")
+        del at_params, at_state
+        # ...and the next step from it is the uninterrupted run's: bitwise
+        # on the card, where every operation of the dense step sums in a
+        # fixed order (the gather's backward sorts its ids, the FM kernels
+        # and the GEMMs do not race); within _params_close's tolerance on
+        # the CPU (a rehearsal), whose gather backward adds a row's
+        # duplicate ids in an order that may change from run to run
+        p_next, _, _, m_next = dense(rp, rs, rstep, batches[rstep])
+        checked()
+        ck["loss"] = [float(m_next["loss"]), saved["loss"]]
+        ck["bitwise"] = ck["loss"][0] == ck["loss"][1] and all(
+            torch.equal(p_next[k], saved["params"][k]) for k in p_next)
+        if cuda and not ck["bitwise"]:
+            fail(f"[J] step {rstep + 1} from the checkpoint is not the "
+                 f"uninterrupted run's bitwise (losses {ck['loss']})")
+        if abs(ck["loss"][0] - ck["loss"][1]) > J_TOL:
+            fail(f"[J] step {rstep + 1} from the checkpoint has loss "
+                 f"{ck['loss'][0]}, the uninterrupted run {ck['loss'][1]}")
+        ck["param_max_abs_err"], _ = _params_close(p_next, saved["params"],
+                                                   rs, ocfg.lr)
+        del rp, rs, p_next
+        shutil.rmtree(ckpt_dir)
+    saved.clear()
+    # the traced step (dense, from the first step's state)
+    prof = request_profiler(device)
+    with prof:
+        t0 = time.perf_counter()
+        pt, _, _, _ = dense(p1, s1, 1, batches[steps + 1])
+        if cuda:
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    checked()
+    del pt
+    busy_ms, busy_events = device_busy_ms(prof)
+    traced = {"ms": traced_ms, "device_busy_ms": busy_ms,
+              "device_events": busy_events,
+              "busy_share": busy_ms / traced_ms,
+              "busy_share_of_median": busy_ms / m_dense["host_ms_median"],
+              "kernels_ms": kernels_by_device_ms(prof, top=8),
+              "peak_bytes": max_memory(device)}
+    del p1, s1
+    gc.collect()
+    # sparse: the same, from the same initial parameters (the step updates
+    # the tables in place, and params0 is not needed after it)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    sparse = train_step.make_sparse_recsys_train_step(cfg, ocfg)
+    sp0 = train_opt.init_opt_state(params0, ocfg)
+    p, s, st, _ = sparse(params0, sp0, 0, batches[0])
+    checked()
+    p, s, st, ev, host, ms = timed_steps(
+        sparse, p, s, st, batches[1:steps + 1],
+        lambda i, params, state, m: checked())
+    m_sparse = step_summary(rows, ev, host, ms)
+    m_sparse["peak_bytes"] = max_memory(device)
+    del p, s, params0
+    m = {"phase": "J", "model": cfg.name, "rows": rows,
+         "first_step": {"loss_kernel": float(m1["loss"]),
+                        "loss_err_vs_plain_fm": loss_err,
+                        "param_max_abs_err_vs_plain_fm": param_err,
+                        "param_worst_leaf": param_where},
+         "dense": m_dense, "sparse": m_sparse,
+         "publishes": publisher.log, "checkpoint": ck, "traced_step": traced,
+         "fm_max_abs_err": fm_log.max_err,
+         "fm_backward_max_abs_err": bwd_log.max_err,
+         "kernel_steps": kernel_steps,
+         "phase_s": time.perf_counter() - t_phase}
+    return m
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -1919,6 +2320,10 @@ def main() -> int:
     print(f"reduced: phase C feature items {CONFIG.n_items}->{C_ITEMS} (the "
           f"host builder inserts one key at a time, ~23-28 us a key); "
           f"shards stay {CONFIG.max_shard_bytes} B")
+    print("reduced: phase J publishes the touched rows of field 0 (~100k "
+          "every 4 steps), not of all 39 fields (~3.8M): the engine's host "
+          "builder inserts one key at a time (each publish's ms is "
+          "printed)")
 
     zero(nl.launches, nl.lanes_launches)
     with LaunchLog() as log:
@@ -1988,6 +2393,26 @@ def main() -> int:
     print("[E] fused_fm plan: " + json.dumps(fm_plan_line(
         fm_log_e.last[0], dict(fm.paths))), flush=True)
 
+    # J draws its own DeepFM (1.72 GB, E's went with run_phase_e's frame)
+    # and trains it on the train_batch cell through both train steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero(nl.launches, fm.launches, fm.paths, bagk.launches)
+    with FMLog() as fm_log_j, BackwardLog() as bwd_log:
+        m_j = run_phase_j(device, fm_log_j, bwd_log, ckpt_dir=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build",
+            "chip_smoke_ckpt"))
+    j_counts = {**nl.launches, **fm.launches, **bagk.launches}
+    m_j["launches"] = j_counts
+    print("[J] " + json.dumps(m_j), flush=True)
+    steps_j = m_j["kernel_steps"]
+    if not (j_counts["fused_fm"] == j_counts["fused_fm_backward"] ==
+            bwd_log.checked == steps_j):
+        fail(f"phase J ran {steps_j} steps on the FM kernels and checked "
+             f"{bwd_log.checked} gradients; launches {j_counts}")
+    if any(j_counts[k] for k in nl.launches) or j_counts["embedding_bag"]:
+        fail(f"DeepFM training launched another kernel: {j_counts}")
+
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     kernels = []
     for name in ("probe_lines", "probe_smem"):
@@ -1999,13 +2424,20 @@ def main() -> int:
         kernels.append(row)
     row = measure_fm(fm_log, flush, fm_log_e.last[0])
     row["launches"] = (c_counts["fused_fm"] + e_counts["fused_fm"]
-                       + i_counts["fused_fm"])
+                       + i_counts["fused_fm"] + j_counts["fused_fm"])
     row["max_abs_err"] = max(fm_log.max_err, fm_log_e.max_err,
-                             fm_log_i.max_err)
+                             fm_log_i.max_err, fm_log_j.max_err)
     row["retrieval"].update(launches=e_counts["fused_fm"],
                             max_abs_err=fm_log_e.max_err)
     fm_log_e.last = None                # E's 1.56 GB batch
+    row["train"] = fm_timing(fm_log_j.last[0].detach(), flush, 20, 5)
+    row["train"].update(launches=j_counts["fused_fm"],
+                        max_abs_err=fm_log_j.max_err)
     kernels.append(row)
+    row = measure_fm_backward(bwd_log, flush)
+    row["launches"] = j_counts["fused_fm_backward"]
+    kernels.append(row)
+    fm_log_j.last = bwd_log.last = None
     print("fused_fm design: " + json.dumps(fm_design(fm_log, c_paths)),
           flush=True)
     print("probe_lines design: " + json.dumps(lines_design(

@@ -5,8 +5,17 @@ two packages (same hash, same layout), so a reference ``HashTable`` crosses
 as numpy arrays plus its statics.  ``HashTable.load`` reads the reference's
 ``save`` snapshots directly (same ``.npz`` format).  A model's weights cross
 as the reference's unboxed parameter tree with numpy leaves.
+
+The trainer (``train/``) holds parameters as one flat dict of tensors keyed
+by the JAX pytree paths (``field_table``, ``mlp/0/w``, ``blocks/0/wq``), in
+``jax.tree_util``'s leaf order, and its optimizer state as ``{path: {name:
+tensor}}``: ``params_of`` maps a port model to that dict,
+``model_from_params`` maps it back, and ``params_from_reference`` /
+``opt_state_from_reference`` carry the JAX package's trees across.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -169,3 +178,89 @@ def bst_from_reference(params: dict, cfg, device):
         blocks=[{k: t[f"blocks.{i}.{k}"] for k in recsys.BST_BLOCK}
                 for i in range(cfg.n_blocks)],
         mlp=_layers(t, "mlp", len(head) - 1))
+
+
+FROM_REFERENCE = {"deepfm": deepfm_from_reference,
+                  "two_tower": two_tower_from_reference,
+                  "din": din_from_reference, "bst": bst_from_reference}
+
+
+def _path_order(path: str) -> tuple:
+    """``jax.tree_util``'s leaf order: dict keys sorted, lists by index."""
+    return tuple(int(x) if x.isdigit() else x for x in path.split("/"))
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """A nested tree of dicts and lists -> {path: leaf}, paths joined by
+    ``/``, in ``jax.tree_util``'s leaf order."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _from_numpy(arr, device) -> torch.Tensor:
+    """A numpy array (bf16 and fp8 of ml_dtypes included, by their bytes)
+    -> a tensor of the same dtype on ``device``."""
+    arr = np.array(arr, order="C")            # a copy; 0-d stays 0-d
+    if arr.dtype.kind in "biufc":
+        return torch.from_numpy(arr).to(device)
+    raw = arr.view({1: np.uint8, 2: np.uint16}[arr.dtype.itemsize])
+    return torch.from_numpy(raw).view(
+        getattr(torch, str(arr.dtype))).to(device)
+
+
+def params_of(model) -> dict:
+    """A port model's parameters as the trainer's path-keyed dict
+    (``mlp_w.0`` -> ``mlp/0/w``, ``blocks.0.wq`` -> ``blocks/0/wq``):
+    detached tensors that share the model's storage."""
+    out = {}
+    for name, p in model.named_parameters():
+        m = re.fullmatch(r"(\w+)_([wb])\.(\d+)", name)
+        out[f"{m[1]}/{m[3]}/{m[2]}" if m else name.replace(".", "/")] = \
+            p.detach()
+    return dict(sorted(out.items(), key=lambda kv: _path_order(kv[0])))
+
+
+def params_from_reference(tree, device) -> dict:
+    """The JAX package's unboxed parameter tree (numpy leaves) -> the
+    trainer's path-keyed dict on ``device``, dtypes kept."""
+    return {k: _from_numpy(v, device) for k, v in flatten_tree(tree).items()}
+
+
+def opt_state_from_reference(tree, device) -> dict:
+    """The JAX package's optimizer state (``init_opt_state``'s tree, numpy
+    leaves) -> ``{path: {name: tensor}}`` on ``device``, dtypes kept (the
+    bf16 momentum of ``adafactor`` too)."""
+    out: dict = {}
+    for k, v in flatten_tree(tree).items():
+        path, name = k.rsplit("/", 1)
+        out.setdefault(path, {})[name] = _from_numpy(v, device)
+    return out
+
+
+def model_from_params(cfg, params: dict, device):
+    """The trainer's path-keyed dict -> the port's serving model of ``cfg``
+    on ``device`` (the values copied; every name and shape checked)."""
+    tree: dict = {}
+    for k, v in params.items():
+        *head, leaf = k.split("/")
+        node = tree
+        for part in head:
+            node = node.setdefault(part, {})
+        node[leaf] = v.detach().cpu().float().numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return FROM_REFERENCE[cfg.arch](lists(tree), cfg, device)

@@ -5,7 +5,8 @@ A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
 launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``,
 ``kernels/embedding_bag.py``) or raises — there is no fallback from one to
 the other.  On the card the probe's batch is padded to the block size and
-the outputs sliced back.
+the outputs sliced back; the FM term carries its gradient kernel, and the
+bag lookup, which has none yet, raises under grad.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ from repro_torch.kernels import neighbor_lookup as _nl
 from repro_torch.kernels import ref as _ref
 
 BLOCK_Q = 256
+BAG_NO_GRADIENT = ("embedding_bag has no backward kernel on the card yet: it "
+                   "comes with two-tower training on the card (ROADMAP "
+                   "queue 1, item 12)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -109,10 +113,12 @@ def neighbor_lookup(key_hi, key_lo, val_hi, val_lo, q_hi, q_lo, *,
 
 def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     """FM second-order term of ``emb`` [B, F, D] -> fp32 [B]: the plain
-    version for a CPU tensor, the ``fused_fm`` kernel for a CUDA one."""
+    version for a CPU tensor (autograd differentiates it as it stands); for
+    a CUDA one ``FusedFM``, the ``fused_fm`` kernel with the
+    ``fused_fm_backward`` kernel as its gradient."""
     if emb.device.type == "cpu":
         return _ref.fused_fm(emb)
-    return _fm.fused_fm(emb)
+    return _fm.FusedFM.apply(emb)
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -121,7 +127,13 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     """Bag lookup of ``indices`` [B, L] (negative = padding) in ``table``
     [V, D] -> fp32 [B, D] (``kernels/ref.embedding_bag`` says what it
     computes): the plain version for a CPU table, the ``embedding_bag``
-    kernel for a CUDA one."""
+    kernel for a CUDA one.  The kernel has no gradient yet: on the card,
+    with grad enabled and a table (or weights) that requires it, this
+    raises rather than return a result that autograd would not
+    differentiate."""
     if table.device.type == "cpu":
         return _ref.embedding_bag(table, indices, weights, mode)
+    if torch.is_grad_enabled() and (table.requires_grad or (
+            weights is not None and weights.requires_grad)):
+        raise NotImplementedError(BAG_NO_GRADIENT)
     return _bag.embedding_bag(table, indices, weights, mode=mode)

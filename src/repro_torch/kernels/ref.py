@@ -7,7 +7,8 @@
   under an active-lane mask, as the JAX package's ``core/lookup.lookup``
   does.
 * ``fused_fm``, of the FM kernel in ``fused_fm.py``: the JAX package's
-  ``kernels/ref.fused_fm``.
+  ``kernels/ref.fused_fm``; ``fused_fm_backward``, of its gradient kernel
+  (the JAX package has none: it differentiates that oracle).
 * ``embedding_bag``, of the bag kernel in ``embedding_bag.py``: what the
   JAX package's Pallas kernel computes (fp32 accumulation and output).
 
@@ -98,14 +99,29 @@ def probe_group(group, q_hi: torch.Tensor, q_lo: torch.Tensor,
     return out.view(torch.uint32)
 
 
+def _acc_dtype(emb: torch.Tensor) -> torch.dtype:
+    """fp32, or float64 for a float64 input (the gradient checks)."""
+    return torch.promote_types(emb.dtype, torch.float32)
+
+
 def fused_fm(emb: torch.Tensor) -> torch.Tensor:
     """Plain version of ``fused_fm.fused_fm``: emb [B, F, D] -> fp32 [B],
     ``0.5 * sum_d[(sum_f x)^2 - sum_f x^2]``, accumulated in fp32 whatever
-    the input dtype."""
-    x = emb.to(torch.float32)
+    the input dtype (a float64 input stays float64)."""
+    x = emb.to(_acc_dtype(emb))
     s = x.sum(dim=1)                                   # [B, D]
     ss = (x * x).sum(dim=1)                            # [B, D]
     return 0.5 * (s * s - ss).sum(dim=-1)              # [B]
+
+
+def fused_fm_backward(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``fused_fm.fused_fm_backward``: the gradient of
+    ``fused_fm`` at emb [B, F, D] given g [B], the gradient of its output,
+    ``grad[b, f, d] = g[b] * (sum_f' x[b, f', d] - x[b, f, d])``, accumulated
+    in fp32 (float64 stays float64) and returned in emb's dtype."""
+    x = emb.to(_acc_dtype(emb))
+    s = x.sum(dim=1, keepdim=True)                     # [B, 1, D]
+    return (g.to(x.dtype)[:, None, None] * (s - x)).to(emb.dtype)
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,

@@ -34,7 +34,8 @@ sequence, printing the request latency's p50 and p99.
   categories), DeepFM through ``serve_step.bulk_rank_fn`` (a batch of
   candidate rows).  For ``din`` and ``bst`` it exits naming ROADMAP:
   their ``retrieval_cand`` is not ported.
-* ``train_batch`` raises: training is not ported.
+* ``train_batch`` exits, pointing to the train launcher
+  (``python -m repro_torch.launch.train``).
 
 ``--feature-server`` serves the feature lookups through the ported
 ``QueryServer``, as the JAX launcher's feature-server mode does: over the
@@ -295,8 +296,8 @@ def main(argv=None) -> dict:
     if args.smoke:
         cell = registry.reduce_cell(cell)
     if cell.kind == "rec_train":
-        raise SystemExit(f"--shape {cell.name}: training is not ported "
-                         "(ROADMAP queue 1, item 12)")
+        raise SystemExit(f"--shape {cell.name} is a train cell: run python "
+                         "-m repro_torch.launch.train")
     if cell.kind == "rec_retrieval" and \
             configs.CONFIG.arch not in serve_step.RETRIEVAL_ARCHS:
         raise SystemExit(f"--shape {cell.name}: "

@@ -1,6 +1,7 @@
 """What the port's models share: the JAX package's initializers
-(``models/common.py``), on an explicit ``torch.Generator`` and device, and
-its ``layer_norm``.
+(``models/common.py``), on an explicit ``torch.Generator`` and device, its
+``layer_norm`` and its two losses, ``softmax_xent`` and
+``bce_with_logits``.
 
 The JAX package boxes every parameter with a ``PartitionSpec`` and shards it
 over a mesh (``Boxed``, ``MeshInfo``).  The port runs on one card and has
@@ -11,6 +12,7 @@ parity tests carry the JAX parameters over (``core/convert.py``).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -42,3 +44,35 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * gamma.float() + beta.float()).to(dt)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's ``softmax_xent``: the mean (or, with ``mask``, the
+    masked mean) negative log-likelihood of ``labels`` [*] under ``logits``
+    [*, V], in fp32.  The max is held constant under differentiation, and
+    the gold logit is taken by a compare-and-select over the last axis, as
+    there."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(iota == labels[..., None], logits, 0.0).sum(dim=-1)
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``bce_with_logits``: the mean of ``max(l, 0) - l·y
+    + log1p(exp(-|l|))`` in fp32.  At ``l == 0`` the gradient is JAX's:
+    ``torch.maximum`` splits it evenly, as ``jnp.maximum`` does, and ``|l|``
+    is a select whose slope there is 1, as ``jnp.abs``'s is (``abs``'s is
+    0)."""
+    logits, labels = logits.float(), labels.float()
+    magnitude = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, torch.zeros_like(logits))
+            - logits * labels
+            + torch.log1p(torch.exp(-magnitude))).mean()

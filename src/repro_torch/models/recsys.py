@@ -35,6 +35,14 @@ rows) end in ``lax_top_k``, which keeps ``jax.lax.top_k``'s order: values
 descending by the float total order (+0.0 above -0.0, NaN by its sign
 beyond the infinities), equal values by ascending index.
 
+The training half (``table_ids`` to ``recsys_loss``) is the JAX package's,
+over the parameters as one flat dict of tensors keyed by the JAX pytree
+paths (``field_table``, ``mlp/0/w``, ``blocks/0/wq``; ``core/convert.py``
+maps a model to it): ``recsys_loss`` is what the dense train step
+differentiates, ``recsys_loss_rows`` over gathered rows what the sparse
+step does.  It leaves the serving models above alone: they keep frozen
+parameters and score under ``inference_mode``.
+
 The port runs one card: every table lives whole on it.
 """
 from __future__ import annotations
@@ -495,3 +503,151 @@ def bulk_rank(model: DeepFM, batch: dict,
             f"{type(model).__name__}")
     with torch.inference_mode():
         return lax_top_k(model(*_columns(model, batch)), top_k)
+
+
+# ---------------------------------------------------------------------------
+# training: the loss, and the sparse-embedding path's rows (the JAX package's
+# ``table_ids`` ... ``recsys_loss``), over a dict keyed by pytree paths
+# ---------------------------------------------------------------------------
+def _path_layers(params: dict, name: str) -> list:
+    """The ``(w, b)`` layers of the MLP ``name`` in a path-keyed dict."""
+    n = sum(1 for k in params if k.startswith(name + "/") and
+            k.endswith("/w"))
+    return [(params[f"{name}/{i}/w"], params[f"{name}/{i}/b"])
+            for i in range(n)]
+
+
+def table_ids(cfg: RecsysConfig, batch: dict) -> dict:
+    """-> {row_key: (table_name, ids)}: the rows each table gives the
+    forward, as the JAX package's ``table_ids`` names them."""
+    if cfg.arch == "din":
+        return {"hist_items": ("item_table", batch["hist_items"]),
+                "target_item": ("item_table", batch["target_item"]),
+                "hist_cats": ("cat_table", batch["hist_cats"]),
+                "target_cat": ("cat_table", batch["target_cat"])}
+    if cfg.arch == "bst":
+        return {"seq_ids": ("item_table", torch.cat(
+            [batch["hist_items"], batch["target_item"][:, None]], dim=1))}
+    if cfg.arch == "two_tower":
+        return {"user_id": ("user_table", batch["user_id"]),
+                "hist_items": ("item_table", batch["hist_items"]),
+                "item_id": ("item_table", batch["item_id"]),
+                "item_cat": ("cat_table", batch["item_cat"])}
+    if cfg.arch == "deepfm":
+        ids = batch["sparse_ids"]
+        flat = ids + torch.arange(cfg.n_sparse_fields, dtype=ids.dtype,
+                                  device=ids.device) * cfg.field_vocab
+        return {"field_rows": ("field_table", flat),
+                "w1_table": ("w1_table", flat)}
+    raise ValueError(cfg.arch)
+
+
+def gather_rows(params: dict, cfg: RecsysConfig, batch: dict) -> dict:
+    return {k: es.embed_lookup(params[t], ids)
+            for k, (t, ids) in table_ids(cfg, batch).items()}
+
+
+def _din_forward_rows(params, cfg, batch, rows):
+    hist = torch.cat([rows["hist_items"], rows["hist_cats"]], dim=-1)
+    target = torch.cat([rows["target_item"], rows["target_cat"]], dim=-1)
+    tgt = target[:, None].expand_as(hist)
+    feat = torch.cat([hist, tgt, hist - tgt, hist * tgt], dim=-1)
+    score = _mlp_apply(_path_layers(params, "attn_mlp"), feat,
+                       act=torch.sigmoid)[..., 0]
+    valid = (batch["hist_items"] >= 0).to(score.dtype)
+    pooled = torch.einsum("bl,bld->bd", score * valid, hist)
+    x = torch.cat([pooled, target, batch["dense"]], dim=-1)
+    return _mlp_apply(_path_layers(params, "mlp"), x)[..., 0]
+
+
+def _bst_forward_rows(params, cfg, batch, rows):
+    mask = torch.cat([batch["hist_items"], batch["target_item"][:, None]],
+                     dim=1) >= 0
+    x = rows["seq_ids"] + params["pos_table"][None]
+    for i in range(cfg.n_blocks):
+        x = _bst_block({k: params[f"blocks/{i}/{k}"] for k in BST_BLOCK}, x,
+                       cfg.n_heads, mask)
+    x = torch.cat([x.reshape(x.shape[0], -1), batch["dense"]], dim=-1)
+    return _mlp_apply(_path_layers(params, "mlp"), x)[..., 0]
+
+
+def _in_batch_softmax(u: torch.Tensor, i: torch.Tensor,
+                      logq=None) -> torch.Tensor:
+    """In-batch sampled softmax of unit user vectors ``u`` against unit
+    item vectors ``i`` at temperature 0.05, less the popularity correction
+    ``logq`` [B] where given (Yi et al., RecSys'19)."""
+    logits = (u @ i.T) / 0.05
+    if logq is not None:
+        logits = logits - logq[None, :]
+    return cm.softmax_xent(logits, torch.arange(u.shape[0],
+                                                device=u.device))
+
+
+def _two_tower_loss_rows(params, cfg, batch, rows):
+    valid = (batch["hist_items"] >= 0).to(rows["hist_items"].dtype)
+    hist = (rows["hist_items"] * valid[..., None]).sum(1) / \
+        valid.sum(1)[:, None].clamp(min=1.0)
+    u = _l2_normalise(_mlp_apply(
+        _path_layers(params, "user_mlp"),
+        torch.cat([rows["user_id"], hist, batch["dense"]], dim=-1)))
+    i = _l2_normalise(_mlp_apply(
+        _path_layers(params, "item_mlp"),
+        torch.cat([rows["item_id"], rows["item_cat"]], dim=-1)))
+    return _in_batch_softmax(u, i)          # no logq here, as in JAX
+
+
+def _deepfm_forward_rows(params, cfg, batch, rows):
+    emb = rows["field_rows"]
+    fm2 = ops.fm_interaction(emb)
+    w1 = rows["w1_table"][..., 0].sum(-1)
+    dense1 = (batch["dense"] @ params["dense_w1"])[..., 0]
+    deep_in = torch.cat([emb.reshape(emb.shape[0], -1), batch["dense"]],
+                        dim=-1)
+    deep = _mlp_apply(_path_layers(params, "mlp"), deep_in)[..., 0]
+    return params["bias"] + w1 + dense1 + fm2.to(deep.dtype) + deep
+
+
+FORWARD_ROWS = {"din": _din_forward_rows, "bst": _bst_forward_rows,
+                "deepfm": _deepfm_forward_rows}
+
+
+def recsys_loss_rows(params: dict, cfg: RecsysConfig, batch: dict,
+                     rows: dict):
+    """-> (loss, {"loss": loss}) of the forward over gathered ``rows``."""
+    if cfg.arch == "two_tower":
+        loss = _two_tower_loss_rows(params, cfg, batch, rows)
+        return loss, {"loss": loss}
+    logits = FORWARD_ROWS[cfg.arch](params, cfg, batch, rows)
+    loss = cm.bce_with_logits(logits, batch["label"])
+    return loss, {"loss": loss}
+
+
+def two_tower_loss(params: dict, cfg: RecsysConfig,
+                   batch: dict) -> torch.Tensor:
+    """The JAX package's ``two_tower_loss``: the user tower (its history
+    through ``embed_bag``, so the bag kernel on the card) and the item
+    tower of the batch's own items, in-batch softmax."""
+    u = es.embed_lookup(params["user_table"], batch["user_id"])
+    hist = es.embed_bag(params["item_table"],
+                        batch["hist_items"].to(torch.int32), None, "mean")
+    u = _l2_normalise(_mlp_apply(
+        _path_layers(params, "user_mlp"),
+        torch.cat([u, hist.to(u.dtype), batch["dense"]], dim=-1)))
+    i = _l2_normalise(_mlp_apply(
+        _path_layers(params, "item_mlp"),
+        torch.cat([es.embed_lookup(params["item_table"], batch["item_id"]),
+                   es.embed_lookup(params["cat_table"], batch["item_cat"])],
+                  dim=-1)))
+    return _in_batch_softmax(u, i, batch.get("logq"))
+
+
+def recsys_loss(params: dict, cfg: RecsysConfig, batch: dict):
+    """-> (loss, {"loss": loss}): the JAX package's ``recsys_loss``, what
+    the dense train step differentiates (every table's gradient dense)."""
+    if cfg.arch == "two_tower":
+        loss = two_tower_loss(params, cfg, batch)
+        return loss, {"loss": loss}
+    logits = FORWARD_ROWS[cfg.arch](params, cfg, batch,
+                                    gather_rows(params, cfg, batch))
+    loss = cm.bce_with_logits(logits, batch["label"])
+    return loss, {"loss": loss}

@@ -3,7 +3,8 @@ version (kernels/ref.py) on the same inputs: the probe kernels bitwise, the
 FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM,
 two-tower, DIN and BST serving and retrieval on the card against the same
 models on the CPU; the QueryServer over an engine on the card against the
-engine on the CPU.  No JAX here: the parity with the JAX package is pinned
+engine on the CPU; the FM term's gradient kernel against its plain
+version, and DeepFM's train steps on the card against the CPU.  No JAX here: the parity with the JAX package is pinned
 on the CPU by test_torch_lookup.py, test_torch_engine.py,
 test_torch_fused_fm.py, test_torch_embedding_bag.py, test_torch_recsys.py,
 test_torch_two_tower.py, test_torch_retrieval.py, test_torch_seq_recsys.py
@@ -25,6 +26,7 @@ from repro_torch.core import hashcore as hc
 from repro_torch.core import lookup as lk
 from repro_torch.core import neighborhash as nh
 from repro_torch.configs import bst, deepfm, din, two_tower_retrieval
+from repro_torch.core import convert
 from repro_torch.data import synthetic
 from repro_torch.kernels import build
 from repro_torch.kernels import embedding_bag as bag
@@ -32,10 +34,13 @@ from repro_torch.kernels import fused_fm as fm
 from repro_torch.kernels import neighbor_lookup as nl
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
 from repro_torch.serve.scheduler import BatchPolicy
 from repro_torch.serve.server import QueryServer
+from repro_torch.train import optimizer as opt
+from repro_torch.train import train_step as ts
 
 pytestmark = [
     pytest.mark.cuda,
@@ -1126,3 +1131,142 @@ def test_seq_recsys_serve_launcher_on_card(arch, shape):
                              "--requests", "3", "--batch", "300"])
     assert out["device"].startswith("cuda") and out["finite"]
     assert _kernel_launches() == before
+
+
+# ---------------------------------------------------------------------------
+# fused_fm_backward and training on the card
+# ---------------------------------------------------------------------------
+def _fm_grad_check(x, g):
+    """The gradient kernel against the plain gradient on the same tensors:
+    per element within the bound of the column sums' order (|g| times 4 F
+    u sum_f |x|, u = 2^-24) and the output's rounding (2 u of the value in
+    fp32, one bf16 ulp, 2^-8, in bf16)."""
+    before = dict(fm.launches)
+    got = fm.fused_fm_backward(x, g)
+    assert fm.launches["fused_fm_backward"] == \
+        before["fused_fm_backward"] + 1
+    assert fm.launches["fused_fm"] == before["fused_fm"]
+    want = ref.fused_fm_backward(x, g)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    x64 = x.double()
+    exact = g.double()[:, None, None] * (x64.sum(1, keepdim=True) - x64)
+    rel = 2.0 ** -23 if x.dtype == torch.float32 else 2.0 ** -8
+    bound = (g.double().abs()[:, None, None] * 4 * x.shape[1] * 2.0 ** -24
+             * x64.abs().sum(1, keepdim=True) + rel * exact.abs())
+    for out in (got, want):
+        assert bool(((out.double() - exact).abs() <= 2 * bound).all())
+    assert bool(((got.double() - want.double()).abs() <= 2 * bound).all())
+
+
+@pytest.mark.parametrize("dtype", list(FM_DTYPES))
+@pytest.mark.parametrize("shape", [(1, 1, 1), (7, 3, 5), (33, 13, 9),
+                                   (77, 3, 7), (5000, 1, 4), (7, 39, 256),
+                                   (3, 2, 5000), (65536, 39, 10)])
+def test_fused_fm_backward_kernel_matches_plain(dtype, shape):
+    gen = torch.Generator(device="cuda").manual_seed(shape[0])
+    x = torch.randn(shape, generator=gen, device="cuda").to(FM_DTYPES[dtype])
+    g = torch.randn(shape[0], generator=gen, device="cuda")
+    _fm_grad_check(x, g)
+
+
+@pytest.mark.parametrize("dtype", list(FM_DTYPES))
+def test_fused_fm_backward_unaligned_view_reads_in_place(dtype):
+    shape = (130, 7, 16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flat = torch.randn(130 * 7 * 16 + 1, generator=gen, device="cuda")
+    x = flat.to(FM_DTYPES[dtype])[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    assert not fm.backward_plan(*shape, x.element_size(), _sm_count(),
+                                False).staged
+    _fm_grad_check(x, torch.randn(130, generator=gen, device="cuda"))
+
+
+def test_fused_fm_backward_rejects_what_it_does_not_take():
+    before = fm.launches["fused_fm_backward"]
+    x = torch.zeros(4, 3, 2, device="cuda")
+    with pytest.raises(ValueError):
+        fm.fused_fm_backward(x.cpu(), torch.zeros(4))
+    with pytest.raises(ValueError):
+        fm.fused_fm_backward(x, torch.zeros(4, device="cuda",
+                                            dtype=torch.float64))
+    with pytest.raises(ValueError):
+        fm.fused_fm_backward(x, torch.zeros(5, device="cuda"))
+    with pytest.raises(TypeError):
+        fm.fused_fm_backward(x.half(), torch.zeros(4, device="cuda"))
+    assert fm.launches["fused_fm_backward"] == before
+
+
+def test_fm_interaction_under_grad_launches_both_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(512, 39, 10, generator=gen, device="cuda",
+                    requires_grad=True)
+    before = dict(fm.launches)
+    out = ops.fm_interaction(x)
+    (gx,) = torch.autograd.grad(out, [x], torch.ones_like(out) * 0.5)
+    assert fm.launches["fused_fm"] == before["fused_fm"] + 1
+    assert fm.launches["fused_fm_backward"] == \
+        before["fused_fm_backward"] + 1
+    want = ref.fused_fm_backward(x.detach(), torch.full_like(out, 0.5))
+    torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bag_under_grad_on_the_card_raises():
+    table = torch.randn(100, 8, device="cuda", requires_grad=True)
+    ids = torch.zeros(4, 5, dtype=torch.int32, device="cuda")
+    before = bag.launches["embedding_bag"]
+    with pytest.raises(NotImplementedError, match="two-tower training"):
+        ops.embedding_bag(table, ids, mode="mean")
+    with torch.no_grad():                       # serving stays as it was
+        ops.embedding_bag(table, ids, mode="mean")
+    assert bag.launches["embedding_bag"] == before + 1
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_deepfm_train_steps_on_card_match_cpu(sparse):
+    """Two DeepFM SMOKE steps on the card (FusedFM's kernels) against the
+    same steps on the CPU: loss and grad_norm within 1e-5; parameters
+    within 1e-5 except where Adam's step is ill-conditioned (sqrt(v̂) <
+    1e-6, a gradient near its eps of 1e-8: there within lr)."""
+    cfg = deepfm.SMOKE
+    ocfg = opt.OptConfig(lr=0.01)
+    make = (lambda: ts.make_sparse_recsys_train_step(cfg, ocfg)) if sparse \
+        else (lambda: ts.make_train_step(ts.recsys_loss_fn(cfg), ocfg))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = convert.params_of(rec.recsys_init(cfg, seed=0, device="cpu"))
+        p = {k: v.to(dev) for k, v in p.items()}
+        s, step, fn = opt.init_opt_state(p, ocfg), 0, make()
+        before = dict(fm.launches)
+        losses = []
+        for i in range(2):
+            b = synthetic.recsys_batch(np.random.default_rng(i), cfg, 512)
+            p, s, step, m = fn(p, s, step, {
+                k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        launched = {k: fm.launches[k] - before[k] for k in fm.launches}
+        assert launched == ({"fused_fm": 2, "fused_fm_backward": 2}
+                            if dev == "cuda" else
+                            {"fused_fm": 0, "fused_fm_backward": 0})
+        runs[dev] = (losses, p, s)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    _, p_cpu, s_cpu = runs["cpu"]
+    for k, v in runs["cuda"][1].items():
+        err = (v.cpu() - p_cpu[k]).abs()
+        bound = torch.full_like(err, 1e-5) + 1e-5 * p_cpu[k].abs()
+        if "v" in s_cpu[k]:
+            vhat = s_cpu[k]["v"] / (1 - 0.999 ** 2)
+            bound = torch.where(vhat.sqrt() < 1e-6, 0.01, bound)
+        assert bool((err <= bound).all()), (k, float(err.max()))
+
+
+def test_train_launcher_on_card(capsys):
+    before = dict(fm.launches)
+    out = launch_train.main(["--arch", "deepfm", "--smoke", "--steps", "3"])
+    assert out["device"].startswith("cuda") and out["step"] == 3
+    assert np.isfinite(out["losses"]).all()
+    assert fm.launches["fused_fm"] == before["fused_fm"] + 3
+    assert fm.launches["fused_fm_backward"] == \
+        before["fused_fm_backward"] + 3
+    assert capsys.readouterr().out.rstrip().endswith("done")

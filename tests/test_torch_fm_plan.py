@@ -226,3 +226,95 @@ def test_retrieval_cand_tiles_fill_the_batch_in_a_persistent_grid():
     assert {len(range(k, n_tiles, p.blocks)) for k in range(p.blocks)} == \
         {189, 190}
     assert 2**30 < b * f * d * elt < 2**31
+
+
+# ---------------------------------------------------------------------------
+# the gradient's launch: backward_plan and a mirror of its kernel's walk
+# ---------------------------------------------------------------------------
+# (batch, fields, dim, element bytes, 16 B aligned) -> staged
+BACKWARD_SHAPES = {
+    "deepfm-train-batch": ((65536, 39, 10, 4, True), True),
+    "deepfm-train-batch-bf16": ((65536, 39, 10, 2, True), True),
+    "deepfm-train-unaligned": ((65536, 39, 10, 4, False), False),
+    "one-element": ((1, 1, 1, 4, True), True),
+    "one-element-bf16": ((1, 1, 1, 2, True), True),
+    "odd-fp32": ((33, 13, 9, 4, True), True),
+    "odd-bf16": ((77, 3, 7, 2, True), True),
+    "odd-unaligned-bf16": ((77, 3, 7, 2, False), False),
+    "one-field-bf16": ((5000, 1, 4, 2, True), True),
+    "larger-than-a-stage": ((7, 39, 256, 4, True), False),
+    "row-larger-than-a-stage": ((3, 2, 5000, 4, True), False),
+}
+
+
+def _backward_entry_accepts(p, b, f, d):
+    """repro_fused_fm_backward's checks of its parameters."""
+    return (p.tile >= 1 and p.blocks >= 1 and p.blocks * p.tile >= b
+            and p.tile * f * d < 2**31 and 32 <= p.threads <= 256
+            and p.threads % 32 == 0 and p.sums_bytes >= 4 * p.tile * d
+            and p.sums_bytes % 16 == 0
+            and p.sums_bytes <= p.smem_bytes <= fm.LOADS_BYTES - 16)
+
+
+@pytest.mark.parametrize("name", list(BACKWARD_SHAPES))
+def test_backward_plan_staging_and_limits(name):
+    (b, f, d, elt, aligned), staged = BACKWARD_SHAPES[name]
+    p = fm.backward_plan(b, f, d, elt, N_SM, aligned)
+    assert p.staged == staged
+    assert _backward_entry_accepts(p, b, f, d)
+    assert p.blocks == -(-b // p.tile) and (p.blocks - 1) * p.tile < b
+    span = p.tile * f * d * elt
+    if staged:                      # every tile starts on 16 B, fits a stage
+        assert span % 16 == 0 and span <= fm.STAGE_BYTES
+        assert p.smem_bytes == p.sums_bytes + span
+    else:
+        assert p.smem_bytes == p.sums_bytes
+
+
+def test_backward_plan_at_the_train_batch():
+    """[65536, 39, 10] fp32: ten 1,560 B samples a tile (a 15,600 B bulk
+    copy), 6,554 blocks of 256 threads."""
+    p = fm.backward_plan(65536, 39, 10, 4, N_SM, True)
+    assert (p.staged, p.tile, p.blocks, p.threads) == (True, 10, 6554, 256)
+    assert p.smem_bytes == 400 + 15600
+
+
+def test_backward_plan_refuses_what_its_indices_cannot_take():
+    with pytest.raises(ValueError, match="limits"):
+        fm.backward_plan(2, 1 << 16, 1 << 15, 4, N_SM, True)
+
+
+def _mirror_backward(x, g, p):
+    """The kernel's walk in numpy: block t takes samples [t*tile, ...), sums
+    column p % D of sample p / D over the fields in order, then writes
+    element i as g[s] * (sums[s * D + i % D] - x[i]), s = i / (F * D)."""
+    b, f, d = x.shape
+    sample = f * d
+    flat = x.reshape(-1).astype(np.float32)
+    out = np.empty(b * sample, np.float32)
+    for t in range(p.blocks):
+        first = t * p.tile
+        n = min(p.tile, b - first)
+        src = flat[first * sample:(first + n) * sample]
+        sums = np.zeros(n * d, np.float32)
+        for q in range(n * d):
+            for k in range(f):
+                sums[q] += src[(q // d) * sample + q % d + k * d]
+        i = np.arange(n * sample)
+        out[first * sample + i] = g[first + i // sample] * (
+            sums[(i // sample) * d + i % d] - src[i])
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (33, 13, 9), (77, 3, 7),
+                                   (25, 39, 10)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_mirror_of_the_backward_walk_gives_the_plain_gradient(shape,
+                                                              aligned):
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=shape[0]).astype(np.float32)
+    p = fm.backward_plan(*shape, 4, N_SM, aligned)
+    want = ref.fused_fm_backward(torch.tensor(x), torch.tensor(g)).numpy()
+    np.testing.assert_allclose(_mirror_backward(x, g, p), want, rtol=1e-5,
+                               atol=1e-5)

@@ -353,7 +353,9 @@ def test_launcher_serve_bulk_on_the_cpu(arch, capsys):
 
 
 def test_launcher_refuses_training_and_a_batch_for_retrieval():
-    with pytest.raises(SystemExit, match="training is not ported"):
+    """train_batch is the train launcher's (python -m
+    repro_torch.launch.train); --batch sets no retrieval cell's rows."""
+    with pytest.raises(SystemExit, match="repro_torch.launch.train"):
         launch_serve.main(["--arch", "deepfm", "--shape", "train_batch",
                            "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
