@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs ten phases.  Two send batch queries through
+together, then runs eleven phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -104,6 +104,24 @@ concatenation of the columns and the pageable copy to the card.
   gives step 5 again, bitwise; one step is traced for the card's busy
   share and top kernels.
 
+* **K** — the streaming online-learning loop, after H.  **K.1**: DIN
+  training (``configs/din.CONFIG``, full published width: a 7.2 GB item
+  table) on the ``train_batch`` cell's 65,536 rows through the dense step
+  ``launch/train.py`` builds: a warm-up, 8 timed steps and one traced; the
+  first step's logits on 4,096 fixed rows held within 1e-5 of a float64
+  recompute, every loss and ``grad_norm`` finite.  **K.2**: the realtime
+  launcher's ``drive`` (``launch/realtime.py``) with DIN at published width
+  but ``item_vocab`` = 10,000 items (10,000 users; 4 clients x 200
+  sessions; the JAX loop's other defaults; ``--trace-sample 0.05``), its
+  exporter scraped once mid-run (the freshness histogram must hold
+  samples), the card traced over a 2 s window; then ``drive``'s own rules
+  (no ``min_version`` violation, no served-version regression, no stage
+  error, deltas and queries both non-zero), at least one full publish,
+  and every item row at the final version bitwise the bytes of the last
+  publish, delta or full, that wrote it (a host shadow kept in version
+  order by a wrapper around the client's ``update``).  Neither part may
+  launch one of the four kernels.
+
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (the RA
@@ -141,6 +159,8 @@ import subprocess
 import sys
 import threading
 import time
+import types
+import urllib.request
 
 import numpy as np
 import torch
@@ -161,9 +181,11 @@ from repro_torch.kernels import embedding_bag as bagk  # noqa: E402
 from repro_torch.kernels import fused_fm as fm  # noqa: E402
 from repro_torch.kernels import neighbor_lookup as nl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import realtime  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import embedding_service as es  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
+from repro_torch.obs import exporter  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serve import serve_step  # noqa: E402
 from repro_torch.serve.scheduler import BatchPolicy  # noqa: E402
@@ -213,6 +235,13 @@ J_CKPT_STEP = 4                # the checkpoint's step
 J_READBACK = 256               # published rows read back at each version
 J_TOL = 1e-5                   # a step's loss: FM kernels vs plain FM
 J_GRAD_TOL = 1e-5              # FM gradient kernel vs plain, x max |g|
+# phase K: the streaming online-learning loop (DIN trained on the card)
+K_CHECK_ROWS = 4096            # K.1: fixed rows of the first step's logits
+K_ITEMS, K_USERS = 10_000, 10_000    # K.2: items (= item_vocab), users
+K_REQUESTS = 200               # K.2: sessions a client
+K_TRACE_SAMPLE = 0.05          # K.2: --trace-sample
+K_SCRAPE_AFTER = 20            # K.2: deltas published before the scrape
+K_WINDOW_S = 2.0               # K.2: the traced window of the loop
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
@@ -1743,7 +1772,12 @@ def _mlp64(weights, biases, x, act):
 
 
 def din_fp64(model, cols):
-    """DIN's CTR probabilities of ``cols`` (the model's columns on the card)
+    """DIN's CTR probabilities of ``cols``: ``din_logits64``'s sigmoid."""
+    return torch.sigmoid(din_logits64(model, cols))
+
+
+def din_logits64(model, cols):
+    """DIN's logits of ``cols`` (the model's columns on the card)
     recomputed in float64 from the model's tensors: the gathers, the
     concatenation ``[e, et, e - et, e * et]``, the attention MLP (sigmoids
     between layers, the last linear), the weights zeroed where the step is
@@ -1760,8 +1794,7 @@ def din_fp64(model, cols):
     w = w[..., 0] * (hi >= 0)
     pooled = (w[..., None] * hist).sum(dim=1)
     x = torch.cat([pooled, target, cols["dense"].double()], dim=-1)
-    return torch.sigmoid(
-        _mlp64(model.mlp_w, model.mlp_b, x, torch.relu)[..., 0])
+    return _mlp64(model.mlp_w, model.mlp_b, x, torch.relu)[..., 0]
 
 
 def _layer_norm64(x, g, b, eps=1e-5):
@@ -2278,6 +2311,302 @@ def run_phase_j(device, fm_log, bwd_log, cfg=deepfm.CONFIG, rows=J_ROWS,
     return m
 
 
+# ---------------------------------------------------------------------------
+# phase K: the streaming online-learning loop, with DIN trained on the card
+# ---------------------------------------------------------------------------
+def din_params_model(params):
+    """DIN's path-keyed parameters as ``din_logits64`` reads a model."""
+    attn = rec._path_layers(params, "attn_mlp")
+    mlp = rec._path_layers(params, "mlp")
+    return types.SimpleNamespace(
+        item_table=params["item_table"], cat_table=params["cat_table"],
+        attn_mlp_w=[w for w, _ in attn], attn_mlp_b=[b for _, b in attn],
+        mlp_w=[w for w, _ in mlp], mlp_b=[b for _, b in mlp])
+
+
+def run_phase_k1(device, cfg=din.CONFIG, rows=J_ROWS, steps=J_STEPS,
+                 check_rows=K_CHECK_ROWS):
+    """DIN's train_batch (by default at full published width) on the card
+    through the dense step ``launch/train.py`` builds: a warm-up, ``steps``
+    timed steps and one traced.  The first step's logits on ``check_rows``
+    fixed rows are held against a float64 recompute; every loss and
+    ``grad_norm`` must be finite."""
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    ocfg = train_opt.OptConfig()
+    t0 = time.perf_counter()
+    params = convert.params_of(rec.recsys_init(cfg, seed=0, device=device))
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    print(f"[K.1] {cfg.name}: {n_bytes} parameter bytes, drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    batches = draw_requests(
+        lambda rng: (synthetic.recsys_batch(rng, cfg, rows),), steps + 2,
+        seed=31)
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in b.items()}
+               for (b,) in batches]
+    print(f"[K.1] drew and uploaded {steps + 2} batches of {rows} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the first step's logits (its forward at the initial parameters on
+    # its batch) on fixed rows, against float64
+    idx = torch.from_numpy(np.sort(np.random.default_rng(31).choice(
+        rows, check_rows, replace=False))).to(device)
+    b0 = batches[0]
+    with torch.no_grad():
+        logits = rec.FORWARD_ROWS["din"](params, cfg, b0,
+                                         rec.gather_rows(params, cfg, b0))
+    want = din_logits64(din_params_model(params),
+                        {k: v[idx] for k, v in b0.items()})
+    logit_err = float((logits[idx].double() - want).abs().max())
+    if not (logits.shape == (rows,) and logit_err <= SEQ_TOL):
+        fail(f"[K.1] the first step's logits {tuple(logits.shape)} differ "
+             f"from the float64 recompute by {logit_err}")
+    del logits, want
+    # the item rows the first step's gather reads (padding clamped to row
+    # 0, as embed_lookup clamps it): its backward adds every one of them
+    # into the table's gradient
+    ids = torch.cat([b0["hist_items"].reshape(-1).clamp(min=0),
+                     b0["target_item"].reshape(-1)])
+    _, counts = torch.unique(ids, return_counts=True)
+    gather_ids = {"ids": ids.numel(), "unique": counts.numel(),
+                  "hottest_row_count": int(counts.max()),
+                  "padding": int((b0["hist_items"] < 0).sum())}
+    del ids, counts
+
+    dense = train_step.make_train_step(train_step.recsys_loss_fn(cfg), ocfg)
+    state = train_opt.init_opt_state(params, ocfg)
+    p, s, st, _, host0, m0 = timed_steps(dense, params, state, 0,
+                                         batches[:1])
+    del params, state
+    p, s, st, ev, host, ms = timed_steps(dense, p, s, st,
+                                         batches[1:steps + 1])
+    m_dense = step_summary(rows, ev, host, ms)
+    m_dense["warmup_host_ms"] = host0[0]
+    prof = request_profiler(device)
+    with prof:
+        t0 = time.perf_counter()
+        p, s, st, mt = dense(p, s, st, batches[steps + 1])
+        if cuda:
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    losses = [float(m["loss"]) for m in m0 + ms + [mt]]
+    norms = [float(m["grad_norm"]) for m in m0 + ms + [mt]]
+    if not np.isfinite(losses + norms).all():
+        fail(f"[K.1] losses {losses} or grad norms {norms} are not finite")
+    busy_ms, busy_events = device_busy_ms(prof)
+    del p, s
+    return {"phase": "K.1", "model": cfg.name, "rows": rows,
+            "parameter_bytes": n_bytes, "dense": m_dense,
+            "first_batch_item_gather": gather_ids,
+            "first_step_logit_max_abs_err_vs_fp64": logit_err,
+            "logit_rows_checked": check_rows,
+            "loss_all_steps": losses, "grad_norm_all_steps": norms,
+            "max_memory_allocated": max_memory(device),
+            "matmul_precision": torch.get_float32_matmul_precision(),
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "traced_step": {
+                "ms": traced_ms, "device_busy_ms": busy_ms,
+                "device_events": busy_events,
+                "busy_share": busy_ms / traced_ms,
+                "busy_share_of_median": busy_ms / m_dense["host_ms_median"],
+                "kernels_ms": kernels_by_device_ms(prof, top=8)},
+            "phase_s": time.perf_counter() - t_phase}
+
+
+class LoopRecorder:
+    """What phase K.2 reads of the realtime loop, through wrappers around
+    the launcher's own functions (``installed``):
+
+    * a host shadow of the item rows, in version order: the seed's bytes,
+      then every publish, delta or full, written as the client's
+      ``update`` returns (the publisher calls it under its lock, so one
+      at a time, in version order);
+    * each ``update``'s ms, full and delta apart;
+    * each trainer step's host ms (the two warm-ups apart)."""
+
+    def __init__(self):
+        self.shadow = None
+        self.version = 1
+        self.order_errors = []
+        self.clients = []
+        self.full_ms, self.delta_ms, self.step_ms = [], [], []
+        self.warmup_ms = []
+
+    def written(self, version, upserts, embeddings, ms):
+        if version != self.version + 1:
+            self.order_errors.append((self.version, version))
+        self.version = version
+        full = [t for t in embeddings if t.name == "item_table"]
+        for t in full:
+            self.shadow[:] = t.values
+        if "item_table" in upserts:
+            keys, vals = upserts["item_table"]
+            self.shadow[np.asarray(keys, np.int64) - 1] = vals
+        (self.full_ms if embeddings else self.delta_ms).append(ms)
+
+    @contextlib.contextmanager
+    def installed(self):
+        rec_ = self
+        real_build, real_make = realtime.build_engine, realtime.make_step_fn
+        real_client = realtime.FeatureClient
+
+        class Client(real_client):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                rec_.clients.append(self)
+
+            def update(self, version, *, upserts=None, deletes=None,
+                       scalars=(), embeddings=()):
+                t0 = time.perf_counter()
+                super().update(version, upserts=upserts, deletes=deletes,
+                               scalars=scalars, embeddings=embeddings)
+                rec_.written(version, upserts or {}, embeddings,
+                             (time.perf_counter() - t0) * 1e3)
+
+        def build_engine(args, item_table):
+            engine = real_build(args, item_table)
+            rec_.shadow = realtime._leading_rows_as_bytes(item_table,
+                                                          args.n_items)
+            return engine
+
+        def make_step_fn(args, cfg, params):
+            step_fn, holder = real_make(args, cfg, params)
+
+            def timed(events):
+                t0 = time.perf_counter()
+                out = step_fn(events)
+                ms = (time.perf_counter() - t0) * 1e3
+                (rec_.warmup_ms if len(rec_.warmup_ms) < 2
+                 else rec_.step_ms).append(ms)
+                return out
+
+            return timed, holder
+
+        realtime.build_engine, realtime.make_step_fn = build_engine, \
+            make_step_fn
+        realtime.FeatureClient = Client
+        try:
+            yield self
+        finally:
+            realtime.build_engine, realtime.make_step_fn = real_build, \
+                real_make
+            realtime.FeatureClient = real_client
+
+
+def run_phase_k2(device, cfg=None, n_items=K_ITEMS, n_users=K_USERS,
+                 requests=K_REQUESTS, window_s=K_WINDOW_S):
+    """The realtime loop (``launch/realtime.drive``) with DIN at published
+    width but ``item_vocab = n_items`` (default), the JAX loop's other
+    defaults, ``requests`` sessions a client, ``--trace-sample 0.05`` and
+    the exporter on an ephemeral port, scraped once mid-run; the card
+    traced over a window of the loop.  After the drain every item row at
+    the final version must be the bytes of the last publish that wrote
+    it."""
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = dataclasses.replace(din.CONFIG, item_vocab=n_items)
+    args = realtime.parse_args([
+        "--n-items", str(n_items), "--n-users", str(n_users),
+        "--requests", str(requests), "--trace-sample", str(K_TRACE_SAMPLE),
+        "--device", device.type])
+    registry_obj = realtime.Registry()
+    tracer = realtime.Tracer(sample_rate=args.trace_sample, proc="realtime")
+    recorder = LoopRecorder()
+    with realtime.MetricsServer(registry_obj) as srv, recorder.installed(), \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        run = pool.submit(realtime.drive, args, registry_obj, tracer, cfg)
+        # mid-run: once the loop has published K_SCRAPE_AFTER deltas
+        while len(recorder.delta_ms) < K_SCRAPE_AFTER and not run.done():
+            time.sleep(0.01)
+        if run.done():
+            fail(f"[K.2] the loop ended before {K_SCRAPE_AFTER} deltas: "
+                 f"{run.result()}")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(srv.url, timeout=30) as r:
+            body = r.read().decode()
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        parsed = exporter.parse_text(body)
+        fresh_n = parsed.get(("repro_stream_freshness_seconds_count", ()))
+        fresh_inf = parsed.get(("repro_stream_freshness_seconds_bucket",
+                                (("le", "+Inf"),)))
+        if not fresh_n or fresh_inf != fresh_n:
+            fail(f"[K.2] the mid-run scrape shows {fresh_n} freshness "
+                 f"samples (+Inf bucket {fresh_inf})")
+        # the card over a window of the running loop
+        steps_before = len(recorder.step_ms)
+        prof = request_profiler(device)
+        with prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < window_s and not run.done():
+                time.sleep(0.01)
+            window_ms = (time.perf_counter() - t0) * 1e3
+        steps_in_window = len(recorder.step_ms) - steps_before
+        busy_ms, busy_events = device_busy_ms(prof)
+        rc, report = run.result()
+    print("[K.2] realtime SLO report: " + json.dumps(report, sort_keys=True),
+          flush=True)
+    if rc != 0:
+        fail(f"[K.2] the loop exited {rc}: {report}")
+    if report["deltas_published"] < 1 or report["queries"] < 1:
+        fail(f"[K.2] the loop did not run: {report}")
+    if recorder.order_errors:
+        fail(f"[K.2] publishes out of version order: "
+             f"{recorder.order_errors[:5]}")
+    if not recorder.full_ms:
+        fail("[K.2] the batch layer published no full table set")
+    if recorder.version != report["final_version"]:
+        fail(f"[K.2] the shadow is at version {recorder.version}, the "
+             f"loop's final version {report['final_version']}")
+    # every item row served at the final version: the last publish's bytes
+    direct = api.FeatureClient(recorder.clients[0].backend)
+    keys = np.arange(1, n_items + 1, dtype=np.uint64)
+    res = direct.query({"item_table": keys},
+                       consistency=api.Consistency.pinned(
+                           report["final_version"]))
+    rows = res.tables["item_table"]
+    if res.version != report["final_version"] or not rows.found.all():
+        fail(f"[K.2] the final read served version {res.version}, "
+             f"{int(rows.found.sum())} of {n_items} rows found")
+    differ = int((rows.values != recorder.shadow).any(axis=1).sum())
+    if differ:
+        fail(f"[K.2] {differ} of {n_items} item rows at the final version "
+             f"differ from the bytes last published for them")
+    steps = np.asarray(recorder.step_ms)
+    return {"phase": "K.2", "model": cfg.name, "n_items": n_items,
+            "n_users": n_users, "clients": args.clients,
+            "requests_per_client": args.requests,
+            "train_batch": args.train_batch,
+            "batch_publish_s": args.batch_publish_s, "slo_s": args.slo_s,
+            "report": report,
+            "trainer_step_ms": {
+                "steps": len(steps), "warmup_ms": recorder.warmup_ms,
+                "p50": float(np.percentile(steps, 50)),
+                "p99": float(np.percentile(steps, 99)),
+                "mean": float(steps.mean())},
+            "full_publish": {
+                "count": len(recorder.full_ms), "ms": recorder.full_ms,
+                "fits_batch_publish_s": bool(
+                    recorder.full_ms
+                    and max(recorder.full_ms) < args.batch_publish_s * 1e3)},
+            "delta_publish_ms": {
+                "count": len(recorder.delta_ms),
+                "p50": float(np.percentile(recorder.delta_ms, 50)),
+                "p99": float(np.percentile(recorder.delta_ms, 99))},
+            "mid_run_scrape": {"bytes": len(body), "ms": scrape_ms,
+                               "freshness_samples": fresh_n,
+                               "series": len(parsed)},
+            "traced_window": {
+                "ms": window_ms, "trainer_steps": steps_in_window,
+                "device_busy_ms": busy_ms, "device_events": busy_events,
+                "busy_share": busy_ms / window_ms,
+                "kernels_ms": kernels_by_device_ms(prof, top=6)},
+            "traces_sampled": tracer.sampled_total,
+            "rows_checked_bitwise": n_items,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -2324,6 +2653,13 @@ def main() -> int:
           "every 4 steps), not of all 39 fields (~3.8M): the engine's host "
           "builder inserts one key at a time (each publish's ms is "
           "printed)")
+    print(f"reduced: phase K.2 items {din.CONFIG.item_vocab}->{K_ITEMS} "
+          f"(DIN's item_vocab follows them, as the JAX loop ties the two): "
+          f"the batch layer rebuilds every table one key at a time every "
+          f"batch_publish_s, and under the loop's traffic a full publish "
+          f"took 2.2-3.5 s at 100,000 items and up to 2.9 s at 30,000 on "
+          f"an H100 host, above batch_publish_s's 2 s (each full "
+          f"publish's ms is printed)")
 
     zero(nl.launches, nl.lanes_launches)
     with LaunchLog() as log:
@@ -2527,6 +2863,20 @@ def main() -> int:
         print(f"[{name}] launches: " + json.dumps(launched), flush=True)
         if any(launched.values()):
             fail(f"{cfg.name} serving launched a kernel: {launched}")
+
+    # K reaches none of the kernels either: DIN trained on train_batch at
+    # published width (K.1, BST's 12.8 GB gone with H's frame), then the
+    # realtime loop training DIN (K.2)
+    for name, run_k in (("K.1", run_phase_k1), ("K.2", run_phase_k2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero(nl.launches, fm.launches, bagk.launches)
+        m_k = run_k(device)
+        launched = {**nl.launches, **fm.launches, **bagk.launches}
+        m_k["launches"] = launched
+        print(f"[{name}] " + json.dumps(m_k), flush=True)
+        if any(launched.values()):
+            fail(f"phase {name} launched a kernel: {launched}")
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

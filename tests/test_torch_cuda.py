@@ -4,11 +4,13 @@ FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM,
 two-tower, DIN and BST serving and retrieval on the card against the same
 models on the CPU; the QueryServer over an engine on the card against the
 engine on the CPU; the FM term's gradient kernel against its plain
-version, and DeepFM's train steps on the card against the CPU.  No JAX here: the parity with the JAX package is pinned
-on the CPU by test_torch_lookup.py, test_torch_engine.py,
-test_torch_fused_fm.py, test_torch_embedding_bag.py, test_torch_recsys.py,
-test_torch_two_tower.py, test_torch_retrieval.py, test_torch_seq_recsys.py
-and test_torch_query_server.py.  Run on a CUDA machine with
+version, DeepFM's and DIN's train steps on the card against the CPU, and
+the realtime loop's smoke on the card.  No JAX here: the parity with the
+JAX package is pinned on the CPU by test_torch_lookup.py,
+test_torch_engine.py, test_torch_fused_fm.py, test_torch_embedding_bag.py,
+test_torch_recsys.py, test_torch_two_tower.py, test_torch_retrieval.py,
+test_torch_seq_recsys.py, test_torch_query_server.py, test_torch_train.py
+and test_torch_streaming.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -1259,6 +1261,57 @@ def test_deepfm_train_steps_on_card_match_cpu(sparse):
             vhat = s_cpu[k]["v"] / (1 - 0.999 ** 2)
             bound = torch.where(vhat.sqrt() < 1e-6, 0.01, bound)
         assert bool((err <= bound).all()), (k, float(err.max()))
+
+
+def _launch_counts():
+    return {**nl.launches, **fm.launches, **bag.launches}
+
+
+def test_din_dense_steps_on_card_match_cpu():
+    """Two DIN SMOKE dense steps (the realtime loop's trainer) on the card
+    against the same steps on the CPU, no kernel launched: loss and
+    grad_norm within 1e-5; parameters within 1e-5 except where Adam's step
+    is ill-conditioned (there within lr)."""
+    cfg = din.SMOKE
+    ocfg = opt.OptConfig(lr=0.01)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = convert.params_of(rec.recsys_init(cfg, seed=0, device="cpu"))
+        p = {k: v.to(dev) for k, v in p.items()}
+        s, step = opt.init_opt_state(p, ocfg), 0
+        fn = ts.make_train_step(ts.recsys_loss_fn(cfg), ocfg)
+        before = _launch_counts()
+        losses = []
+        for i in range(2):
+            b = synthetic.recsys_batch(np.random.default_rng(i), cfg, 512)
+            p, s, step, m = fn(p, s, step, {
+                k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        assert _launch_counts() == before
+        runs[dev] = (losses, p, s)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    _, p_cpu, s_cpu = runs["cpu"]
+    for k, v in runs["cuda"][1].items():
+        err = (v.cpu() - p_cpu[k]).abs()
+        bound = torch.full_like(err, 1e-5) + 1e-5 * p_cpu[k].abs()
+        if "v" in s_cpu[k]:
+            vhat = s_cpu[k]["v"] / (1 - 0.999 ** 2)
+            bound = torch.where(vhat.sqrt() < 1e-6, 0.01, bound)
+        assert bool((err <= bound).all()), (k, float(err.max()))
+
+
+def test_realtime_loop_smoke_on_card(capsys):
+    """``python -m repro_torch.launch.realtime --smoke`` on the card: DIN's
+    step there, exit 0, no kernel launched."""
+    from repro_torch.launch import realtime
+    before = _launch_counts()
+    with pytest.raises(SystemExit) as ei:
+        realtime.main(["--smoke", "--drain-s", "10"])
+    text = capsys.readouterr().out
+    assert ei.value.code == 0, text[-2000:]
+    assert "realtime SLO report: " in text
+    assert _launch_counts() == before
 
 
 def test_train_launcher_on_card(capsys):
