@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs eleven phases.  Two send batch queries through
+together, then runs thirteen phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -122,13 +122,35 @@ concatenation of the columns and the pageable copy to the card.
   order by a wrapper around the client's ``update``).  Neither part may
   launch one of the four kernels.
 
+* **L** — BST training (``configs/bst.CONFIG``: a 12.8 GB item table) on
+  ``train_batch``, after K: the dense step ``launch/train.py`` builds at
+  the first item_vocab of ``L_VOCABS`` that fits the card (the published
+  100M first; a cut is printed), then the sparse step at 100M.  Each
+  from seed 0 on 10 batches drawn and uploaded first: a warm-up, 8 timed
+  steps and one traced; the dense step's first logits on 4,096 fixed
+  rows within 1e-5 of a float64 recompute, every loss and ``grad_norm``
+  finite, no kernel launched.
+* **M** — two-tower training (``configs/two_tower_retrieval.CONFIG``
+  widths).  **M.1**: the dense step, its history bag through
+  ``EmbeddingBag`` (one ``embedding_bag`` and one
+  ``embedding_bag_backward`` launch a step), at 8M users and 4M items,
+  both halved until the warm-up's peak memory stays under 72 GB (the cut
+  printed); every backward launch held element by element against the
+  plain gradient on the same tensors within 2 n 2^-24 S + 1e-30 (n the
+  terms a row adds, S their magnitudes' sum), the first step's loss
+  within 1e-5 of the same step's with the plain bag.  **M.2**: the
+  sparse step at the published 20M users and 10M items (30.8 GB), no
+  kernel.  Both run L's steps and checks.
+
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (the RA
 gather, ``torch.take`` of the home value word, for the probe;
 ``F.embedding_bag`` for the bag; none for the FM term or its gradient)
 and its bound; ``fused_fm`` also at J's [65536, 39, 10], and
-``fused_fm_backward`` there.
+``fused_fm_backward`` there; ``embedding_bag_backward`` at M.1's last
+launch, its [V, D] zero-fill timed apart, beside ``torch.autograd.grad``
+of ``F.embedding_bag`` (mean, with a padding row).
 Phase B's last group also goes through ``probe_lines`` for contrast, with
 the ratio of the two kernels' times; the redesigned kernels' constants get a
 line each: ``probe_smem``'s cluster and bytes a block; ``fused_fm``'s tile,
@@ -183,7 +205,9 @@ from repro_torch.kernels import neighbor_lookup as nl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import realtime  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import embedding_service as es  # noqa: E402
+from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
 from repro_torch.obs import exporter  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
@@ -219,6 +243,7 @@ SATURATION_BATCHES = (1 << 14, 20_480, 21_120, 21_121, 24_576, 1 << 15,
 D_REQUESTS, D_ROWS = 64, 512   # the serve_p99 cell's batch
 BAG_TOL = 1e-5                 # kernel vs plain bag, both fp32 sums
 BAG_BULK_ROWS = 262_144        # the serve_bulk cell's batch
+BAG_CHECK_ROWS = 8192          # bags a plain lookup holds a launch to
 # phases E and F: the retrieval_cand cell (1 user, 1M candidates, top 100)
 R_CANDIDATES, R_REQUESTS, TOP_K = 1_000_000, 16, 100
 TOP_K_TOL = 1e-5               # kernel path vs plain path, fp32 scores
@@ -242,11 +267,26 @@ K_REQUESTS = 200               # K.2: sessions a client
 K_TRACE_SAMPLE = 0.05          # K.2: --trace-sample
 K_SCRAPE_AFTER = 20            # K.2: deltas published before the scrape
 K_WINDOW_S = 2.0               # K.2: the traced window of the loop
+# phase L: BST training; the dense step's item_vocab, cut to the first that
+# fits the card where the published 100M does not
+L_VOCABS = (100_000_000, 90_000_000, 80_000_000, 70_000_000, 60_000_000,
+            50_000_000)
+# phase M: two-tower training; M.1's (users, items) start here and are
+# halved together until the first step's peak stays under M_PEAK_BYTES
+M_VOCABS = (8_000_000, 4_000_000)
+M_MIN_ITEMS = 250_000
+M_PEAK_BYTES = 72 * 10**9
+BAG_GRAD_U = 2.0 ** -24        # fp32's unit roundoff: the atomics' bound
+BAG_GRAD_REL = 1e-4            # ... at most this share of S (hot rows)
+SOFTMAX_SHAPES = ((8, 32), (4096, 256), (32_768, 256), (65_536, 256))
+#   (B, D) of the in-batch softmax: SMOKE's, one chunk, train_batch's
+SOFTMAX_GRAD_TAIL = 5          # x sqrt(D) 2^-24 / T: see softmax_timing
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:79",
-            "fused_fm_backward": "src/repro/kernels/fused_fm.py:31"}
+            "fused_fm_backward": "src/repro/kernels/fused_fm.py:31",
+            "embedding_bag_backward": "src/repro/kernels/embedding_bag.py:79"}
 LIBRARIES = {"probe": "src/repro_torch/csrc/probe.cu",
              "fused_fm": "src/repro_torch/csrc/fused_fm.cu",
              "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu"}
@@ -254,7 +294,8 @@ SOURCE = {"probe_lines": LIBRARIES["probe"],
           "probe_smem": LIBRARIES["probe"],
           "fused_fm": LIBRARIES["fused_fm"],
           "fused_fm_backward": LIBRARIES["fused_fm"],
-          "embedding_bag": LIBRARIES["embedding_bag"]}
+          "embedding_bag": LIBRARIES["embedding_bag"],
+          "embedding_bag_backward": LIBRARIES["embedding_bag"]}
 
 
 def fail(msg: str) -> None:
@@ -685,26 +726,54 @@ def saturation(engine, flush, n, seed=7):
 # ---------------------------------------------------------------------------
 # phase C: DeepFM CTR serving behind the FeatureClient
 # ---------------------------------------------------------------------------
-class OpLog:
-    """Wraps the kernel dispatch ``ops.<op>`` while the main path runs and
-    keeps each call's inputs and output, checked after its request against
-    ``plain_op`` on the same inputs (within ``atol`` + ``rtol`` x |plain|).
-    """
+class Recorder:
+    """Wraps ``owner.<attr>`` while the block runs and keeps each call's
+    arguments and result, held after its request or step by
+    ``check_pending``, which calls ``check(args, kw, out)`` on each (under
+    ``no_grad``) and keeps the last call's arguments, detached, in
+    ``last``."""
 
-    def __init__(self, op, plain_op, atol, rtol):
-        self.op, self.plain_op = op, plain_op
-        self.atol, self.rtol = atol, rtol
-        self.orig = getattr(ops, op)
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+        self.orig = getattr(owner, attr)
         self.pending = []
-        self.last = None                # the last launch's inputs
+        self.last = None
         self.max_err = 0.0
+        self.checked = 0
 
     def __enter__(self):
-        setattr(ops, self.op, self._record)
+        setattr(self.owner, self.attr, self._record)
         return self
 
     def __exit__(self, *exc):
-        setattr(ops, self.op, self.orig)
+        setattr(self.owner, self.attr, self.orig)
+
+    def _record(self, *args, **kw):
+        out = self.orig(*args, **kw)
+        self.pending.append((args, kw, out))
+        return out
+
+    def check_pending(self) -> None:
+        with torch.no_grad():
+            for args, kw, out in self.pending:
+                self.check(args, kw, out)
+                self.last = tuple(a.detach() if isinstance(a, torch.Tensor)
+                                  else a for a in args)
+                self.checked += 1
+        self.pending.clear()
+
+    def check(self, args, kw, out) -> None:
+        raise NotImplementedError
+
+
+class OpLog(Recorder):
+    """Every call of the kernel dispatch ``ops.<op>`` against ``plain_op``
+    on the same inputs (within ``atol`` + ``rtol`` x |plain|)."""
+
+    def __init__(self, op, plain_op, atol, rtol):
+        super().__init__(ops, op)
+        self.op, self.plain_op = op, plain_op
+        self.atol, self.rtol = atol, rtol
 
     @contextlib.contextmanager
     def plain(self):
@@ -716,25 +785,14 @@ class OpLog:
         finally:
             setattr(ops, self.op, current)
 
-    def _record(self, *args, **kw):
-        out = self.orig(*args, **kw)
-        self.pending.append((args, kw, out))
-        return out
-
-    def check_pending(self) -> None:
-        with torch.inference_mode():
-            for args, kw, out in self.pending:
-                want = self.plain_op(*args, **kw)
-                err = float((out - want).abs().max()) if out.numel() else 0.
-                self.max_err = max(self.max_err, err)
-                if not torch.allclose(out, want, rtol=self.rtol,
-                                      atol=self.atol):
-                    fail(f"{self.op} differs from its plain version on "
-                         f"{[tuple(a.shape) for a in args if a is not None]}"
-                         f" (max abs err "
-                         f"{err})")
-                self.last = args
-        self.pending.clear()
+    def check(self, args, kw, out) -> None:
+        want = self.plain_op(*args, **kw)
+        err = float((out - want).abs().max()) if out.numel() else 0.
+        self.max_err = max(self.max_err, err)
+        if not torch.allclose(out, want, rtol=self.rtol, atol=self.atol):
+            fail(f"{self.op} differs from its plain version on "
+                 f"{[tuple(a.shape) for a in args if a is not None]}"
+                 f" (max abs err {err})")
 
 
 class FMLog(OpLog):
@@ -746,10 +804,18 @@ class FMLog(OpLog):
 
 class BagLog(OpLog):
     """Every ``embedding_bag`` launch against the plain bag lookup, to
-    BAG_TOL absolute."""
+    BAG_TOL absolute, BAG_CHECK_ROWS bags at a time (the plain lookup
+    builds [bags, L, D] intermediates: 6.7 GB at M.1's whole batch)."""
 
     def __init__(self):
         super().__init__("embedding_bag", ref.embedding_bag, BAG_TOL, 0.0)
+
+    def check(self, args, kw, out) -> None:
+        table, ids, weights = args
+        for r in range(0, ids.shape[0], BAG_CHECK_ROWS):
+            rows = slice(r, r + BAG_CHECK_ROWS)
+            super().check((table, ids[rows], None if weights is None
+                           else weights[rows]), kw, out[rows])
 
 
 class Calls:
@@ -1804,8 +1870,13 @@ def _layer_norm64(x, g, b, eps=1e-5):
 
 
 def bst_fp64(model, cols):
-    """BST's CTR probabilities of ``cols`` recomputed in float64 from the
-    model's tensors: the history and target rows plus positions, each block
+    """BST's CTR probabilities of ``cols``: ``bst_logits64``'s sigmoid."""
+    return torch.sigmoid(bst_logits64(model, cols))
+
+
+def bst_logits64(model, cols):
+    """BST's logits of ``cols`` recomputed in float64 from the model's
+    tensors: the history and target rows plus positions, each block
     (scores over sqrt(dh), padded keys at -1e30, softmax, output
     projection, layer norm, ReLU FFN, layer norm), the flattened sequence
     beside the dense features through the head MLP."""
@@ -1826,8 +1897,7 @@ def bst_fp64(model, cols):
         f = torch.relu(x @ p["ffn1"].double()) @ p["ffn2"].double()
         x = _layer_norm64(x + f, p["ln2_g"], p["ln2_b"])
     x = torch.cat([x.reshape(b, -1), cols["dense"].double()], dim=-1)
-    return torch.sigmoid(
-        _mlp64(model.mlp_w, model.mlp_b, x, torch.relu)[..., 0])
+    return _mlp64(model.mlp_w, model.mlp_b, x, torch.relu)[..., 0]
 
 
 FP64 = {"din": din_fp64, "bst": bst_fp64}
@@ -1947,46 +2017,24 @@ def run_phase_seq(name, cfg, device, p99_rows=SEQ_P99_ROWS,
 # ---------------------------------------------------------------------------
 # phase J: DeepFM training on the card (train_batch at published width)
 # ---------------------------------------------------------------------------
-class BackwardLog:
-    """Wraps ``fused_fm.fused_fm_backward`` while the main path runs and
-    keeps each launch's inputs and output, checked after its step against
-    the plain gradient on the same tensors: |kernel - plain| at most
-    J_GRAD_TOL x max |g| (the gradient is g[b] times a column sum less an
-    element; g ~ 1/B makes any fixed absolute tolerance vacuous)."""
+class BackwardLog(Recorder):
+    """Every ``fused_fm.fused_fm_backward`` launch against the plain
+    gradient on the same tensors: |kernel - plain| at most J_GRAD_TOL x
+    max |g| (the gradient is g[b] times a column sum less an element; g ~
+    1/B makes any fixed absolute tolerance vacuous)."""
 
     def __init__(self):
-        self.orig = fm.fused_fm_backward
-        self.pending = []
-        self.last = None                # the last launch's (emb, g)
-        self.max_err = 0.0
-        self.checked = 0
+        super().__init__(fm, "fused_fm_backward")
 
-    def __enter__(self):
-        fm.fused_fm_backward = self._record
-        return self
-
-    def __exit__(self, *exc):
-        fm.fused_fm_backward = self.orig
-
-    def _record(self, emb, g):
-        out = self.orig(emb, g)
-        self.pending.append((emb, g, out))
-        return out
-
-    def check_pending(self) -> None:
-        with torch.no_grad():
-            for emb, g, out in self.pending:
-                want = ref.fused_fm_backward(emb, g)
-                err = float((out.float() - want.float()).abs().max())
-                scale = float(g.abs().max())
-                self.max_err = max(self.max_err, err)
-                if err > J_GRAD_TOL * scale:
-                    fail(f"fused_fm_backward differs from the plain gradient "
-                         f"on {tuple(emb.shape)} (max abs err {err}, "
-                         f"max |g| {scale})")
-                self.last = (emb.detach(), g)
-                self.checked += 1
-        self.pending.clear()
+    def check(self, args, kw, out) -> None:
+        emb, g = args
+        want = ref.fused_fm_backward(emb, g)
+        err = float((out.float() - want.float()).abs().max())
+        scale = float(g.abs().max())
+        self.max_err = max(self.max_err, err)
+        if err > J_GRAD_TOL * scale:
+            fail(f"fused_fm_backward differs from the plain gradient on "
+                 f"{tuple(emb.shape)} (max abs err {err}, max |g| {scale})")
 
 
 def fm_backward_bound_ms(shape):
@@ -2327,91 +2375,17 @@ def din_params_model(params):
 def run_phase_k1(device, cfg=din.CONFIG, rows=J_ROWS, steps=J_STEPS,
                  check_rows=K_CHECK_ROWS):
     """DIN's train_batch (by default at full published width) on the card
-    through the dense step ``launch/train.py`` builds: a warm-up, ``steps``
-    timed steps and one traced.  The first step's logits on ``check_rows``
-    fixed rows are held against a float64 recompute; every loss and
-    ``grad_norm`` must be finite."""
+    through the dense step ``launch/train.py`` builds (``train_cell``: a
+    warm-up, ``steps`` timed steps and one traced).  The first step's
+    logits on ``check_rows`` fixed rows are held against a float64
+    recompute; every loss and ``grad_norm`` must be finite."""
     t_phase = time.perf_counter()
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-    ocfg = train_opt.OptConfig()
-    t0 = time.perf_counter()
-    params = convert.params_of(rec.recsys_init(cfg, seed=0, device=device))
-    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
-    print(f"[K.1] {cfg.name}: {n_bytes} parameter bytes, drawn in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    batches = draw_requests(
-        lambda rng: (synthetic.recsys_batch(rng, cfg, rows),), steps + 2,
-        seed=31)
-    batches = [{k: torch.as_tensor(v, device=device) for k, v in b.items()}
-               for (b,) in batches]
-    print(f"[K.1] drew and uploaded {steps + 2} batches of {rows} rows in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # the first step's logits (its forward at the initial parameters on
-    # its batch) on fixed rows, against float64
-    idx = torch.from_numpy(np.sort(np.random.default_rng(31).choice(
-        rows, check_rows, replace=False))).to(device)
-    b0 = batches[0]
-    with torch.no_grad():
-        logits = rec.FORWARD_ROWS["din"](params, cfg, b0,
-                                         rec.gather_rows(params, cfg, b0))
-    want = din_logits64(din_params_model(params),
-                        {k: v[idx] for k, v in b0.items()})
-    logit_err = float((logits[idx].double() - want).abs().max())
-    if not (logits.shape == (rows,) and logit_err <= SEQ_TOL):
-        fail(f"[K.1] the first step's logits {tuple(logits.shape)} differ "
-             f"from the float64 recompute by {logit_err}")
-    del logits, want
-    # the item rows the first step's gather reads (padding clamped to row
-    # 0, as embed_lookup clamps it): its backward adds every one of them
-    # into the table's gradient
-    ids = torch.cat([b0["hist_items"].reshape(-1).clamp(min=0),
-                     b0["target_item"].reshape(-1)])
-    _, counts = torch.unique(ids, return_counts=True)
-    gather_ids = {"ids": ids.numel(), "unique": counts.numel(),
-                  "hottest_row_count": int(counts.max()),
-                  "padding": int((b0["hist_items"] < 0).sum())}
-    del ids, counts
-
-    dense = train_step.make_train_step(train_step.recsys_loss_fn(cfg), ocfg)
-    state = train_opt.init_opt_state(params, ocfg)
-    p, s, st, _, host0, m0 = timed_steps(dense, params, state, 0,
-                                         batches[:1])
-    del params, state
-    p, s, st, ev, host, ms = timed_steps(dense, p, s, st,
-                                         batches[1:steps + 1])
-    m_dense = step_summary(rows, ev, host, ms)
-    m_dense["warmup_host_ms"] = host0[0]
-    prof = request_profiler(device)
-    with prof:
-        t0 = time.perf_counter()
-        p, s, st, mt = dense(p, s, st, batches[steps + 1])
-        if cuda:
-            torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    losses = [float(m["loss"]) for m in m0 + ms + [mt]]
-    norms = [float(m["grad_norm"]) for m in m0 + ms + [mt]]
-    if not np.isfinite(losses + norms).all():
-        fail(f"[K.1] losses {losses} or grad norms {norms} are not finite")
-    busy_ms, busy_events = device_busy_ms(prof)
-    del p, s
-    return {"phase": "K.1", "model": cfg.name, "rows": rows,
-            "parameter_bytes": n_bytes, "dense": m_dense,
-            "first_batch_item_gather": gather_ids,
-            "first_step_logit_max_abs_err_vs_fp64": logit_err,
-            "logit_rows_checked": check_rows,
-            "loss_all_steps": losses, "grad_norm_all_steps": norms,
-            "max_memory_allocated": max_memory(device),
+    dense = train_cell("K.1", cfg, dense_step, device, rows=rows,
+                       steps=steps, seed=31,
+                       first=seq_first_step("K.1", cfg, check_rows, 31))
+    return {"phase": "K.1", "model": cfg.name, "rows": rows, "dense": dense,
             "matmul_precision": torch.get_float32_matmul_precision(),
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "traced_step": {
-                "ms": traced_ms, "device_busy_ms": busy_ms,
-                "device_events": busy_events,
-                "busy_share": busy_ms / traced_ms,
-                "busy_share_of_median": busy_ms / m_dense["host_ms_median"],
-                "kernels_ms": kernels_by_device_ms(prof, top=8)},
             "phase_s": time.perf_counter() - t_phase}
 
 
@@ -2607,6 +2581,459 @@ def run_phase_k2(device, cfg=None, n_items=K_ITEMS, n_users=K_USERS,
             "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phases L and M: BST and two-tower training on the card
+# ---------------------------------------------------------------------------
+class BagBackwardLog(Recorder):
+    """Every ``embedding_bag.embedding_bag_backward`` launch against the
+    plain gradient on the same tensors, element by element: |kernel -
+    plain| <= min(2 n 2^-24, BAG_GRAD_REL) S + 1e-30, n the terms the row
+    adds and S the sum of their magnitudes (both add the same n terms, the
+    atomics in an order that changes from run to run: recursive
+    summation's bound, Higham; on hot rows, where that bound is loose, a
+    fixed share of S).  Keeps the largest |kernel - plain| / S and the
+    largest n."""
+
+    def __init__(self):
+        super().__init__(bagk, "embedding_bag_backward")
+        self.max_rel = 0.0
+        self.max_n = 0
+
+    def check(self, args, kw, out) -> None:
+        err = ref.embedding_bag_backward(*args).sub_(out).abs_()
+        mag, n = ref.embedding_bag_backward_terms(*args)
+        self.max_err = max(self.max_err, float(err.max()))
+        self.max_rel = max(self.max_rel, float(torch.where(
+            mag > 0, err / mag, 0.0).max()))
+        self.max_n = max(self.max_n, int(n.max()))
+        share = (n.to(mag.dtype) * (2 * BAG_GRAD_U)).clamp_(max=BAG_GRAD_REL)
+        bound = mag.mul_(share[:, None]).add_(1e-30)
+        if not bool((err <= bound).all()):
+            fail(f"embedding_bag_backward differs from the plain gradient "
+                 f"beyond min(2 n 2^-24, {BAG_GRAD_REL}) S on "
+                 f"{tuple(args[1].shape)} (max abs err {float(err.max())})")
+
+
+def train_cell(tag, cfg, make_step, device, *, rows, steps, seed,
+               first=None, after=None, peak_limit=None):
+    """``cfg`` from seed 0 on ``device`` (by default the card), trained on
+    ``steps`` + 2 batches of ``rows`` drawn and uploaded first: a warm-up,
+    ``steps`` timed steps (events and host clock) and one traced.
+    ``first(params, batch)`` runs at the initial parameters before the
+    warm-up; ``after(i, params, state, metrics)`` after every step.
+    Returns None, without the timed steps, when the warm-up's peak memory
+    reaches ``peak_limit``; else the cell's metrics."""
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    ocfg = train_opt.OptConfig()
+    t0 = time.perf_counter()
+    params = convert.params_of(rec.recsys_init(cfg, seed=0, device=device))
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    vocabs = f"item_vocab {cfg.item_vocab}" + (
+        f", user_vocab {cfg.user_vocab}" if cfg.arch == "two_tower" else "")
+    print(f"[{tag}] {cfg.name}: {n_bytes} parameter bytes ({vocabs}), drawn "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    batches = [{k: v.to(device) for k, v in b.items()}
+               for (b,) in draw_requests(lambda rng: (launch_train.train_batch(
+                   rng, cfg, rows, "cpu"),), steps + 2, seed)]
+    print(f"[{tag}] drew and uploaded {steps + 2} batches of {rows} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    info = first(params, batches[0]) if first else {}
+    fn = make_step(cfg, ocfg)
+    state = train_opt.init_opt_state(params, ocfg)
+    p, s, st, _, host0, m0 = timed_steps(fn, params, state, 0, batches[:1],
+                                         after)
+    del params, state
+    first_peak = max_memory(device)
+    print(f"[{tag}] warm-up step: {host0[0]:.0f} ms, peak {first_peak} B",
+          flush=True)
+    if peak_limit is not None and first_peak is not None \
+            and first_peak >= peak_limit:
+        return None
+    ev, host, ms = [], [], []
+    for b in batches[1:steps + 1]:    # one call a step: no step's inputs
+        p, s, st, e, h, m = timed_steps(fn, p, s, st, [b], after)
+        ev, host, ms = ev + e, host + h, ms + m       # outlive it here
+    summary = step_summary(rows, ev, host, ms)
+    summary["warmup_host_ms"] = host0[0]
+    prof = request_profiler(device)
+    with prof:
+        t0 = time.perf_counter()
+        p, s, st, mt = fn(p, s, st, batches[steps + 1])
+        if cuda:
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    if after is not None:
+        after(steps + 1, p, s, mt)
+    del p, s
+    losses = [float(m["loss"]) for m in m0 + ms + [mt]]
+    norms = [float(m["grad_norm"]) for m in m0 + ms + [mt]]
+    if not np.isfinite(losses + norms).all():
+        fail(f"[{tag}] losses {losses} or grad norms {norms} are not "
+             f"finite")
+    busy_ms, busy_events = device_busy_ms(prof)
+    return {"model": cfg.name, "item_vocab": cfg.item_vocab,
+            **({"user_vocab": cfg.user_vocab} if cfg.arch == "two_tower"
+               else {}), "rows": rows,
+            "parameter_bytes": n_bytes, **info, "steps": summary,
+            "loss_all_steps": losses, "grad_norm_all_steps": norms,
+            "first_step_peak_bytes": first_peak,
+            "max_memory_allocated": max_memory(device),
+            "traced_step": {
+                "ms": traced_ms, "device_busy_ms": busy_ms,
+                "device_events": busy_events,
+                "busy_share": busy_ms / traced_ms,
+                "busy_share_of_median": busy_ms / summary["host_ms_median"],
+                "kernels_ms": kernels_by_device_ms(prof, top=8)}}
+
+
+def dense_step(cfg, ocfg):
+    return train_step.make_train_step(train_step.recsys_loss_fn(cfg), ocfg)
+
+
+def sparse_step(cfg, ocfg):
+    return train_step.make_sparse_recsys_train_step(cfg, ocfg)
+
+
+def bst_params_model(params, cfg):
+    """BST's path-keyed parameters as ``bst_logits64`` reads a model."""
+    mlp = rec._path_layers(params, "mlp")
+    return types.SimpleNamespace(
+        cfg=cfg, item_table=params["item_table"],
+        pos_table=params["pos_table"],
+        blocks=[{k: params[f"blocks/{i}/{k}"] for k in rec.BST_BLOCK}
+                for i in range(cfg.n_blocks)],
+        mlp_w=[w for w, _ in mlp], mlp_b=[b for _, b in mlp])
+
+
+SEQ_LOGITS64 = {"din": (lambda params, cfg: din_params_model(params),
+                        din_logits64),
+                "bst": (bst_params_model, bst_logits64)}
+
+
+def seq_first_step(tag, cfg, check_rows, seed):
+    """K.1's and L's check at the initial parameters: the first step's
+    logits on ``check_rows`` fixed rows against float64, and the item rows
+    its gather reads (padding clamped to row 0, as ``embed_lookup`` clamps
+    it: the backward adds every one of them into the table's gradient)."""
+    to_model, logits64 = SEQ_LOGITS64[cfg.arch]
+
+    def first(params, b0):
+        rows = b0["dense"].shape[0]
+        idx = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+            rows, check_rows, replace=False))).to(b0["dense"].device)
+        with torch.no_grad():
+            logits = rec.FORWARD_ROWS[cfg.arch](
+                params, cfg, b0, rec.gather_rows(params, cfg, b0))
+        want = logits64(to_model(params, cfg),
+                        {k: v[idx] for k, v in b0.items()})
+        err = float((logits[idx].double() - want).abs().max())
+        if not (logits.shape == (rows,) and err <= SEQ_TOL):
+            fail(f"[{tag}] the first step's logits {tuple(logits.shape)} "
+                 f"differ from the float64 recompute by {err}")
+        ids = torch.cat([x.reshape(-1) for t, x in
+                         rec.table_ids(cfg, b0).values()
+                         if t == "item_table"])
+        _, counts = torch.unique(ids.clamp(min=0), return_counts=True)
+        return {"first_step_logit_max_abs_err_vs_fp64": err,
+                "logit_rows_checked": check_rows,
+                "first_batch_item_gather": {
+                    "ids": ids.numel(), "unique": counts.numel(),
+                    "hottest_row_count": int(counts.max()),
+                    "padding": int((ids < 0).sum())}}
+    return first
+
+
+def run_phase_l(device, cfg=bst.CONFIG, rows=J_ROWS, steps=J_STEPS,
+                check_rows=K_CHECK_ROWS, vocabs=L_VOCABS):
+    """BST's train_batch (by default at full published width) on the card:
+    the dense step ``launch/train.py`` builds at the first of ``vocabs``
+    that fits, then the sparse step at ``cfg``'s own item_vocab.  Neither
+    reaches a kernel."""
+    t_phase = time.perf_counter()
+    for vocab in vocabs:
+        cut = dataclasses.replace(cfg, item_vocab=vocab)
+        try:
+            dense = train_cell("L", cut, dense_step, device, rows=rows,
+                               steps=steps, seed=51,
+                               first=seq_first_step("L", cut, check_rows,
+                                                    41))
+            break
+        except torch.OutOfMemoryError as e:
+            print(f"[L] the dense step at item_vocab {vocab} does not fit: "
+                  f"{str(e).splitlines()[0]}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        fail(f"[L] the dense step fits at none of item_vocab {vocabs}")
+    if vocab != cfg.item_vocab:
+        print(f"reduced: phase L's dense step item_vocab {cfg.item_vocab}->"
+              f"{vocab} (the step's dense table gradient and its optimizer "
+              f"temporaries do not fit the card at {cfg.item_vocab})",
+              flush=True)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    sparse = train_cell("L", cfg, sparse_step, device, rows=rows,
+                        steps=steps, seed=52)
+    return {"phase": "L", "model": cfg.name, "rows": rows,
+            "dense_item_vocab": vocab, "dense": dense, "sparse": sparse,
+            "matmul_precision": torch.get_float32_matmul_precision(),
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def kernel_counts() -> dict:
+    return {**nl.launches, **fm.launches, **bagk.launches}
+
+
+def run_phase_m(device, cfg=two_tower_retrieval.CONFIG, rows=J_ROWS,
+                steps=J_STEPS, vocabs=M_VOCABS, min_items=M_MIN_ITEMS,
+                peak_limit=M_PEAK_BYTES, flush=None):
+    """Two-tower's train_batch on the card.  M.1: the dense step
+    ``launch/train.py`` builds (the history bag through ``EmbeddingBag``:
+    one ``embedding_bag`` and one ``embedding_bag_backward`` launch a
+    step, each forward launch checked by a ``BagLog`` and each backward
+    launch by a ``BagBackwardLog`` after its step), with ``cfg``'s user
+    and item vocabularies cut to ``vocabs`` and halved together until the
+    warm-up's peak stays under ``peak_limit``; the first step's loss held
+    within 1e-5 of the same step's with the plain bag.  Where ``flush`` is
+    given (on the card), M.1's last bag lookup is timed (``bag_timing``:
+    its ids over a table of its shape drawn anew, since the logs keep no
+    step's table past its step, which would raise the peak the step
+    reports) before M.2: the sparse step at ``cfg``'s own vocabularies,
+    which launches no kernel.  Returns the phase's metrics, each part's kernel
+    launches and M.1's two logs."""
+    t_phase = time.perf_counter()
+    users, items = vocabs
+    plain, last_bag = {}, {}
+
+    def first(params, b0):            # the step's loss with the plain bag
+        with torch.no_grad(), bag_log.plain():
+            plain["loss"] = float(train_step.recsys_loss_fn(cut)(
+                params, b0)[0])
+        return {}
+
+    def after(*_):
+        bag_log.check_pending()
+        bwd_log.check_pending()
+        table, last_bag["ids"], _ = bag_log.last
+        last_bag["shape"] = table.shape
+        bag_log.last = None           # the step's table goes with its step
+
+    while True:                       # each attempt counts from zero
+        cut = dataclasses.replace(cfg, user_vocab=users, item_vocab=items)
+        zero(nl.launches, fm.launches, bagk.launches, bagk.paths)
+        with BagLog() as bag_log, BagBackwardLog() as bwd_log:
+            try:
+                dense = train_cell(
+                    "M.1", cut, dense_step, device, rows=rows, steps=steps,
+                    seed=61, first=first, peak_limit=peak_limit,
+                    after=after)
+            except torch.OutOfMemoryError as e:
+                print(f"[M.1] the dense step at {users} users, {items} "
+                      f"items does not fit: {str(e).splitlines()[0]}",
+                      flush=True)
+                dense = None
+        if dense is not None:
+            break
+        del bag_log, bwd_log
+        gc.collect()
+        torch.cuda.empty_cache()
+        users, items = users // 2, items // 2
+        if items < min_items:
+            fail(f"[M.1] the dense step does not fit under {peak_limit} B "
+                 f"at {2 * items} items or more")
+    m1_counts = kernel_counts()
+    dense["embedding_bag_paths"] = dict(bagk.paths)
+    print(f"reduced: phase M.1 (the dense step) user_vocab {cfg.user_vocab}"
+          f"->{users}, item_vocab {cfg.item_vocab}->{items} (its dense "
+          f"table gradients and the optimizer's temporaries; the first "
+          f"step's peak {dense['first_step_peak_bytes']} B, under "
+          f"{peak_limit} B)", flush=True)
+    loss_err = abs(dense["loss_all_steps"][0] - plain["loss"])
+    if loss_err > J_TOL:
+        fail(f"[M.1] the first step's loss with the bag kernels differs "
+             f"from the plain bag's by {loss_err}")
+    dense.update(first_step_loss_plain_bag=plain["loss"],
+                 first_step_loss_err_vs_plain_bag=loss_err,
+                 forward_launches_checked=bag_log.checked,
+                 forward_max_abs_err=bag_log.max_err,
+                 backward_launches_checked=bwd_log.checked,
+                 backward_max_abs_err=bwd_log.max_err,
+                 backward_max_err_over_S=bwd_log.max_rel,
+                 backward_max_terms_a_row=bwd_log.max_n)
+    if flush is not None:     # the last step's ids over rows drawn anew
+        dense["bag_timing"] = bag_timing(
+            torch.randn(last_bag["shape"], device=device), last_bag["ids"],
+            flush, 20, 5)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    zero(nl.launches, fm.launches, bagk.launches)
+    sparse = train_cell("M.2", cfg, sparse_step, device, rows=rows,
+                        steps=steps, seed=62)
+    return {"phase": "M", "model": cfg.name, "rows": rows,
+            "dense": dense, "sparse": sparse,
+            "phase_s": time.perf_counter() - t_phase}, \
+        m1_counts, kernel_counts(), bag_log, bwd_log
+
+
+def bag_backward_bound(ids, weights, n_rows, dim):
+    """The least time of the bag's gradient at ``ids`` [B, L] (and
+    ``weights``) and fp32 g [B, dim] into [n_rows, dim] on this card: g,
+    the ids and the weights read once, the dense gradient written once
+    (its adds, one a valid entry and column, are far below the bytes).
+    Beside it the kernel's own share, which adds into a zero-filled
+    gradient: the same reads and each distinct touched row read and
+    written once; and the zero-fill's, [n_rows, dim] written once."""
+    valid = ids[(ids >= 0) & (ids < n_rows)]
+    rows = int(torch.unique(valid).numel())
+    io = ids.numel() * 4 * (1 if weights is None else 2) \
+        + ids.shape[0] * dim * 4
+    t_bytes = (io + n_rows * dim * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = valid.numel() * dim / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kernel_bound_ms": (io + 2 * rows * dim * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "zero_fill_bound_ms": n_rows * dim * 4 / HBM_BYTES_PER_S * 1e3,
+            "distinct_rows": rows}
+
+
+def measure_bag_backward(bwd_log, flush):
+    """embedding_bag_backward at M.1's shape (its last launch's inputs), by
+    events (the wrapper: zero-fill and kernel) and by profiler (the kernel
+    alone), cold L2, the zero-fill timed apart, beside the plain gradient,
+    the bound and ``torch.autograd.grad`` of ``F.embedding_bag`` (mean,
+    ``padding_idx`` a row appended to the table) on the same bags.  Also
+    holds the kernel's scatter exactly: on g of ones in ``sum`` mode each
+    row's gradient is the count of entries it takes, an integer fp32 adds
+    exactly (below 2^24), so a dropped or repeated term shows even on the
+    hottest row."""
+    g, ids, w, mode, n_rows = bwd_log.last
+    kernel = functools.partial(bagk.embedding_bag_backward, g, ids, w, mode,
+                               n_rows)
+    plain = functools.partial(ref.embedding_bag_backward, g, ids, w, mode,
+                              n_rows)
+    got = kernel()
+    err = ref.embedding_bag_backward(g, ids, w, mode, n_rows).sub_(got)
+    err = float(err.abs_().max())
+    table = torch.zeros(n_rows + 1, g.shape[1], device=g.device,
+                        requires_grad=True)
+    bags = torch.where(ids >= 0, ids, n_rows).long()
+    out = torch.nn.functional.embedding_bag(bags, table, mode=mode,
+                                            padding_idx=n_rows)
+    library = functools.partial(torch.autograd.grad, out, [table], g,
+                                retain_graph=True)
+    lib_diff = float((library()[0][:n_rows] - got).abs().max())
+    del got
+    counts = bagk.embedding_bag_backward(torch.ones_like(g), ids, None,
+                                         "sum", n_rows)
+    n = torch.bincount(ids[(ids >= 0) & (ids < n_rows)].long(),
+                       minlength=n_rows)
+    if not bool((counts == n[:, None].to(counts.dtype)).all()):
+        fail("embedding_bag_backward on g of ones (sum) is not each row's "
+             "count of entries")
+    del counts, n
+    grad = torch.empty(n_rows, g.shape[1], device=g.device)
+    fill_ms = time_ms(grad.zero_, 20, flush)
+    del grad
+    ms = time_ms(kernel, 20, flush)
+    return {"name": "embedding_bag_backward", "route": "cuda",
+            "source": SOURCE["embedding_bag_backward"],
+            "replaces": REPLACES["embedding_bag_backward"],
+            "replaces_note": "the gradient of that kernel's function with "
+                             "respect to the table: the JAX package has no "
+                             "gradient kernel and differentiates its oracle "
+                             "(src/repro/kernels/ref.py:39)",
+            "launches": None, "max_abs_err": bwd_log.max_err,
+            "max_err_over_S": bwd_log.max_rel,
+            "max_terms_a_row": bwd_log.max_n,
+            "shape": {"g": list(g.shape), "ids": list(ids.shape),
+                      "rows": n_rows, "mode": mode},
+            "check_max_abs_err": err, "counts_exact": True,
+            "ms": ms, "kernel_ms": kernel_ms(
+                kernel, "embedding_bag_backward_kernel", 20, flush),
+            "zero_fill_ms": fill_ms, "host_ms": host_ms(kernel, 20),
+            "plain_ms": time_ms(plain, 5, flush),
+            **bag_backward_bound(ids, w, n_rows, g.shape[1]),
+            "library_ms": time_ms(library, 20, flush),
+            "library_max_abs_diff": lib_diff,
+            "library_note": "torch.autograd.grad of F.embedding_bag(mode="
+                            "'mean', padding_idx=V) into a [V + 1, D] "
+                            "table, the padding row dropped"}
+
+
+def plain_in_batch_softmax(u, i, logq):
+    """The in-batch softmax as the port wrote it before the chunked one:
+    the [B, B] logits through ``softmax_xent``, autograd's backward."""
+    logits = (u @ i.T) / rec.TEMPERATURE - logq[None, :]
+    return cm.softmax_xent(logits, torch.arange(u.shape[0],
+                                                device=u.device))
+
+
+def softmax_timing(device, flush, shapes=SOFTMAX_SHAPES, seed=63):
+    """The in-batch softmax's loss and its gradients with respect to u, i
+    and logq (unit u and i [B, D], logq [B] normal), the chunked one
+    (``rec._in_batch_softmax``) beside ``plain_in_batch_softmax``, at each
+    (B, D) of ``shapes``: device ms by events, cold L2, and peak bytes
+    above the inputs.  Where both fit, the chunked loss is held within
+    J_TOL of the plain one's and each gradient within SOFTMAX_GRAD_TAIL x
+    sqrt(D) 2^-24 / T of its plain max: each version's logits carry its
+    own fp32 rounding of a D-term dot of unit vectors, about sqrt(D)
+    2^-24, over T = 0.05, and the softmax passes that on to every
+    gradient as a relative error.  The plain one not fitting is recorded
+    (it is the comparison, not the path)."""
+    out = []
+    for rows, dim in shapes:
+        rng = np.random.default_rng(seed)
+        u, i = (rng.normal(size=(rows, dim)).astype(np.float32)
+                for _ in range(2))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        i /= np.linalg.norm(i, axis=1, keepdims=True)
+        x = [torch.tensor(a, device=device, requires_grad=True)
+             for a in (u, i, rng.normal(size=rows).astype(np.float32))]
+
+        def run(f):
+            loss = f(*x)
+            return (loss.detach(), *torch.autograd.grad(loss, x))
+
+        row, got = {"rows": rows, "dim": dim}, {}
+        for name, f in (("chunked", rec._in_batch_softmax),
+                        ("plain", plain_in_batch_softmax)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            try:
+                got[name] = run(f)
+                peak = torch.cuda.max_memory_allocated(device) - base
+                row[name] = {"ms": time_ms(lambda: run(f), 5, flush),
+                             "peak_bytes": peak}
+            except torch.OutOfMemoryError as e:
+                got.pop(name, None)
+                row[name] = {"fits": False,
+                             "error": str(e).splitlines()[0]}
+        if "plain" in got:
+            (l0, *g0), (l1, *g1) = got["chunked"], got["plain"]
+            row["loss_abs_err"] = float((l0 - l1).abs())
+            row["grad_err_over_max"] = [
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(g0, g1)]
+            row["grad_tol"] = (SOFTMAX_GRAD_TAIL * dim ** 0.5 * 2.0 ** -24
+                               / rec.TEMPERATURE)
+            if row["loss_abs_err"] > J_TOL or \
+                    max(row["grad_err_over_max"]) > row["grad_tol"]:
+                fail(f"the chunked in-batch softmax differs from the plain "
+                     f"one at B={rows}, D={dim}: {row}")
+        del got, x
+        out.append(row)
+    return out
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -2746,7 +3173,8 @@ def main() -> int:
             bwd_log.checked == steps_j):
         fail(f"phase J ran {steps_j} steps on the FM kernels and checked "
              f"{bwd_log.checked} gradients; launches {j_counts}")
-    if any(j_counts[k] for k in nl.launches) or j_counts["embedding_bag"]:
+    if any(j_counts[k] for k in nl.launches) or j_counts["embedding_bag"] \
+            or j_counts["embedding_bag_backward"]:
         fail(f"DeepFM training launched another kernel: {j_counts}")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
@@ -2844,11 +3272,12 @@ def main() -> int:
     if f_counts["embedding_bag"] != m_f["requests_checked"]:
         fail(f"embedding_bag launched {f_counts['embedding_bag']} times for "
              f"{m_f['requests_checked']} requests")
-    row = measure_bag(bag_log, bag_log_f, flush)
-    row["launches"] = d_counts["embedding_bag"] + f_counts["embedding_bag"]
-    row["max_abs_err"] = max(bag_log.max_err, bag_log_f.max_err)
-    row["retrieval"]["launches"] = f_counts["embedding_bag"]
-    kernels.append(row)
+    bag_row = measure_bag(bag_log, bag_log_f, flush)   # M.1 adds its own
+    bag_row["launches"] = (d_counts["embedding_bag"]
+                           + f_counts["embedding_bag"])
+    bag_row["max_abs_err"] = max(bag_log.max_err, bag_log_f.max_err)
+    bag_row["retrieval"]["launches"] = f_counts["embedding_bag"]
+    kernels.append(bag_row)
 
     # G and H reach none of the four kernels: the two-tower tables (30.8 GB,
     # also held by the bag logs' last launches) go first, then DIN's tables
@@ -2877,6 +3306,47 @@ def main() -> int:
         print(f"[{name}] " + json.dumps(m_k), flush=True)
         if any(launched.values()):
             fail(f"phase {name} launched a kernel: {launched}")
+
+    # L: BST trained on train_batch (K's DIN gone with its frame); M:
+    # two-tower, M.1 through both bag kernels, M.2 through none
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero(nl.launches, fm.launches, bagk.launches)
+    m_l = run_phase_l(device)
+    m_l["launches"] = kernel_counts()
+    print("[L] " + json.dumps(m_l), flush=True)
+    if any(m_l["launches"].values()):
+        fail(f"phase L launched a kernel: {m_l['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_m, m1_counts, m2_counts, bag_log_m, bwd_log_m = run_phase_m(
+        device, flush=flush)
+    m_m["launches"] = {"M.1": m1_counts, "M.2": m2_counts}
+    print("[M] " + json.dumps(m_m), flush=True)
+    steps_m = len(m_m["dense"]["loss_all_steps"])
+    if not (m1_counts["embedding_bag"] == m1_counts["embedding_bag_backward"]
+            == bag_log_m.checked == bwd_log_m.checked == steps_m):
+        fail(f"phase M.1 took {steps_m} steps and checked "
+             f"{bag_log_m.checked} bag lookups and {bwd_log_m.checked} bag "
+             f"gradients; launches {m1_counts}")
+    if any(m1_counts[k] for k in {**nl.launches, **fm.launches}):
+        fail(f"two-tower's dense step launched another kernel: {m1_counts}")
+    if any(m2_counts.values()):
+        fail(f"phase M.2 launched a kernel: {m2_counts}")
+    bag_row["launches"] += m1_counts["embedding_bag"]
+    bag_row["max_abs_err"] = max(bag_row["max_abs_err"], bag_log_m.max_err)
+    bag_row["train"] = {**m_m["dense"]["bag_timing"],
+                        "launches": m1_counts["embedding_bag"],
+                        "max_abs_err": bag_log_m.max_err,
+                        "paths": m_m["dense"]["embedding_bag_paths"]}
+    row = measure_bag_backward(bwd_log_m, flush)
+    row["launches"] = m1_counts["embedding_bag_backward"]
+    kernels.append(row)
+    del bag_log_m, bwd_log_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("in-batch softmax: " + json.dumps(softmax_timing(device, flush)),
+          flush=True)
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,7 +8,7 @@
 //
 // and bound with ctypes: a plain C interface, pointers and the stream as
 // void*, no PyTorch headers (async_copy.cuh holds the PTX of the async
-// copies and barriers).  The entry point returns cudaGetLastError().
+// copies and barriers).  The entry points return cudaGetLastError().
 //
 // For each bag b of indices [B, L] (int32, negative = padding) over a table
 // [V, D] (fp32 or bf16, contiguous), with optional fp32 weights [B, L]:
@@ -66,6 +66,33 @@
 //   fp32 (8 bytes of 4 bf16) when D % 4 == 0 and the table is aligned for
 //   them, else one element a thread, and walk the bag's ids kUnroll at a
 //   time, issuing those rows' loads before adding any of them.
+//
+// repro_embedding_bag_backward: the gradient of that function with
+// respect to the table, for constant weights (or none).  The JAX package
+// has no gradient kernel: it differentiates its oracle,
+// src/repro/kernels/ref.py::embedding_bag, whose transpose of jnp.take
+// scatter-adds into a dense [V, D] gradient.  Into grad [V, D] (fp32,
+// zeroed by the caller) it adds, for every entry (b, j) with 0 <= id < V,
+//
+//   grad[id, :] += (g[b, :] / denom[b]) * w[b, j]
+//
+// with denom = max(count of entries with id >= 0, 1) for mean and 1 for
+// sum: an id >= V counts in the mean's denominator but adds nothing
+// (jnp.take's fill reads it as NaN, and its transpose drops it).  The
+// terms are rounded as that transpose rounds them: g / denom first, then
+// times w.
+//
+// Bound: bytes.  It reads g, the ids and the weights once and
+// reads-modifies-writes each distinct row the batch touches; the memset
+// of the [V, D] gradient is the caller's and is counted apart.  One block
+// per bag and one thread per column (strided past kMaxThreads columns):
+// consecutive threads add into consecutive words of one row, so a warp's
+// adds go to L2 as one coalesced reduction.  The adds are fp32 atomics
+// (red.global.add.f32): a row that many bags touch (a zipf-hot item)
+// takes its adds one after another at L2, and their order changes from
+// run to run, so the result's last bits do too (a sorted, segmented
+// backward would fix both; ROADMAP queue 2).  Row offsets are 64-bit:
+// the published item table has 2.56e9 elements.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -412,6 +439,34 @@ int dispatch(const void* table, long long vocab, int dim, const void* indices,
   return 0;
 }
 
+// One block per bag: g [B, D], indices [B, L], weights [B, L] or null ->
+// adds into grad [V, D].
+__global__ void __launch_bounds__(kMaxThreads)
+embedding_bag_backward_kernel(const float* __restrict__ g,
+                              const int32_t* __restrict__ indices,
+                              const float* __restrict__ weights,
+                              int64_t vocab, int dim, int bag_len, int mean,
+                              float* __restrict__ grad) {
+  const int64_t bag = blockIdx.x;
+  const int32_t* idx = indices + bag * bag_len;
+  const float* wgt = weights == nullptr ? nullptr : weights + bag * bag_len;
+  int count = 0;                    // the same in every thread of the bag
+  if (mean) {
+    for (int j = 0; j < bag_len; ++j) count += __ldg(idx + j) >= 0;
+  }
+  const float denom = mean ? static_cast<float>(count > 1 ? count : 1) : 1.f;
+  for (int d = threadIdx.x; d < dim; d += blockDim.x) {
+    const float gd = __ldg(g + bag * dim + d) / denom;
+    for (int j = 0; j < bag_len; ++j) {
+      const int32_t id = __ldg(idx + j);
+      if (id >= 0 && id < vocab) {
+        const float w = wgt != nullptr ? __ldg(wgt + j) : 1.f;
+        atomicAdd(grad + static_cast<int64_t>(id) * dim + d, gd * w);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Once per device and shape, before
@@ -451,5 +506,30 @@ extern "C" int repro_embedding_bag(const void* table, int dtype,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradient of repro_embedding_bag's fp32 output with respect to its
+// table, for constant weights: adds into grad [vocab, dim] (fp32, zeroed
+// by the caller) from g [batch, dim] (fp32), indices [batch, bag_len]
+// (int32, negative = padding) and weights [batch, bag_len] (fp32) or null.
+// mode: 0 = sum, 1 = mean.  batch in [1, 2^31 - 1], dim >= 1, bag_len >= 0.
+extern "C" int repro_embedding_bag_backward(const void* g,
+                                            const void* indices,
+                                            const void* weights,
+                                            long long vocab, int dim,
+                                            long long batch, int bag_len,
+                                            int mode, void* grad,
+                                            void* stream) {
+  if (batch < 1 || batch > 0x7fffffffll || dim < 1 || bag_len < 0 ||
+      vocab < 0 || (mode != 0 && mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int threads = (dim + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  embedding_bag_backward_kernel<<<static_cast<unsigned>(batch), threads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const int32_t*>(indices),
+      static_cast<const float*>(weights), vocab, dim, bag_len, mode,
+      static_cast<float*>(grad));
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,11 +13,19 @@ a stage of ``STAGE_ROWS`` entries at once in a ring of ``STAGES``; else
 they come by loads into registers (the source's note says why).  ``paths``
 counts the launches of each branch.
 
+``embedding_bag_backward`` launches the same library's gradient kernel:
+the table's fp32 [V, D] gradient for constant weights, zero-filled here
+and added into by fp32 atomics, one block a bag.  ``EmbeddingBag`` is the
+autograd ``Function`` that ``kernels/ops.py`` runs on a CUDA table that
+requires grad: its forward launches ``embedding_bag``, its backward
+``embedding_bag_backward``.
+
 The library is compiled with ``nvcc`` at first use (``kernels/build.py``).
-The wrapper launches the kernel on CUDA tensors or raises; it never falls
-back to the plain version (``kernels/ref.embedding_bag``) —
-``kernels/ops.py`` picks that for CPU tensors.  ``launches`` counts the
-kernel's launches.
+The wrappers launch their kernels on CUDA tensors or raise; they never
+fall back to the plain versions (``kernels/ref.embedding_bag``,
+``ref.embedding_bag_backward``) — ``kernels/ops.py`` picks those for CPU
+tensors, and ``EmbeddingBag`` takes them for a CPU table only.
+``launches`` counts each kernel's launches.
 """
 from __future__ import annotations
 
@@ -28,8 +36,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import ref as _ref
 
-launches = {"embedding_bag": 0}
+launches = {"embedding_bag": 0, "embedding_bag_backward": 0}
 paths = {"staged": 0, "registers": 0}   # which branch each launch took
 STAGE_ROWS = 32                         # kStageRows in embedding_bag.cu
 STAGES = 2                              # kStages
@@ -51,6 +60,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_embedding_bag_resident.argtypes = [i32, i32, i32,
                                                  ctypes.POINTER(i64)]
     lib.repro_embedding_bag_resident.restype = ctypes.c_int
+    lib.repro_embedding_bag_backward.argtypes = [vp, vp, vp, i64, i32, i64,
+                                                 i32, i32, vp, vp]
+    lib.repro_embedding_bag_backward.restype = ctypes.c_int
 
 
 def _resident_bags(lib: ctypes.CDLL, table: torch.Tensor, n: int) -> int:
@@ -134,3 +146,94 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         launches["embedding_bag"] += 1
         paths["staged" if staged.value else "registers"] += 1
     return out
+
+
+def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
+                           weights: Optional[torch.Tensor], mode: str,
+                           n_rows: int) -> torch.Tensor:
+    """The gradient of ``embedding_bag`` with respect to its [n_rows, D]
+    table, for constant ``weights``: ``g`` fp32 [B, D] (the gradient of its
+    output), ``indices`` int32 [B, L] and ``weights`` fp32 [B, L] or None,
+    all contiguous on one card -> fp32 [n_rows, D], zero-filled and then
+    added into on the current stream (``kernels/ref.embedding_bag_backward``
+    says what it computes).  Raises on anything else."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be sum|mean, got {mode!r}")
+    given = {"g": g, "indices": indices}
+    if weights is not None:
+        given["weights"] = weights
+    for name, t in given.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"embedding_bag_backward takes CUDA tensors "
+                             f"({name} is on {t.device}); CPU tensors go "
+                             "to kernels/ref.py through EmbeddingBag")
+        if t.device != g.device:
+            raise ValueError(f"{name} is on {t.device}, g on {g.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"embedding_bag_backward takes contiguous "
+                             f"tensors; {name} has shape {tuple(t.shape)}, "
+                             f"strides {t.stride()}")
+        want = torch.int32 if name == "indices" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"embedding_bag_backward takes {want} {name}, "
+                            f"got {t.dtype}")
+    if g.dim() != 2 or indices.dim() != 2 or \
+            g.shape[0] != indices.shape[0] or (
+                weights is not None and weights.shape != indices.shape):
+        raise ValueError(f"embedding_bag_backward takes g [B, D], indices "
+                         f"[B, L] and weights [B, L] or None; got "
+                         f"{[tuple(t.shape) for t in given.values()]}")
+    (b, d), n = g.shape, indices.shape[1]
+    if max(b, n, d) > _INT_MAX or n_rows < 0:
+        raise ValueError(f"g {tuple(g.shape)}, indices "
+                         f"{tuple(indices.shape)} or {n_rows} rows exceed "
+                         "the launch's limits")
+    grad = torch.zeros(n_rows, d, dtype=torch.float32, device=g.device)
+    if b == 0 or d == 0 or n_rows == 0:
+        return grad
+    lib = _build.library("embedding_bag", _bind)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.repro_embedding_bag_backward(
+            g.data_ptr(), indices.data_ptr(),
+            None if weights is None else weights.data_ptr(), n_rows, d, b,
+            n, _MODES[mode], grad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"embedding_bag_backward launch failed: CUDA "
+                           f"error {err}")
+    with _lock:
+        launches["embedding_bag_backward"] += 1
+    return grad
+
+
+class EmbeddingBag(torch.autograd.Function):
+    """The bag lookup ``(table [V, D], indices [B, L], weights, mode) -> fp32
+    [B, D]`` with its gradient with respect to the table (none for the
+    indices or the weights).  On a CUDA table the forward launches
+    ``embedding_bag`` and the backward ``embedding_bag_backward``, which
+    writes fp32: a table of another dtype raises.  On a CPU table both
+    take their plain versions (``kernels/ref.py``), so that the Function's
+    wiring can be checked without a card."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, indices: torch.Tensor,
+                weights: Optional[torch.Tensor], mode: str) -> torch.Tensor:
+        ctx.save_for_backward(indices, weights)
+        ctx.mode, ctx.n_rows = mode, table.shape[0]
+        if table.device.type == "cpu":
+            return _ref.embedding_bag(table, indices, weights, mode)
+        if table.dtype != torch.float32:
+            raise TypeError(f"embedding_bag's gradient kernel writes float32 "
+                            f"tables only, got {table.dtype}")
+        return embedding_bag(table, indices, weights, mode=mode)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        indices, weights = ctx.saved_tensors
+        if g.device.type == "cpu":
+            grad = _ref.embedding_bag_backward(g, indices, weights, ctx.mode,
+                                               ctx.n_rows)
+        else:
+            grad = embedding_bag_backward(g.contiguous(), indices, weights,
+                                          ctx.mode, ctx.n_rows)
+        return grad, None, None, None

@@ -5,8 +5,9 @@ A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
 launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``,
 ``kernels/embedding_bag.py``) or raises — there is no fallback from one to
 the other.  On the card the probe's batch is padded to the block size and
-the outputs sliced back; the FM term carries its gradient kernel, and the
-bag lookup, which has none yet, raises under grad.
+the outputs sliced back; the FM term and the bag lookup carry their
+gradient kernels (the bag's with respect to its table only: trained bag
+weights raise).
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ from repro_torch.kernels import neighbor_lookup as _nl
 from repro_torch.kernels import ref as _ref
 
 BLOCK_Q = 256
-BAG_NO_GRADIENT = ("embedding_bag has no backward kernel on the card yet: it "
-                   "comes with two-tower training on the card (ROADMAP "
-                   "queue 1, item 12)")
+BAG_NO_GRADIENT = ("embedding_bag has no gradient with respect to its "
+                   "weights on the card: its backward kernel differentiates "
+                   "the table alone, and nothing in the JAX package trains "
+                   "bag weights")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -126,14 +128,18 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
     """Bag lookup of ``indices`` [B, L] (negative = padding) in ``table``
     [V, D] -> fp32 [B, D] (``kernels/ref.embedding_bag`` says what it
-    computes): the plain version for a CPU table, the ``embedding_bag``
-    kernel for a CUDA one.  The kernel has no gradient yet: on the card,
-    with grad enabled and a table (or weights) that requires it, this
-    raises rather than return a result that autograd would not
-    differentiate."""
+    computes): the plain version for a CPU table (autograd differentiates
+    it as it stands); for a CUDA one the ``embedding_bag`` kernel, through
+    ``EmbeddingBag`` (its gradient the ``embedding_bag_backward`` kernel)
+    where grad is enabled and the table requires it.  On the card, with
+    grad enabled and weights that require it, this raises rather than
+    return a result that autograd would not differentiate."""
     if table.device.type == "cpu":
         return _ref.embedding_bag(table, indices, weights, mode)
-    if torch.is_grad_enabled() and (table.requires_grad or (
-            weights is not None and weights.requires_grad)):
+    if not torch.is_grad_enabled():
+        return _bag.embedding_bag(table, indices, weights, mode=mode)
+    if weights is not None and weights.requires_grad:
         raise NotImplementedError(BAG_NO_GRADIENT)
+    if table.requires_grad:
+        return _bag.EmbeddingBag.apply(table, indices, weights, mode)
     return _bag.embedding_bag(table, indices, weights, mode=mode)

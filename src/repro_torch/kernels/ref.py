@@ -10,7 +10,10 @@
   ``kernels/ref.fused_fm``; ``fused_fm_backward``, of its gradient kernel
   (the JAX package has none: it differentiates that oracle).
 * ``embedding_bag``, of the bag kernel in ``embedding_bag.py``: what the
-  JAX package's Pallas kernel computes (fp32 accumulation and output).
+  JAX package's Pallas kernel computes (fp32 accumulation and output);
+  ``embedding_bag_backward``, of its gradient kernel with respect to the
+  table (the JAX package differentiates its oracle), and
+  ``embedding_bag_backward_terms``, what bounds that kernel's rounding.
 
 ``kernels/ops.py`` runs them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
@@ -129,22 +132,77 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
     """Plain version of ``embedding_bag.embedding_bag``: table [V, D] (fp32
     or bf16), int indices [B, L] (negative = padding), optional weights
-    [B, L] -> fp32 [B, D], accumulated in fp32.  ``sum`` is the weighted
-    sum of the valid rows; ``mean`` divides it by the count of valid
-    entries (at least 1), never by the sum of the weights.  A fully padded
+    [B, L] -> fp32 [B, D], accumulated in fp32 (a float64 table stays
+    float64).  ``sum`` is the weighted sum of the valid rows; ``mean``
+    divides it by the count of valid entries (at least 1), never by the
+    sum of the weights.  A fully padded
     bag (or L = 0) gives zeros; an id >= V makes its whole bag NaN, as
     ``jnp.take``'s fill mode does in the JAX package's oracle.  The rows
     are gathered into a [B, L, D] intermediate."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be sum|mean, got {mode!r}")
+    acc = _acc_dtype(table)              # fp32 (float64 for gradcheck)
     ids = indices.long()
     valid = ids >= 0
-    rows = table[ids.clamp(0, table.shape[0] - 1)].to(torch.float32)
-    mask = valid.to(torch.float32)
+    rows = table[ids.clamp(0, table.shape[0] - 1)].to(acc)
+    mask = valid.to(acc)
     if weights is not None:
-        mask = mask * weights.to(torch.float32)
+        mask = mask * weights.to(acc)
     out = (rows * mask[..., None]).sum(dim=1)                  # [B, D]
     if mode == "mean":
         out = out / valid.sum(dim=1).clamp(min=1)[:, None]
     return out.masked_fill((ids >= table.shape[0]).any(dim=1)[:, None],
                            float("nan"))
+
+
+def _bag_terms(g: torch.Tensor, indices: torch.Tensor,
+               weights: Optional[torch.Tensor], mode: str, n_rows: int):
+    """(rows, terms): the table row and the gradient term ``(g[b] /
+    denom[b]) * w[b, j]`` of each entry (b, j) whose id lies in ``[0,
+    n_rows)``, in the order the JAX package's transpose rounds them."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be sum|mean, got {mode!r}")
+    ids = indices.long()
+    valid = ids >= 0
+    scale = g
+    if mode == "mean":
+        scale = g / valid.sum(dim=1).clamp(min=1).to(g.dtype)[:, None]
+    b, j = torch.nonzero(valid & (ids < n_rows), as_tuple=True)
+    terms = scale[b]
+    if weights is not None:
+        terms = terms * weights.to(g.dtype)[b, j][:, None]
+    return ids[b, j], terms
+
+
+def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
+                           weights: Optional[torch.Tensor], mode: str,
+                           n_rows: int) -> torch.Tensor:
+    """Plain version of ``embedding_bag.embedding_bag_backward``: the
+    gradient of ``embedding_bag`` with respect to its [n_rows, D] table,
+    given ``g`` [B, D] (the gradient of its output) and constant
+    ``weights``, -> [n_rows, D] in g's dtype: ``grad[id] += (g[b] /
+    denom[b]) * w[b, j]`` for each entry with ``0 <= id < n_rows`` (denom
+    the count of entries with id >= 0, at least 1, for ``mean``; 1 for
+    ``sum``).  An id past the table counts in the denominator and adds
+    nothing, as the transpose of ``jnp.take`` drops it.  Dense, as the JAX
+    gradient is; the terms are added by ``index_add_``."""
+    rows, terms = _bag_terms(g, indices, weights, mode, n_rows)
+    out = torch.zeros(n_rows, g.shape[1], dtype=g.dtype, device=g.device)
+    return out.index_add_(0, rows, terms)
+
+
+def embedding_bag_backward_terms(g: torch.Tensor, indices: torch.Tensor,
+                                 weights: Optional[torch.Tensor], mode: str,
+                                 n_rows: int):
+    """(S [n_rows, D], n [n_rows]) of ``embedding_bag_backward`` on the same
+    inputs: S the sum of its terms' magnitudes (the same function on |g|
+    and |w|), n how many terms each row adds.  Two sums of the same n terms
+    in any order differ by at most ``2 * n * 2**-24 * S`` in fp32
+    (recursive summation's error bound, Higham), so that bounds the
+    kernel's atomics against the plain version."""
+    rows, terms = _bag_terms(g.abs(), indices,
+                             None if weights is None else weights.abs(),
+                             mode, n_rows)
+    s = torch.zeros(n_rows, g.shape[1], dtype=g.dtype, device=g.device)
+    return s.index_add_(0, rows, terms), torch.bincount(rows,
+                                                        minlength=n_rows)

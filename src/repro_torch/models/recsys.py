@@ -571,16 +571,82 @@ def _bst_forward_rows(params, cfg, batch, rows):
     return _mlp_apply(_path_layers(params, "mlp"), x)[..., 0]
 
 
+SOFTMAX_CHUNK = 4096      # rows of in-batch logits held at once
+TEMPERATURE = 0.05
+
+
+class _InBatchSoftmax(torch.autograd.Function):
+    """The in-batch softmax loss ``mean_r(lse_r - logits[r, r])`` of
+    ``logits = u @ i.T / TEMPERATURE - logq[None, :]``, as the JAX
+    package's ``softmax_xent`` computes it with labels ``arange(B)`` (the
+    row max held constant, the gold logit the diagonal element itself),
+    taken ``chunk`` rows of logits at a time, so that no [B, B] tensor
+    exists at any moment.  Under ``grads`` the same pass also takes the
+    loss's gradients with respect to the inputs that require them (from
+    ``p = softmax - one-hot`` of each chunk: ``p @ i`` for u, ``p.T @ u``
+    for i, ``-sum_r p`` for logq), and the backward scales those [B, D]
+    and [B] results by its upstream gradient.  The products stay
+    ``torch.matmul``: the JAX package computes them outside any Pallas
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, u, i, logq, chunk, grads):
+        b, dt = u.shape[0], torch.promote_types(u.dtype, torch.float32)
+        need_u, need_i, need_q = (grads and n
+                                  for n in ctx.needs_input_grad[:3])
+        gu = torch.empty_like(u) if need_u else None
+        gi = torch.zeros_like(i) if need_i else None
+        gq = torch.zeros_like(logq) if need_q else None
+        nll = torch.zeros((), dtype=dt, device=u.device)
+        for r0 in range(0, b, chunk):
+            logits = _logits_chunk(u, i, logq, r0, chunk)
+            gold = logits.diagonal(r0).clone()
+            m = logits.amax(dim=-1, keepdim=True)
+            p = logits.sub_(m).exp_()                # in place: one chunk
+            s = p.sum(dim=-1)
+            nll += (torch.log(s) + m[:, 0] - gold).sum()
+            if not (need_u or need_i or need_q):
+                continue
+            p /= s[:, None]
+            p.diagonal(r0).sub_(1.0)                 # softmax - one-hot
+            p /= b
+            if need_q:
+                gq -= p.sum(dim=0).to(gq.dtype)
+            p /= TEMPERATURE
+            p = p.to(u.dtype)
+            if need_u:
+                gu[r0:r0 + chunk] = p @ i
+            if need_i:
+                gi += p.T @ u[r0:r0 + chunk]
+        ctx.save_for_backward(gu, gi, gq)
+        return nll / b
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(None if t is None else t * g.to(t.dtype)
+                     for t in ctx.saved_tensors) + (None, None)
+
+
+def _logits_chunk(u, i, logq, r0: int, chunk: int) -> torch.Tensor:
+    """The logits of rows ``r0:r0 + chunk`` against every item, in fp32 (a
+    float64 ``u`` stays float64)."""
+    dt = torch.promote_types(u.dtype, torch.float32)
+    logits = (u[r0:r0 + chunk] @ i.T).to(dt) / TEMPERATURE
+    if logq is not None:
+        logits = logits - logq.to(dt)[None, :]
+    return logits
+
+
 def _in_batch_softmax(u: torch.Tensor, i: torch.Tensor,
                       logq=None) -> torch.Tensor:
     """In-batch sampled softmax of unit user vectors ``u`` against unit
     item vectors ``i`` at temperature 0.05, less the popularity correction
-    ``logq`` [B] where given (Yi et al., RecSys'19)."""
-    logits = (u @ i.T) / 0.05
-    if logq is not None:
-        logits = logits - logq[None, :]
-    return cm.softmax_xent(logits, torch.arange(u.shape[0],
-                                                device=u.device))
+    ``logq`` [B] where given (Yi et al., RecSys'19): the JAX package's
+    ``softmax_xent`` over ``u @ i.T / 0.05`` with labels ``arange(B)``,
+    ``SOFTMAX_CHUNK`` rows of logits at a time (``_InBatchSoftmax``), its
+    gradients taken in the same pass where grad is enabled."""
+    return _InBatchSoftmax.apply(u, i, logq, SOFTMAX_CHUNK,
+                                 torch.is_grad_enabled())
 
 
 def _two_tower_loss_rows(params, cfg, batch, rows):

@@ -3,14 +3,15 @@ version (kernels/ref.py) on the same inputs: the probe kernels bitwise, the
 FM and bag kernels at the JAX package's kernel-test tolerances; and DeepFM,
 two-tower, DIN and BST serving and retrieval on the card against the same
 models on the CPU; the QueryServer over an engine on the card against the
-engine on the CPU; the FM term's gradient kernel against its plain
-version, DeepFM's and DIN's train steps on the card against the CPU, and
-the realtime loop's smoke on the card.  No JAX here: the parity with the
-JAX package is pinned on the CPU by test_torch_lookup.py,
-test_torch_engine.py, test_torch_fused_fm.py, test_torch_embedding_bag.py,
-test_torch_recsys.py, test_torch_two_tower.py, test_torch_retrieval.py,
-test_torch_seq_recsys.py, test_torch_query_server.py, test_torch_train.py
-and test_torch_streaming.py.  Run on a CUDA machine with
+engine on the CPU; the FM term's and the bag's gradient kernels against
+their plain versions, the train steps of all four archs on the card
+against the CPU, and the realtime loop's smoke on the card.  No JAX
+here: the parity with the JAX package is pinned on the CPU by
+test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
+test_torch_embedding_bag.py, test_torch_recsys.py, test_torch_two_tower.py,
+test_torch_retrieval.py, test_torch_seq_recsys.py,
+test_torch_query_server.py, test_torch_train.py and
+test_torch_streaming.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -1213,15 +1214,160 @@ def test_fm_interaction_under_grad_launches_both_kernels():
     torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
 
 
-def test_embedding_bag_under_grad_on_the_card_raises():
+def test_embedding_bag_weights_requiring_grad_on_the_card_raise():
+    """The bag's gradient kernel differentiates the table alone: weights
+    that require grad raise the narrowed message under grad, and serving
+    (no grad) launches the forward once, as before."""
     table = torch.randn(100, 8, device="cuda", requires_grad=True)
     ids = torch.zeros(4, 5, dtype=torch.int32, device="cuda")
-    before = bag.launches["embedding_bag"]
-    with pytest.raises(NotImplementedError, match="two-tower training"):
-        ops.embedding_bag(table, ids, mode="mean")
+    w = torch.rand(4, 5, device="cuda", requires_grad=True)
+    before = dict(bag.launches)
+    with pytest.raises(NotImplementedError, match="with respect to its "
+                                                  "weights"):
+        ops.embedding_bag(table, ids, w, mode="mean")
+    with pytest.raises(NotImplementedError, match="trains bag weights"):
+        ops.embedding_bag(table.detach(), ids, w, mode="sum")
+    assert bag.launches == before
     with torch.no_grad():                       # serving stays as it was
+        ops.embedding_bag(table, ids, w, mode="mean")
+    with torch.inference_mode():
         ops.embedding_bag(table, ids, mode="mean")
-    assert bag.launches["embedding_bag"] == before + 1
+    assert bag.launches == {"embedding_bag": before["embedding_bag"] + 2,
+                            "embedding_bag_backward":
+                                before["embedding_bag_backward"]}
+
+
+def _bag_grad_check(g, ids, w, mode, n_rows):
+    """The gradient kernel against the plain gradient on the same tensors,
+    element by element: |got - want| <= 2 n 2^-24 S + 1e-30, with n the
+    terms a row adds and S the sum of their magnitudes (both sums add the
+    same n terms, in orders the atomics change from run to run; recursive
+    summation's bound, Higham).  Returns the kernel's gradient."""
+    before = dict(bag.launches)
+    got = bag.embedding_bag_backward(g, ids, w, mode, n_rows)
+    assert bag.launches == {**before, "embedding_bag_backward":
+                            before["embedding_bag_backward"] + int(
+                                g.numel() > 0 and n_rows > 0)}
+    want = ref.embedding_bag_backward(g, ids, w, mode, n_rows)
+    s, n = ref.embedding_bag_backward_terms(g, ids, w, mode, n_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (n_rows, g.shape[1])
+    bound = 2 * n[:, None] * 2.0 ** -24 * s + 1e-30
+    assert bool(((got - want).abs() <= bound).all())
+    return got
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("d", [1, 10, 256, 300])
+def test_embedding_bag_backward_kernel_matches_plain(mode, weighted, d):
+    """Padding, an all-padding bag, ids repeated in a bag and across bags,
+    an id past the table (counted in the mean, adding nothing); D from 1 to
+    past one block's 256 threads."""
+    _, ids, w = _bag_inputs(37, 50, 400, 1, torch.float32, seed=d,
+                            weighted=weighted)
+    ids[0] = -1                                     # a fully padded bag
+    ids[1, :4] = torch.tensor([7, 7, 400, -1], dtype=torch.int32)
+    ids[2:, 0] = 3                                  # a hot row
+    g = torch.randn(37, d, device="cuda")
+    got = _bag_grad_check(g, ids, w, mode, 400)
+    assert bool(got.isfinite().all())
+
+
+@pytest.mark.parametrize("b,n", [(0, 50), (1, 1), (5, 0), (513, 50),
+                                 (3, 1000)])
+def test_embedding_bag_backward_any_batch_and_length(b, n):
+    _, ids, w = _bag_inputs(b, n, 3000, 1, torch.float32, seed=b,
+                            weighted=True)
+    g = torch.randn(b, 256, device="cuda")
+    for mode in ("sum", "mean"):
+        got = _bag_grad_check(g, ids, w, mode, 3000)
+    if b == 0 or n == 0:
+        assert bool((got == 0).all())
+
+
+def test_embedding_bag_backward_zipf_hot_rows_at_two_tower_width():
+    """A two-tower history batch ([4096, 50], zipf over 100,000 items,
+    D = 256): the hottest rows take thousands of adds each."""
+    cfg = two_tower_retrieval.CONFIG
+    b = synthetic.recsys_batch(np.random.default_rng(3), cfg, 4096)
+    ids = torch.from_numpy(b["hist_items"] % 100_000).cuda()
+    ids[torch.from_numpy(b["hist_items"] < 0).cuda()] = -1
+    g = torch.randn(4096, 256, device="cuda") / 4096
+    _bag_grad_check(g, ids, None, "mean", 100_000)
+    assert int(torch.bincount(ids[ids >= 0].long()).max()) > 1000
+
+
+def test_embedding_bag_backward_addresses_rows_past_2_pow_31_elements():
+    """An [8,400,000, 256] fp32 gradient (8.6 GB): rows whose element
+    offset row * D passes 2^31 - 1."""
+    v, d = 8_400_000, 256
+    first_past = (2**31 - 1) // d + 1
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    ids = torch.randint(first_past, v, (64, 50), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    ids[:, 0] = v - 1
+    g = torch.randn(64, d, generator=gen, device="cuda")
+    got = bag.embedding_bag_backward(g, ids, None, "sum", v)
+    want = torch.zeros(v, d, device="cuda")
+    want.index_add_(0, ids.reshape(-1).long(),
+                    g.repeat_interleave(50, dim=0))
+    s, n = ref.embedding_bag_backward_terms(g, ids, None, "sum", v)
+    assert bool(((got - want).abs()
+                 <= 2 * n[:, None] * 2.0 ** -24 * s + 1e-30).all())
+    assert bool((got[:first_past] == 0).all())
+    del got, want, s
+    torch.cuda.empty_cache()
+
+
+def test_embedding_bag_backward_rejects_what_it_does_not_take():
+    _, ids, w = _bag_inputs(8, 6, 100, 1, torch.float32, seed=3,
+                            weighted=True)
+    g = torch.randn(8, 16, device="cuda")
+    before = dict(bag.launches)
+    with pytest.raises(TypeError, match="float32 g"):
+        bag.embedding_bag_backward(g.double(), ids, w, "sum", 100)
+    with pytest.raises(TypeError, match="float32 g"):
+        bag.embedding_bag_backward(g.half(), ids, w, "sum", 100)
+    with pytest.raises(TypeError, match="int32 indices"):
+        bag.embedding_bag_backward(g, ids.long(), w, "sum", 100)
+    with pytest.raises(TypeError, match="float32 weights"):
+        bag.embedding_bag_backward(g, ids, w.double(), "sum", 100)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bag.embedding_bag_backward(g.cpu(), ids.cpu(), None, "sum", 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        bag.embedding_bag_backward(g.t().contiguous().t(), ids, w, "sum",
+                                   100)
+    with pytest.raises(ValueError, match="mode"):
+        bag.embedding_bag_backward(g, ids, w, "max", 100)
+    with pytest.raises(TypeError, match="float32 tables only"):
+        ops.embedding_bag(torch.zeros(100, 16, device="cuda",
+                                      dtype=torch.bfloat16,
+                                      requires_grad=True), ids, mode="sum")
+    assert bag.launches == before
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_under_grad_launches_both_kernels(weighted):
+    """Under grad the bag lookup is ``EmbeddingBag``: one forward and one
+    backward launch, and the table's gradient (which autograd would drop
+    through a bare ctypes call) is the plain backward's within the bound."""
+    table, ids, w = _bag_inputs(512, 50, 10_000, 256, torch.float32,
+                                seed=5, weighted=weighted)
+    table.requires_grad_()
+    before = dict(bag.launches)
+    out = ops.embedding_bag(table, ids, w, mode="mean")
+    assert out.requires_grad
+    g = torch.randn_like(out)
+    (gt,) = torch.autograd.grad(out, [table], g)
+    assert bag.launches == {
+        "embedding_bag": before["embedding_bag"] + 1,
+        "embedding_bag_backward": before["embedding_bag_backward"] + 1}
+    want = ref.embedding_bag_backward(g, ids, w, "mean", 10_000)
+    s, n = ref.embedding_bag_backward_terms(g, ids, w, "mean", 10_000)
+    assert bool(gt.abs().sum() > 0)
+    assert bool(((gt - want).abs()
+                 <= 2 * n[:, None] * 2.0 ** -24 * s + 1e-30).all())
 
 
 @pytest.mark.parametrize("sparse", [False, True])
@@ -1301,6 +1447,54 @@ def test_din_dense_steps_on_card_match_cpu():
         assert bool((err <= bound).all()), (k, float(err.max()))
 
 
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("cfg", [bst.SMOKE, two_tower_retrieval.SMOKE],
+                         ids=["bst", "two-tower"])
+def test_bst_and_two_tower_train_steps_on_card_match_cpu(cfg, sparse):
+    """Two SMOKE steps of BST and two-tower on the card against the same
+    steps on the CPU: loss and grad_norm within 1e-5.  Parameters within
+    1e-5 + 1e-5 |p| plus twice the CPU's own fp32 error against the same
+    steps in float64: where two Adam gradients of a weight nearly cancel in
+    its momentum (two-tower's first user layer has one at SMOKE, whose
+    fp32 step is 2.4e-5 from float64 on the CPU), the update amplifies the
+    sums' rounding, wherever they run.  Two-tower's dense step runs both
+    bag kernels once a step (its sparse step none); BST's none."""
+    ocfg = opt.OptConfig(lr=0.01)
+    make = (lambda: ts.make_sparse_recsys_train_step(cfg, ocfg)) if sparse \
+        else (lambda: ts.make_train_step(ts.recsys_loss_fn(cfg), ocfg))
+    bagged = cfg.arch == "two_tower" and not sparse
+    runs = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32),
+                       ("cpu", torch.float64)):
+        p = convert.params_of(rec.recsys_init(cfg, seed=0, device="cpu"))
+        p = {k: v.to(dev, dtype) for k, v in p.items()}
+        s, step, fn = opt.init_opt_state(p, ocfg), 0, make()
+        before = _launch_counts()
+        losses = []
+        for i in range(2):
+            b = synthetic.recsys_batch(np.random.default_rng(i), cfg, 512)
+            if cfg.arch == "two_tower":       # as the launcher drops it
+                b.pop("label", None)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            p, s, step, m = fn(p, s, step, {
+                k: v.to(dtype) if v.is_floating_point() else v
+                for k, v in b.items()})
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        launched = {k: v - before[k] for k, v in _launch_counts().items()
+                    if v != before[k]}
+        assert launched == ({"embedding_bag": 2, "embedding_bag_backward": 2}
+                            if dev == "cuda" and bagged else {})
+        runs[dev, dtype] = (losses, {k: v.cpu() for k, v in p.items()})
+    card, cpu = runs["cuda", torch.float32], runs["cpu", torch.float32]
+    exact = runs["cpu", torch.float64][1]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5, atol=1e-5)
+    for k, v in card[1].items():
+        err = (v - cpu[1][k]).abs()
+        bound = 1e-5 + 1e-5 * cpu[1][k].abs() + 2 * (
+            cpu[1][k].double() - exact[k]).abs().float()
+        assert bool((err <= bound).all()), (k, float(err.max()))
+
+
 def test_realtime_loop_smoke_on_card(capsys):
     """``python -m repro_torch.launch.realtime --smoke`` on the card: DIN's
     step there, exit 0, no kernel launched."""
@@ -1322,4 +1516,17 @@ def test_train_launcher_on_card(capsys):
     assert fm.launches["fused_fm"] == before["fused_fm"] + 3
     assert fm.launches["fused_fm_backward"] == \
         before["fused_fm_backward"] + 3
+    assert capsys.readouterr().out.rstrip().endswith("done")
+
+
+@pytest.mark.parametrize("arch", ["bst", "two-tower-retrieval"])
+def test_bst_and_two_tower_train_launchers_on_card(arch, capsys):
+    before = _launch_counts()
+    out = launch_train.main(["--arch", arch, "--smoke", "--steps", "3"])
+    assert out["device"].startswith("cuda") and out["step"] == 3
+    assert np.isfinite(out["losses"]).all()
+    launched = {k: v - before[k] for k, v in _launch_counts().items()
+                if v != before[k]}
+    assert launched == ({"embedding_bag": 3, "embedding_bag_backward": 3}
+                        if arch == "two-tower-retrieval" else {})
     assert capsys.readouterr().out.rstrip().endswith("done")

@@ -43,6 +43,7 @@ from repro.train import train_step as jts
 from repro_torch.configs import registry
 from repro_torch.core import convert
 from repro_torch.data import synthetic
+from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import fused_fm as fm
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as launch_train
@@ -301,8 +302,10 @@ def test_fm_interaction_on_the_cpu_is_autograd_of_the_plain_version():
 
 
 def test_embedding_bag_on_the_cpu_stays_differentiable():
-    """The bag's plain version carries its gradient on the CPU (the card
-    raises; tests/test_torch_cuda.py)."""
+    """The bag's plain version carries its gradient on the CPU, autograd
+    through it as it stands (the card runs ``EmbeddingBag``, the
+    ``embedding_bag_backward`` kernel its gradient;
+    tests/test_torch_cuda.py)."""
     table = torch.randn(20, 4, requires_grad=True)
     ids = torch.tensor([[1, 2, -1], [3, 3, 3]], dtype=torch.int32)
     ops.embedding_bag(table, ids, mode="mean").sum().backward()
@@ -311,6 +314,215 @@ def test_embedding_bag_on_the_cpu_stays_differentiable():
     want[2] += 0.5
     want[3] += 1.0
     torch.testing.assert_close(table.grad, want)
+
+
+def _bag_case(mode_seed, v=30, b=9, n=6, d=5):
+    """A bag batch with padding, an all-padding bag, an id repeated within
+    a bag and across bags, and an id past the table."""
+    rng = np.random.default_rng(mode_seed)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    ids = rng.integers(-1, v, size=(b, n)).astype(np.int32)
+    ids[0] = -1                                  # all padding
+    ids[1] = [4, 4, 4, -1, 7, -1]                # repeated in a bag
+    ids[2:, 0] = 7                               # and across bags
+    ids[3, 2] = v                                # past the table
+    w = rng.random((b, n)).astype(np.float32)
+    g = rng.normal(size=(b, d)).astype(np.float32)
+    return table, ids, w, g
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_backward_plain_matches_jax_vjp(mode, weighted):
+    """The plain bag gradient against ``jax.vjp`` of the JAX package's
+    oracle, at 1e-6: the same terms, summed in other orders.  The id past
+    the table counts in the mean and adds nothing (its bag's forward is
+    NaN; the gradient is not)."""
+    table, ids, w, g = _bag_case(7 + weighted)
+    ww = w if weighted else None
+    _, vjp = jax.vjp(lambda t: jref.embedding_bag(
+        t, jnp.asarray(ids), None if ww is None else jnp.asarray(ww), mode),
+        jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(g))
+    got = ref.embedding_bag_backward(
+        torch.tensor(g), torch.tensor(ids),
+        None if ww is None else torch.tensor(ww), mode, table.shape[0])
+    assert got.shape == table.shape and got.dtype == torch.float32
+    _close(got, want, 1e-6, 1e-6)
+    named = np.zeros(table.shape[0], bool)       # padding adds to no row
+    named[ids[(ids >= 0) & (ids < table.shape[0])]] = True
+    assert not bool(got[torch.tensor(~named)].any())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_backward_terms_bound_the_plain_sum(mode, weighted):
+    """``embedding_bag_backward_terms``: S is the gradient of |g| and |w|
+    (so S >= |grad| and S = |grad| where every term has one sign), n each
+    row's count of in-table ids."""
+    table, ids, w, g = _bag_case(11 + weighted)
+    args = (None if not weighted else torch.tensor(w), mode, table.shape[0])
+    grad = ref.embedding_bag_backward(torch.tensor(g), torch.tensor(ids),
+                                      *args)
+    s, n = ref.embedding_bag_backward_terms(torch.tensor(g),
+                                            torch.tensor(ids), *args)
+    assert bool((s >= grad.abs()).all())
+    pos = ref.embedding_bag_backward(torch.tensor(np.abs(g)),
+                                     torch.tensor(ids), *args)
+    torch.testing.assert_close(s, pos, rtol=0, atol=0)
+    flat = ids[(ids >= 0) & (ids < table.shape[0])]
+    assert n.tolist() == np.bincount(flat, minlength=table.shape[0]).tolist()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_function_gradcheck_on_the_cpu(mode, weighted):
+    """``EmbeddingBag`` on a CPU table (its plain forward and backward)
+    under ``gradcheck`` in float64, padding, repeats and an id past the
+    table included (its bag's NaN forward is left out of the check's
+    output); no kernel launches."""
+    table, ids, w, _ = _bag_case(13 + weighted)
+    ids[3, 2] = -1 if mode == "sum" else ids[3, 2]
+    keep = torch.ones(ids.shape[0], dtype=torch.bool)
+    keep[3] = mode == "sum"                     # the NaN bag
+    x = torch.tensor(table, dtype=torch.float64, requires_grad=True)
+    wt = torch.tensor(w, dtype=torch.float64) if weighted else None
+    before = dict(bag.launches)
+    assert torch.autograd.gradcheck(
+        lambda t: bag.EmbeddingBag.apply(t, torch.tensor(ids), wt,
+                                         mode)[keep], (x,))
+    assert bag.launches == before
+
+
+def _u_i_logq(b, d, seed):
+    rng = np.random.default_rng(seed)
+    u, i = (rng.normal(size=(b, d)).astype(np.float32) for _ in range(2))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    i /= np.linalg.norm(i, axis=1, keepdims=True)
+    return u, i, rng.normal(size=b).astype(np.float32)
+
+
+@pytest.mark.parametrize("with_logq", [False, True])
+@pytest.mark.parametrize("b,chunk", [(12, 5), (12, 12), (12, 64), (33, 8)])
+def test_in_batch_softmax_matches_jax_softmax_xent(b, chunk, with_logq,
+                                                    monkeypatch):
+    """The lean in-batch softmax, ``chunk`` rows of logits at a time,
+    against JAX's ``softmax_xent`` over the whole ``u @ i.T / 0.05 -
+    logq``: the loss and its gradients w.r.t. u, i and logq at 1e-5."""
+    u, i, logq = _u_i_logq(b, 8, b + chunk)
+
+    def jloss(u_, i_, q_):
+        logits = (u_ @ i_.T) / 0.05
+        if with_logq:
+            logits = logits - q_[None, :]
+        return jcm.softmax_xent(logits, jnp.arange(b))
+
+    want, wg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(u), jnp.asarray(i), jnp.asarray(logq))
+    monkeypatch.setattr(rec, "SOFTMAX_CHUNK", chunk)
+    x = [torch.tensor(a, requires_grad=True) for a in (u, i, logq)]
+    got = rec._in_batch_softmax(x[0], x[1], x[2] if with_logq else None)
+    grads = torch.autograd.grad(got, x if with_logq else x[:2])
+    _close(got.detach(), want, TOL, TOL)
+    for gt, wt in zip(grads, wg):
+        _close(gt, wt, TOL, TOL)
+
+
+@pytest.mark.parametrize("with_logq", [False, True])
+def test_two_tower_loss_in_chunks_matches_jax(with_logq, mesh, mi,
+                                              monkeypatch):
+    """JAX's ``two_tower_loss`` and its gradients on every parameter,
+    against the port's with the in-batch softmax taken 5 rows at a time
+    over a batch of 12, with and without the logQ correction, at 1e-5."""
+    jcfg, jparams = _jax_init("two-tower-retrieval")
+    cfg = registry.ARCHS["two-tower-retrieval"].SMOKE
+    b = _batch(cfg, 12, 4)
+    if with_logq:
+        b["logq"] = np.random.default_rng(5).normal(size=12).astype(
+            np.float32)
+    with compat.set_mesh(mesh):
+        jl, jg = jax.value_and_grad(
+            lambda p: jrec.two_tower_loss(p, jcfg, _jb(b), mi))(
+                jax.tree.map(jnp.asarray, jparams))
+    monkeypatch.setattr(rec, "SOFTMAX_CHUNK", 5)
+    loss, g = _grads(lambda p: rec.recsys_loss(p, cfg, _tb(b)),
+                     convert.params_from_reference(jparams, "cpu"))
+    _close(loss.detach(), jl, TOL, TOL)
+    want = _flat(jg)
+    for k in want:
+        _close(g[k], want[k], TOL, TOL, k)
+
+
+def test_in_batch_softmax_allocates_no_b_by_b_tensor(monkeypatch):
+    """Every tensor the lean softmax's forward and backward make, recorded
+    by a dispatch mode, holds fewer than B^2 elements (B = 12, D = 8,
+    5 rows a chunk); the same mode sees the [B, B] logits of the plain
+    ``softmax_xent`` over ``u @ i.T``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Sizes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.largest = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else [out]):
+                if isinstance(t, torch.Tensor):
+                    self.largest = max(self.largest, t.numel())
+            return out
+
+    b = 12
+    u, i, logq = (torch.tensor(a, requires_grad=True)
+                  for a in _u_i_logq(b, 8, 3))
+    monkeypatch.setattr(rec, "SOFTMAX_CHUNK", 5)
+    with Sizes() as lean:
+        loss = rec._in_batch_softmax(u, i, logq)
+        torch.autograd.grad(loss, [u, i, logq])
+    assert 0 < lean.largest < b * b
+    with Sizes() as plain:
+        loss = cm.softmax_xent((u @ i.T) / 0.05 - logq[None],
+                               torch.arange(b))
+        torch.autograd.grad(loss, [u, i, logq])
+    assert plain.largest >= b * b
+
+
+def test_in_batch_softmax_takes_its_gradients_in_the_forward_pass(
+        monkeypatch):
+    """One pass over the chunks: a product a chunk under ``no_grad``; the
+    logits, ``p @ i`` and ``p.T @ u`` a chunk under grad; none in the
+    backward, which scales the saved gradients (here by 3, against the
+    loss's own gradients times 3)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func.overloadpacket in (torch.ops.aten.mm,
+                                              torch.ops.aten.matmul)
+            return func(*args, **(kwargs or {}))
+
+    b, chunk = 12, 5
+    chunks = -(-b // chunk)
+    u, i, logq = (torch.tensor(a, requires_grad=True)
+                  for a in _u_i_logq(b, 8, 4))
+    monkeypatch.setattr(rec, "SOFTMAX_CHUNK", chunk)
+    with torch.no_grad(), Products() as inference:
+        want = rec._in_batch_softmax(u, i, logq)
+    assert inference.n == chunks
+    with Products() as fwd:
+        loss = rec._in_batch_softmax(u, i, logq)
+    assert fwd.n == 3 * chunks
+    torch.testing.assert_close(loss.detach(), want, rtol=0, atol=0)
+    once = torch.autograd.grad(loss, [u, i, logq], retain_graph=True)
+    with Products() as bwd:
+        thrice = torch.autograd.grad(3 * loss, [u, i, logq])
+    assert bwd.n == 0
+    for g3, g1 in zip(thrice, once):
+        torch.testing.assert_close(g3, 3 * g1)
 
 
 # ---------------------------------------------------------------------------
