@@ -135,22 +135,34 @@ concatenation of the columns and the pageable copy to the card.
   ``EmbeddingBag`` (one ``embedding_bag`` and one
   ``embedding_bag_backward`` launch a step), at 8M users and 4M items,
   both halved until the warm-up's peak memory stays under 72 GB (the cut
-  printed); every backward launch held element by element against the
-  plain gradient on the same tensors within 2 n 2^-24 S + 1e-30 (n the
-  terms a row adds, S their magnitudes' sum), the first step's loss
-  within 1e-5 of the same step's with the plain bag.  **M.2**: the
+  printed); every backward launch held bit for bit against the plain
+  version of its order (``ref.embedding_bag_backward_ordered``) and
+  element by element against the ``index_add_`` gradient on the same
+  tensors within min(2 n 2^-24, 1e-4) S + 1e-30 (n the terms a row adds,
+  S their magnitudes' sum), the first step's loss within 1e-5 of the
+  same step's with the plain bag; after the traced step the first timed
+  step is taken again from its state, restored from a host copy, and
+  every parameter and optimizer leaf is compared with the uninterrupted
+  run's bit for bit (a leaf that differs is printed with the operations
+  that write its gradient; it does not fail the run).  **M.2**: the
   sparse step at the published 20M users and 10M items (30.8 GB), no
   kernel.  Both run L's steps and checks.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
-version, a library call where one computes the same function (the RA
-gather, ``torch.take`` of the home value word, for the probe;
+version, a library call where one computes the same function (for the
+probe the paper's RA yardstick instead, another function: the
+``random_access`` kernel, which hashes each key and reads both value
+words of its home bucket, held bitwise against
+``core/lookup.random_access`` first, with the one-word ``torch.take``
+over keys hashed beforehand, timed as RA before it, beside it;
 ``F.embedding_bag`` for the bag; none for the FM term or its gradient)
 and its bound; ``fused_fm`` also at J's [65536, 39, 10], and
 ``fused_fm_backward`` there; ``embedding_bag_backward`` at M.1's last
-launch, its [V, D] zero-fill timed apart, beside ``torch.autograd.grad``
-of ``F.embedding_bag`` (mean, with a padding row).
+launch, twice on the same inputs (the same bits), its plan and its sort
+timed apart and each of its kernels by profiler, beside both plain
+gradients and ``torch.autograd.grad`` of ``F.embedding_bag`` (mean, with
+a padding row).
 Phase B's last group also goes through ``probe_lines`` for contrast, with
 the ratio of the two kernels' times; the redesigned kernels' constants get a
 line each: ``probe_smem``'s cluster and bytes a block; ``fused_fm``'s tile,
@@ -160,8 +172,9 @@ stages and share of main-path launches on the bulk-copy branch;
 share of phase A's chain steps that stay in the line they left (from the
 host trace); ``embedding_bag``'s stages and share of launches on the staged
 branch.  ``probe_saturation`` lines time ``probe_lines`` (the wrapper's pick
-and each form) against the RA gather at ``SATURATION_BATCHES`` present keys,
-every form's answers held against the host table's items.
+and each form) against the ``random_access`` kernel at
+``SATURATION_BATCHES`` present keys, every form's answers held against the
+host table's items and RA's against ``core/lookup.random_access``.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 repository around it.  The last line of a passing run is
@@ -196,6 +209,7 @@ from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import convert  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import hashcore as hc  # noqa: E402
+from repro_torch.core import lookup as lk  # noqa: E402
 from repro_torch.core import neighborhash as nh  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -276,7 +290,7 @@ L_VOCABS = (100_000_000, 90_000_000, 80_000_000, 70_000_000, 60_000_000,
 M_VOCABS = (8_000_000, 4_000_000)
 M_MIN_ITEMS = 250_000
 M_PEAK_BYTES = 72 * 10**9
-BAG_GRAD_U = 2.0 ** -24        # fp32's unit roundoff: the atomics' bound
+BAG_GRAD_U = 2.0 ** -24        # fp32's unit roundoff: two orders' bound
 BAG_GRAD_REL = 1e-4            # ... at most this share of S (hot rows)
 SOFTMAX_SHAPES = ((8, 32), (4096, 256), (32_768, 256), (65_536, 256))
 #   (B, D) of the in-batch softmax: SMOKE's, one chunk, train_batch's
@@ -613,16 +627,51 @@ def host_tables_of(group, engines):
 
 
 def ra_operands(group, q_hi, q_lo):
-    """The paper's RA yardstick (``core/lookup.random_access``): one random
-    read per key, of its home bucket's value word.  Returns the table as a
-    flat int32 view, each query's word index there (hashed beforehand, out
-    of the timed call) and the number of distinct home lines."""
+    """The one-word gather timed as RA before the hand-written RA kernel:
+    each key's home val_hi word, hashed beforehand, out of the timed call,
+    and read by ``torch.take`` (cheaper than the paper's RA, which hashes
+    and reads both value words).  Returns the table as a flat int32 view,
+    each query's word index there and the number of distinct home lines."""
     t = group.tables[0]
     home = hc.bucket_of_torch(ref.u32(q_hi), ref.u32(q_lo), t.home_capacity)
     bpl = nl.BUCKETS_PER_LINE
     word = (home // bpl) * (4 * bpl) + 2 * bpl + home % bpl    # val_hi
     return t.lines.view(torch.int32).reshape(-1), word, \
         int(torch.unique(home // bpl).numel())
+
+
+def ra_timing(group, q_hi, q_lo, flush, iters):
+    """The paper's RA yardstick (``core/lookup.random_access``) on the
+    group's first table with these keys: the ``random_access`` kernel, which
+    hashes each key and reads both value words of its home bucket in the
+    timed call, its answer first held bitwise against
+    ``core/lookup.random_access`` on the same table's value words; its
+    bound (each key's 8 B read and 8 B written, and the two 32 B sectors of
+    each distinct home line); beside it the one-word ``torch.take`` over
+    keys hashed beforehand that was timed as RA before."""
+    t = group.tables[0]
+    want = lk.random_access(*nl.value_words(t), q_hi, q_lo,
+                            capacity=t.capacity)
+    got = nl.random_access(t, q_hi, q_lo)
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want)):
+        fail(f"random_access differs from core/lookup.random_access at "
+             f"{q_hi.shape[0]} keys")
+    home = hc.bucket_of_torch(ref.u32(q_hi), ref.u32(q_lo), t.capacity)
+    lines = int(torch.unique(home // nl.BUCKETS_PER_LINE).numel())
+    n = q_hi.shape[0]
+    flat, word, _ = ra_operands(group, q_hi, q_lo)
+
+    def ra():
+        return nl.random_access(t, q_hi, q_lo)
+    return {"ra_ms": time_ms(ra, iters, flush),
+            "ra_kernel_ms": kernel_ms(ra, "random_access_kernel", iters,
+                                      flush),
+            "ra_checked_bitwise": True,
+            "ra_bound_ms": (n * 16 + lines * 64) / HBM_BYTES_PER_S * 1e3,
+            "ra_home_lines": lines,
+            "take_one_prehashed_word_ms": time_ms(
+                lambda: torch.take(flat, word), iters, flush)}
 
 
 def measure(name, launch, engines, log, flush):
@@ -638,8 +687,7 @@ def measure(name, launch, engines, log, flush):
     h_ms = host_ms(lambda: kernel(group, qh, ql, seg), 50)
     plain_ms = time_ms(lambda: ref.probe_group(group, q_hi, q_lo, seg), 5,
                        flush)
-    flat, word, _ = ra_operands(group, q_hi, q_lo)
-    library_ms = time_ms(lambda: torch.take(flat, word), 50, flush)
+    ra = ra_timing(group, q_hi, q_lo, flush, 50)
     lines, reads, steps, in_line = touched(host_tables, q_hi, q_lo, seg)
     # each query read once, each output written once, each line touched
     # read once; hash + compares per bucket read on the integer units
@@ -651,10 +699,13 @@ def measure(name, launch, engines, log, flush):
             "ms": ms, "kernel_ms": k_ms, "host_ms": h_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "library_ms": ra["ra_ms"],
+            "library_note": "the paper's RA yardstick, the random_access "
+                            "kernel: another function (hash and one home "
+                            "bucket's two value words)",
             "queries": n, "lines_touched": lines, "bucket_reads": reads,
-            "chain_steps": steps, "in_line_steps": in_line,
-            "probe_over_ra": library_ms / ms}
+            "chain_steps": steps, "in_line_steps": in_line, "ra": ra,
+            "probe_over_ra": ra["ra_ms"] / ms}
 
 
 def lanes_ms(group, q_hi, q_lo, seg, want, flush, iters):
@@ -709,17 +760,21 @@ def saturation(engine, flush, n, seed=7):
              "table's")
     ms = time_ms(probe, 20, flush)
     k_ms = kernel_ms(probe, "probe_lines_kernel", 20, flush)
-    flat, word, lines = ra_operands(group, q_hi, q_lo)
-    ra_ms = time_ms(lambda: torch.take(flat, word), 20, flush)
+    ra = ra_timing(group, q_hi, q_lo, flush, 20)
+    lines = ra["ra_home_lines"]
     # home lines only: a lower bound on the lines the probes read
     bound_ms = (n * (8 + 12) + lines * 128) / HBM_BYTES_PER_S * 1e3
     return {"queries": n, "checked": True, "lanes": lanes[0],
             "probe_ms": ms, "probe_kernel_ms": k_ms,
             "kernel_ms_by_lanes": lanes_ms(group, q_hi, q_lo, [0, n], want,
                                            flush, 20),
-            "ra_ms": ra_ms,
+            **ra,
             "probe_mkeys_per_s": n / ms / 1e3,
-            "ra_mkeys_per_s": n / ra_ms / 1e3, "probe_over_ra": ra_ms / ms,
+            "ra_mkeys_per_s": n / ra["ra_ms"] / 1e3,
+            "probe_over_ra": ra["ra_ms"] / ms,
+            "probe_over_ra_kernels": (ra["ra_kernel_ms"] / k_ms
+                                      if ra["ra_kernel_ms"] and k_ms
+                                      else None),
             "home_lines": lines, "bound_ms": bound_ms}
 
 
@@ -2585,14 +2640,15 @@ def run_phase_k2(device, cfg=None, n_items=K_ITEMS, n_users=K_USERS,
 # phases L and M: BST and two-tower training on the card
 # ---------------------------------------------------------------------------
 class BagBackwardLog(Recorder):
-    """Every ``embedding_bag.embedding_bag_backward`` launch against the
-    plain gradient on the same tensors, element by element: |kernel -
-    plain| <= min(2 n 2^-24, BAG_GRAD_REL) S + 1e-30, n the terms the row
-    adds and S the sum of their magnitudes (both add the same n terms, the
-    atomics in an order that changes from run to run: recursive
-    summation's bound, Higham; on hot rows, where that bound is loose, a
-    fixed share of S).  Keeps the largest |kernel - plain| / S and the
-    largest n."""
+    """Every ``embedding_bag.embedding_bag_backward`` launch bit for bit
+    against ``ref.embedding_bag_backward_ordered`` (the plain version of
+    the kernel's order) on the same tensors, and against the plain
+    ``index_add_`` gradient element by element: |kernel - plain| <= min(2
+    n 2^-24, BAG_GRAD_REL) S + 1e-30, n the terms the row adds and S the
+    sum of their magnitudes (both add the same n terms in two orders:
+    recursive summation's bound, Higham; on hot rows, where that bound is
+    loose, a fixed share of S).  Keeps the largest |kernel - plain| / S and
+    the largest n."""
 
     def __init__(self):
         super().__init__(bagk, "embedding_bag_backward")
@@ -2600,6 +2656,10 @@ class BagBackwardLog(Recorder):
         self.max_n = 0
 
     def check(self, args, kw, out) -> None:
+        if not torch.equal(ref.embedding_bag_backward_ordered(*args)
+                           .view(torch.int32), out.view(torch.int32)):
+            fail(f"embedding_bag_backward differs from the plain version of "
+                 f"its order on {tuple(args[1].shape)}")
         err = ref.embedding_bag_backward(*args).sub_(out).abs_()
         mag, n = ref.embedding_bag_backward_terms(*args)
         self.max_err = max(self.max_err, float(err.max()))
@@ -2614,15 +2674,29 @@ class BagBackwardLog(Recorder):
                  f"{tuple(args[1].shape)} (max abs err {float(err.max())})")
 
 
+def host_copy(params, state):
+    """A checkpoint of (params, state) held in host memory: every leaf
+    copied to the CPU (the card has no room for a second copy of M.1's
+    tables beside a step)."""
+    return ({k: v.to("cpu") for k, v in params.items()},
+            {k: {n: v.to("cpu") for n, v in st.items()}
+             for k, st in state.items()})
+
+
 def train_cell(tag, cfg, make_step, device, *, rows, steps, seed,
-               first=None, after=None, peak_limit=None):
+               first=None, after=None, peak_limit=None, resume=None):
     """``cfg`` from seed 0 on ``device`` (by default the card), trained on
     ``steps`` + 2 batches of ``rows`` drawn and uploaded first: a warm-up,
     ``steps`` timed steps (events and host clock) and one traced.
     ``first(params, batch)`` runs at the initial parameters before the
     warm-up; ``after(i, params, state, metrics)`` after every step.
-    Returns None, without the timed steps, when the warm-up's peak memory
-    reaches ``peak_limit``; else the cell's metrics."""
+    ``resume(params, state, step, batch, fn, want)``, where given, runs
+    after the traced step with the state the first timed step started
+    from (restored from a host copy into fresh tensors), that step's batch
+    and function, and ``want``, host copies of that step's result; what it
+    returns goes into the step metrics under ``resume``.  Returns None,
+    without the timed steps, when the warm-up's peak memory reaches
+    ``peak_limit``; else the cell's metrics."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -2653,9 +2727,14 @@ def train_cell(tag, cfg, make_step, device, *, rows, steps, seed,
             and first_peak >= peak_limit:
         return None
     ev, host, ms = [], [], []
-    for b in batches[1:steps + 1]:    # one call a step: no step's inputs
+    saved = {}
+    for i, b in enumerate(batches[1:steps + 1]):  # one call a step: no
+        if resume is not None and i == 0:         # step's inputs outlive
+            saved["at"] = host_copy(p, s) + (st,)  # it here
         p, s, st, e, h, m = timed_steps(fn, p, s, st, [b], after)
-        ev, host, ms = ev + e, host + h, ms + m       # outlive it here
+        ev, host, ms = ev + e, host + h, ms + m
+        if resume is not None and i == 0:
+            saved["want"] = host_copy(p, s)
     summary = step_summary(rows, ev, host, ms)
     summary["warmup_host_ms"] = host0[0]
     prof = request_profiler(device)
@@ -2668,6 +2747,14 @@ def train_cell(tag, cfg, make_step, device, *, rows, steps, seed,
     if after is not None:
         after(steps + 1, p, s, mt)
     del p, s
+    if resume is not None:
+        (hp, hs, st0), want = saved.pop("at"), saved.pop("want")
+        params = {k: v.to(device) for k, v in hp.items()}
+        state = {k: {n: v.to(device) for n, v in x.items()}
+                 for k, x in hs.items()}
+        del hp, hs
+        summary["resume"] = resume(params, state, st0, batches[1], fn, want)
+        del params, state, want
     losses = [float(m["loss"]) for m in m0 + ms + [mt]]
     norms = [float(m["grad_norm"]) for m in m0 + ms + [mt]]
     if not np.isfinite(losses + norms).all():
@@ -2823,6 +2910,22 @@ def run_phase_m(device, cfg=two_tower_retrieval.CONFIG, rows=J_ROWS,
         last_bag["shape"] = table.shape
         bag_log.last = None           # the step's table goes with its step
 
+    def resume(params, state, step, batch, fn, want):
+        """The first timed step again from its state restored, against the
+        uninterrupted run's result, leaf by leaf, bit for bit; each leaf
+        that differs named with the operations that write its gradient."""
+        p, s, _, m = fn(params, state, step, batch)
+        after(None, p, s, m)          # the logs hold this step's launches
+        del params, state
+        wp, ws = want
+        leaves = [(k, p[k], wp[k]) for k in p] + [
+            (f"{k}/{n}", s[k][n], ws[k][n]) for k in s for n in s[k]]
+        differs = {k: writers(k.split("/")[0]) for k, a, b in leaves
+                   if not same_bits(a, b.to(a.device))}
+        return {"steps": 1, "loss": float(m["loss"]),
+                "leaves": len(leaves), "bitwise": not differs,
+                "differs": differs}
+
     while True:                       # each attempt counts from zero
         cut = dataclasses.replace(cfg, user_vocab=users, item_vocab=items)
         zero(nl.launches, fm.launches, bagk.launches, bagk.paths)
@@ -2831,7 +2934,7 @@ def run_phase_m(device, cfg=two_tower_retrieval.CONFIG, rows=J_ROWS,
                 dense = train_cell(
                     "M.1", cut, dense_step, device, rows=rows, steps=steps,
                     seed=61, first=first, peak_limit=peak_limit,
-                    after=after)
+                    after=after, resume=resume)
             except torch.OutOfMemoryError as e:
                 print(f"[M.1] the dense step at {users} users, {items} "
                       f"items does not fit: {str(e).splitlines()[0]}",
@@ -2857,6 +2960,15 @@ def run_phase_m(device, cfg=two_tower_retrieval.CONFIG, rows=J_ROWS,
     if loss_err > J_TOL:
         fail(f"[M.1] the first step's loss with the bag kernels differs "
              f"from the plain bag's by {loss_err}")
+    again = dense["steps"]["resume"]
+    again["loss_bitwise"] = again["loss"] == dense["steps"]["loss"][0]
+    print(f"[M.1] the first timed step again from its state restored: "
+          + ("bitwise the uninterrupted run's in all "
+             f"{again['leaves']} parameter and optimizer leaves"
+             if again["bitwise"] and again["loss_bitwise"] else
+             f"differs from the uninterrupted run (loss bitwise: "
+             f"{again['loss_bitwise']}) in {json.dumps(again['differs'])}"),
+          flush=True)
     dense.update(first_step_loss_plain_bag=plain["loss"],
                  first_step_loss_err_vs_plain_bag=loss_err,
                  forward_launches_checked=bag_log.checked,
@@ -2881,14 +2993,31 @@ def run_phase_m(device, cfg=two_tower_retrieval.CONFIG, rows=J_ROWS,
         m1_counts, kernel_counts(), bag_log, bwd_log
 
 
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def writers(key: str) -> str:
+    """The operations of two-tower's dense step that write the gradient of
+    parameter ``key`` (its optimizer state follows it)."""
+    if key == "item_table":
+        return ("embedding_bag_backward (the history bag; each launch is "
+                "held bitwise to its ordered plain version) and index_put_ "
+                "(the item gather's backward)")
+    if key.endswith("_table"):
+        return f"index_put_ (the {key[:-6]} gather's backward)"
+    return "the towers' backward (fp32 GEMMs, reductions) and the optimizer"
+
+
 def bag_backward_bound(ids, weights, n_rows, dim):
     """The least time of the bag's gradient at ``ids`` [B, L] (and
     ``weights``) and fp32 g [B, dim] into [n_rows, dim] on this card: g,
     the ids and the weights read once, the dense gradient written once
     (its adds, one a valid entry and column, are far below the bytes).
-    Beside it the kernel's own share, which adds into a zero-filled
-    gradient: the same reads and each distinct touched row read and
-    written once; and the zero-fill's, [n_rows, dim] written once."""
+    Beside it the shares of its two parts: the levels' (the same reads and
+    each distinct touched row written once) and the zero fill's (every row
+    written once), which run one after the other."""
     valid = ids[(ids >= 0) & (ids < n_rows)]
     rows = int(torch.unique(valid).numel())
     io = ids.numel() * 4 * (1 if weights is None else 2) \
@@ -2897,20 +3026,45 @@ def bag_backward_bound(ids, weights, n_rows, dim):
     t_ops = valid.numel() * dim / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "kernel_bound_ms": (io + 2 * rows * dim * 4)
-            / HBM_BYTES_PER_S * 1e3,
-            "zero_fill_bound_ms": n_rows * dim * 4 / HBM_BYTES_PER_S * 1e3,
+            "levels_bound_ms": (io + rows * dim * 4) / HBM_BYTES_PER_S * 1e3,
+            "fill_bound_ms": n_rows * dim * 4 / HBM_BYTES_PER_S * 1e3,
             "distinct_rows": rows}
+
+
+def kernels_per_call_ms(fn, kernels, iters, flush):
+    """Device ms a call of ``fn`` spends in the CUDA kernels whose names
+    hold each of ``kernels``, from one torch.profiler trace of ``iters``
+    calls (cold L2), and their sum under ``"all"``; None (not measured)
+    where the profiler records no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:             # CUPTI unavailable
+        print(f"kernels_per_call_ms: not measured ({e})", file=sys.stderr)
+        return dict.fromkeys([*kernels, "all"])
+    out = {k: sum(e.self_device_time_total for e in prof.key_averages()
+                  if k in e.key) / iters / 1e3 for k in kernels}
+    out["all"] = sum(out.values())
+    return out if out["all"] > 0 else dict.fromkeys(out)
 
 
 def measure_bag_backward(bwd_log, flush):
     """embedding_bag_backward at M.1's shape (its last launch's inputs), by
-    events (the wrapper: zero-fill and kernel) and by profiler (the kernel
-    alone), cold L2, the zero-fill timed apart, beside the plain gradient,
-    the bound and ``torch.autograd.grad`` of ``F.embedding_bag`` (mean,
-    ``padding_idx`` a row appended to the table) on the same bags.  Also
-    holds the kernel's scatter exactly: on g of ones in ``sum`` mode each
-    row's gradient is the count of entries it takes, an integer fp32 adds
+    events (the wrapper: the zero fill, the sort, the plan and the
+    kernels) and by profiler (each kernel alone, a call's sum), cold L2,
+    the zero fill, the sort and the plan (with its sort; and its host time)
+    timed apart, beside both plain gradients, the bound and ``torch.autograd.grad`` of
+    ``F.embedding_bag`` (mean, ``padding_idx`` a row appended to the table)
+    on the same bags.  Holds two launches on the same inputs to the same
+    bits, and the scatter exactly: on g of ones in ``sum`` mode each row's
+    gradient is the count of entries it takes, an integer fp32 adds
     exactly (below 2^24), so a dropped or repeated term shows even on the
     hottest row."""
     g, ids, w, mode, n_rows = bwd_log.last
@@ -2918,7 +3072,11 @@ def measure_bag_backward(bwd_log, flush):
                                n_rows)
     plain = functools.partial(ref.embedding_bag_backward, g, ids, w, mode,
                               n_rows)
+    ordered = functools.partial(ref.embedding_bag_backward_ordered, g, ids,
+                                w, mode, n_rows)
     got = kernel()
+    if not torch.equal(kernel().view(torch.int32), got.view(torch.int32)):
+        fail("two embedding_bag_backward launches on the same inputs differ")
     err = ref.embedding_bag_backward(g, ids, w, mode, n_rows).sub_(got)
     err = float(err.abs_().max())
     table = torch.zeros(n_rows + 1, g.shape[1], device=g.device,
@@ -2938,10 +3096,18 @@ def measure_bag_backward(bwd_log, flush):
         fail("embedding_bag_backward on g of ones (sum) is not each row's "
              "count of entries")
     del counts, n
+    def sort():
+        return bagk.embedding_bag_backward_sort(ids, n_rows)
+
+    def plan():
+        return bagk.embedding_bag_backward_plan(*sort(), n_rows)
+    levels = plan().levels
     grad = torch.empty(n_rows, g.shape[1], device=g.device)
     fill_ms = time_ms(grad.zero_, 20, flush)
     del grad
-    ms = time_ms(kernel, 20, flush)
+    parts = kernels_per_call_ms(
+        kernel, ("bag_backward_scale_kernel", "bag_backward_level_kernel"),
+        20, flush)
     return {"name": "embedding_bag_backward", "route": "cuda",
             "source": SOURCE["embedding_bag_backward"],
             "replaces": REPLACES["embedding_bag_backward"],
@@ -2952,13 +3118,23 @@ def measure_bag_backward(bwd_log, flush):
             "launches": None, "max_abs_err": bwd_log.max_err,
             "max_err_over_S": bwd_log.max_rel,
             "max_terms_a_row": bwd_log.max_n,
+            "launches_bitwise_ordered": bwd_log.checked,
             "shape": {"g": list(g.shape), "ids": list(ids.shape),
                       "rows": n_rows, "mode": mode},
+            "plan": {"chunk": bagk.BAG_CHUNK, "levels": len(levels),
+                     "chunks": [lv.n_chunks for lv in levels]},
             "check_max_abs_err": err, "counts_exact": True,
-            "ms": ms, "kernel_ms": kernel_ms(
-                kernel, "embedding_bag_backward_kernel", 20, flush),
+            "repeat_bitwise": True,
+            "ms": time_ms(kernel, 20, flush),
+            "sort_ms": time_ms(sort, 20, flush),
+            "plan_ms": time_ms(plan, 20, flush),
+            "plan_host_ms": host_ms(plan, 20),
+            "kernel_ms": parts["all"],
+            "scale_kernel_ms": parts["bag_backward_scale_kernel"],
+            "levels_kernel_ms": parts["bag_backward_level_kernel"],
             "zero_fill_ms": fill_ms, "host_ms": host_ms(kernel, 20),
             "plain_ms": time_ms(plain, 5, flush),
+            "ordered_plain_ms": time_ms(ordered, 3, flush),
             **bag_backward_bound(ids, w, n_rows, g.shape[1]),
             "library_ms": time_ms(library, 20, flush),
             "library_max_abs_diff": lib_diff,
@@ -3103,8 +3279,8 @@ def main() -> int:
             seed=2, device=device, log=log)
     counts, lanes_counts = dict(nl.launches), dict(nl.lanes_launches)
     print("launches on the main path: " + json.dumps(counts), flush=True)
-    for k, c in counts.items():
-        if c == 0:
+    for k in ("probe_lines", "probe_smem"):
+        if counts[k] == 0:
             fail(f"{k} was not launched on the main path")
     if counts["probe_lines"] != m_a["launches"] \
             or counts["probe_smem"] != m_b["launches"]:
@@ -3323,7 +3499,8 @@ def main() -> int:
         device, flush=flush)
     m_m["launches"] = {"M.1": m1_counts, "M.2": m2_counts}
     print("[M] " + json.dumps(m_m), flush=True)
-    steps_m = len(m_m["dense"]["loss_all_steps"])
+    steps_m = len(m_m["dense"]["loss_all_steps"]) \
+        + m_m["dense"]["steps"]["resume"]["steps"]
     if not (m1_counts["embedding_bag"] == m1_counts["embedding_bag_backward"]
             == bag_log_m.checked == bwd_log_m.checked == steps_m):
         fail(f"phase M.1 took {steps_m} steps and checked "

@@ -67,32 +67,64 @@
 //   them, else one element a thread, and walk the bag's ids kUnroll at a
 //   time, issuing those rows' loads before adding any of them.
 //
-// repro_embedding_bag_backward: the gradient of that function with
-// respect to the table, for constant weights (or none).  The JAX package
-// has no gradient kernel: it differentiates its oracle,
-// src/repro/kernels/ref.py::embedding_bag, whose transpose of jnp.take
-// scatter-adds into a dense [V, D] gradient.  Into grad [V, D] (fp32,
-// zeroed by the caller) it adds, for every entry (b, j) with 0 <= id < V,
+// The gradient of that function with respect to the table, for constant
+// weights (or none), is two entry points that
+// kernels/embedding_bag.embedding_bag_backward calls:
+// repro_embedding_bag_backward_scale (mean only) and _level (once a
+// level).  The JAX package has no gradient kernel: it differentiates its
+// oracle, src/repro/kernels/ref.py::embedding_bag, whose transpose of
+// jnp.take scatter-adds into a dense [V, D] gradient.  The fp32 [V, D]
+// result holds in row v the sum, over the entries (b, j) whose id is v, of
 //
-//   grad[id, :] += (g[b, :] / denom[b]) * w[b, j]
+//   (g[b, :] / denom[b]) * w[b, j]
 //
-// with denom = max(count of entries with id >= 0, 1) for mean and 1 for
-// sum: an id >= V counts in the mean's denominator but adds nothing
-// (jnp.take's fill reads it as NaN, and its transpose drops it).  The
-// terms are rounded as that transpose rounds them: g / denom first, then
-// times w.
+// with denom = max(count of entries with id >= 0, 1) for mean and no
+// division for sum: an id >= V counts in the mean's denominator but adds
+// nothing (jnp.take's fill reads it as NaN, and its transpose drops it),
+// padding adds nothing, and a row no entry names is 0.  Each term is
+// rounded as that transpose rounds it: g / denom first (once a bag and
+// column, by _scale), then times w.
 //
-// Bound: bytes.  It reads g, the ids and the weights once and
-// reads-modifies-writes each distinct row the batch touches; the memset
-// of the [V, D] gradient is the caller's and is counted apart.  One block
-// per bag and one thread per column (strided past kMaxThreads columns):
-// consecutive threads add into consecutive words of one row, so a warp's
-// adds go to L2 as one coalesced reduction.  The adds are fp32 atomics
-// (red.global.add.f32): a row that many bags touch (a zipf-hot item)
-// takes its adds one after another at L2, and their order changes from
-// run to run, so the result's last bits do too (a sorted, segmented
-// backward would fix both; ROADMAP queue 2).  Row offsets are 64-bit:
-// the published item table has 2.56e9 elements.
+// The sum is taken in one fixed order, so every run gives the same bits;
+// kernels/ref.embedding_bag_backward_ordered is the plain version of
+// exactly this order:
+//
+//   1. The wrapper's plan (embedding_bag_backward_sort and _plan, plain
+//      torch) sorts the flat entries b * L + j stably by id, so each
+//      row's terms run in ascending (b, j) order, and cuts each row's run
+//      into chunks of kChunk consecutive terms.
+//   2. Level 0: a group of kLevelLanes lanes a chunk sums its terms left to
+//      right from +0.0f.
+//   3. A row left with more than one partial has them summed again in
+//      chunks of kChunk, in order, one level after another, until one
+//      value is left: the hottest row of two-tower's train_batch (159,096
+//      terms) takes 4 levels, where one warp adding its 4,972 partials in
+//      a row would take milliseconds.
+//   4. The chunk that leaves a row one value writes it into grad, once.
+//      After the sort, the wrapper zeroes grad on the caller's stream
+//      while the plan is made on another, and the levels follow the zeros
+//      there, so a touched row is written twice (0, then its sum) and
+//      every other row once.
+//
+// Every product and sum is __fmul_rn or __fadd_rn and the quotient
+// __fdiv_rn, so no FMA contraction changes the order's rounding whatever
+// the flags.
+//
+// Bound: bytes.  g, the ids and the weights read once and [V, D] written
+// once (the zero fill writes the touched rows once more); the adds, one a
+// valid entry and column, are far below the bytes.
+// No atomics: a hot row costs a few levels of chunks, not a queue of adds
+// at L2, and its adds no longer come in an order that changes each run.
+// Most chunks are short (two-tower's zipf ids give ~3 terms a chunk), so a
+// group's time is its chain of dependent loads: its chunk's place in the
+// plan, then its terms' entries, then the rows of g they name (with their
+// weights), kUnroll rows at once, each lane holding 16 bytes of every 32
+// columns where D % 4 == 0 (D = 256 in one pass: eight 16-byte loads a
+// lane a row).  Eight lanes a chunk put four chunks in a warp, so four
+// such chains overlap where one chunk a warp left the card waiting;
+// g's rows are read again for each entry that names them (mostly from
+// L2).  Row offsets are 64-bit: the published item table has 2.56e9
+// elements.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -109,6 +141,10 @@ constexpr int kStageRows = 32;      // staged: entries a stage
 constexpr int kStages = 2;          // staged: the ring
 constexpr int kMaxStagedRowBytes = 3072;  // 2 x 32 rows of it: 192 KB
 constexpr int kSumUnroll = 8;       // staged: rows copied or summed at once
+constexpr int kChunk = 32;          // backward: terms a chunk: BAG_CHUNK
+constexpr int kLevelThreads = 256;  // backward: 32 chunks a block
+constexpr int kLevelLanes = 8;      // backward: lanes a chunk
+constexpr int kScaleThreads = 256;  // backward: 8 bags a block
 
 template <typename T, int VEC>
 struct Row;                         // VEC consecutive elements -> fp32
@@ -439,32 +475,200 @@ int dispatch(const void* table, long long vocab, int dim, const void* indices,
   return 0;
 }
 
-// One block per bag: g [B, D], indices [B, L], weights [B, L] or null ->
-// adds into grad [V, D].
-__global__ void __launch_bounds__(kMaxThreads)
-embedding_bag_backward_kernel(const float* __restrict__ g,
-                              const int32_t* __restrict__ indices,
-                              const float* __restrict__ weights,
-                              int64_t vocab, int dim, int bag_len, int mean,
-                              float* __restrict__ grad) {
-  const int64_t bag = blockIdx.x;
-  const int32_t* idx = indices + bag * bag_len;
-  const float* wgt = weights == nullptr ? nullptr : weights + bag * bag_len;
-  int count = 0;                    // the same in every thread of the bag
-  if (mean) {
-    for (int j = 0; j < bag_len; ++j) count += __ldg(idx + j) >= 0;
+// VEC consecutive fp32 of the gradient's arrays
+template <int VEC>
+struct F32;
+
+template <>
+struct F32<1> {
+  __device__ static void load(const float* p, float (&v)[1]) {
+    v[0] = __ldg(p);
   }
-  const float denom = mean ? static_cast<float>(count > 1 ? count : 1) : 1.f;
-  for (int d = threadIdx.x; d < dim; d += blockDim.x) {
-    const float gd = __ldg(g + bag * dim + d) / denom;
-    for (int j = 0; j < bag_len; ++j) {
-      const int32_t id = __ldg(idx + j);
-      if (id >= 0 && id < vocab) {
-        const float w = wgt != nullptr ? __ldg(wgt + j) : 1.f;
-        atomicAdd(grad + static_cast<int64_t>(id) * dim + d, gd * w);
-      }
+  __device__ static void store(float* p, const float (&v)[1]) { p[0] = v[0]; }
+  // marked evict-first in L2: nothing here reads it again
+  __device__ static void stream(float* p, const float (&v)[1]) {
+    __stcs(p, v[0]);
+  }
+};
+template <>
+struct F32<4> {
+  __device__ static void load(const float* p, float (&v)[4]) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+  __device__ static void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ static void stream(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+// The mean's terms' first rounding, once a bag: scaled[b, :] = g[b, :] /
+// max(count of ids >= 0 in bag b, 1), one warp a bag.  Every term of bag b
+// starts from this row, so the level pass divides nothing.
+__global__ void __launch_bounds__(kScaleThreads)
+bag_backward_scale_kernel(const float* __restrict__ g,
+                          const int32_t* __restrict__ indices, int64_t batch,
+                          int bag_len, int dim, float* __restrict__ scaled) {
+  const int lane = threadIdx.x % 32;
+  const int64_t b = (static_cast<int64_t>(blockIdx.x) * kScaleThreads +
+                     threadIdx.x) / 32;
+  if (b >= batch) return;                       // the whole warp leaves
+  int count = 0;
+  for (int j0 = 0; j0 < bag_len; j0 += 32) {
+    const bool valid = j0 + lane < bag_len &&
+                       __ldg(indices + b * bag_len + j0 + lane) >= 0;
+    count += __popc(__ballot_sync(0xffffffffu, valid));
+  }
+  const float denom = static_cast<float>(count > 1 ? count : 1);
+  for (int d = lane; d < dim; d += 32)
+    scaled[b * dim + d] = __fdiv_rn(__ldg(g + b * dim + d), denom);
+}
+
+// The plan's per-row arrays (kernels/embedding_bag.BagPlan), [depth, R]
+// flattened.
+struct Plan {
+  const int64_t* rows;         // [R]
+  const int64_t* items;
+  const int64_t* item_start;
+  const int64_t* chunks;
+  const int64_t* upto;
+  int64_t n_rows;              // R
+  int64_t size;                // depth * R
+};
+
+// One level of the plan, kLevelLanes lanes (G) a chunk, worked out as
+// kernels/embedding_bag.level_chunks does: chunk k = k_begin + j is the i-th chunk
+// of its row r at level l, a = at[j] = l * R + r; it sums that level's
+// items item_start[a] + i * kChunk on, min(kChunk, items[a] - i * kChunk)
+// of them, in order from +0.0f.  At level 0 (kTerms) item p is the term
+// of flat entry perm[p] = b * bag_len + j': src's row b (g, or the mean's
+// scaled g) times weights[perm[p]] where there are weights; later, row p
+// of src (the partials of the level before).  Where r has one chunk at
+// this level the sum is grad's row rows[r]; else row item_start[a + R] +
+// i of partial_out.  A lane holds kPasses x VEC columns of every row, so
+// each of a chunk's rows is read by kPasses loads a lane, kUnroll rows at
+// once.
+template <int VEC, bool kTerms>
+__global__ void __launch_bounds__(kLevelThreads)
+bag_backward_level_kernel(const float* __restrict__ src, int dim,
+                          const int64_t* __restrict__ perm, int64_t bag_len,
+                          const float* __restrict__ weights, const Plan plan,
+                          const int64_t* __restrict__ at, int64_t k_begin,
+                          int64_t n_chunks, float* __restrict__ grad,
+                          float* __restrict__ partial_out) {
+  constexpr int G = kLevelLanes;
+  constexpr int kGroups = kLevelThreads / G;    // chunks a block
+  constexpr int kSpan = G * VEC;                // columns a pass of a group
+  constexpr int kPasses = VEC == 4 ? 256 / kSpan : 2;
+  constexpr int kUnroll = kPasses * VEC >= 16 ? 2 : 4;
+  // a group's items: the row of src each reads, and (level 0) its entry
+  __shared__ int64_t item_row[kGroups][kChunk];
+  __shared__ int64_t item_entry[kGroups][kChunk];
+  const int gl = threadIdx.x % G;
+  const int grp = threadIdx.x / G;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kGroups + grp;
+  int64_t first = 0, to = 0;
+  int n = 0;                                    // 0: past the last chunk
+  if (j < n_chunks) {
+    const int64_t a = at[j];
+    const int64_t c = plan.chunks[a];
+    const int64_t i = k_begin + j - (plan.upto[a] - c);
+    const int64_t left = plan.items[a] - i * kChunk;
+    first = plan.item_start[a] + i * kChunk;
+    n = left < kChunk ? static_cast<int>(left) : kChunk;
+    to = c == 1 ? plan.rows[a % plan.n_rows]
+                : -1 - (plan.item_start[a + plan.n_rows < plan.size
+                                            ? a + plan.n_rows
+                                            : plan.size - 1] + i);
+  }
+  for (int t = gl; t < n; t += G) {
+    if constexpr (kTerms) {
+      const int64_t e = perm[first + t];
+      item_entry[grp][t] = e;
+      item_row[grp][t] = e / bag_len;
+    } else {
+      item_row[grp][t] = first + t;
     }
   }
+  __syncwarp();                                 // every lane reaches it
+  if (n == 0) return;
+  float* dst = to >= 0 ? grad + to * dim : partial_out + (-1 - to) * dim;
+  for (int d0 = gl * VEC; d0 < dim; d0 += kPasses * kSpan) {
+    float acc[kPasses][VEC];
+#pragma unroll
+    for (int c = 0; c < kPasses; ++c)
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) acc[c][x] = 0.f;
+    for (int t0 = 0; t0 < n; t0 += kUnroll) {
+      float v[kUnroll][kPasses][VEC];
+      float w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (t0 + u >= n) continue;
+        const int64_t row = item_row[grp][t0 + u];
+#pragma unroll
+        for (int c = 0; c < kPasses; ++c)
+          if (d0 + c * kSpan < dim)
+            F32<VEC>::load(src + row * dim + d0 + c * kSpan, v[u][c]);
+        if constexpr (kTerms)
+          w[u] = weights != nullptr
+                     ? __ldg(weights + item_entry[grp][t0 + u]) : 1.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (t0 + u >= n) continue;
+#pragma unroll
+        for (int c = 0; c < kPasses; ++c)
+#pragma unroll
+          for (int x = 0; x < VEC; ++x) {
+            float y = v[u][c][x];
+            if constexpr (kTerms) {
+              if (weights != nullptr) y = __fmul_rn(y, w[u]);
+            }
+            acc[c][x] = __fadd_rn(acc[c][x], y);
+          }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kPasses; ++c)
+      if (d0 + c * kSpan < dim) {
+        if (to >= 0) F32<VEC>::stream(dst + d0 + c * kSpan, acc[c]);
+        else F32<VEC>::store(dst + d0 + c * kSpan, acc[c]);  // read next
+      }
+  }
+}
+
+// A level's arguments, as repro_embedding_bag_backward_level takes them.
+struct LevelArgs {
+  const float* src;
+  int dim;
+  const int64_t* perm;
+  int64_t bag_len;
+  const float* weights;
+  Plan plan;
+  const int64_t* at;
+  int64_t k_begin;
+  int64_t n_chunks;
+  float* grad;
+  float* partial_out;
+};
+
+template <int VEC, bool kTerms>
+cudaError_t launch_level(const LevelArgs& a, cudaStream_t stream) {
+  constexpr int kGroups = kLevelThreads / kLevelLanes;
+  const long long blocks = (a.n_chunks + kGroups - 1) / kGroups;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  bag_backward_level_kernel<VEC, kTerms>
+      <<<static_cast<unsigned>(blocks), kLevelThreads, 0, stream>>>(
+          a.src, a.dim, a.perm, a.bag_len, a.weights, a.plan, a.at,
+          a.k_begin, a.n_chunks, a.grad, a.partial_out);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -510,26 +714,63 @@ extern "C" int repro_embedding_bag(const void* table, int dtype,
 }
 
 // The gradient of repro_embedding_bag's fp32 output with respect to its
-// table, for constant weights: adds into grad [vocab, dim] (fp32, zeroed
-// by the caller) from g [batch, dim] (fp32), indices [batch, bag_len]
-// (int32, negative = padding) and weights [batch, bag_len] (fp32) or null.
-// mode: 0 = sum, 1 = mean.  batch in [1, 2^31 - 1], dim >= 1, bag_len >= 0.
-extern "C" int repro_embedding_bag_backward(const void* g,
-                                            const void* indices,
-                                            const void* weights,
-                                            long long vocab, int dim,
-                                            long long batch, int bag_len,
-                                            int mode, void* grad,
-                                            void* stream) {
-  if (batch < 1 || batch > 0x7fffffffll || dim < 1 || bag_len < 0 ||
-      vocab < 0 || (mode != 0 && mode != 1))
+// table, for constant weights (the header says what it computes), on
+// `stream`.  scale (mean only): scaled [batch, dim] = g [batch, dim] (fp32)
+// over each bag's count of ids >= 0 in indices [batch, bag_len] (int32,
+// negative = padding), at least 1; batch >= 1, bag_len >= 0, dim >= 1.
+extern "C" int repro_embedding_bag_backward_scale(const void* g,
+                                                  const void* indices,
+                                                  long long batch,
+                                                  int bag_len, int dim,
+                                                  void* scaled,
+                                                  void* stream) {
+  if (batch < 1 || bag_len < 0 || dim < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int threads = (dim + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  embedding_bag_backward_kernel<<<static_cast<unsigned>(batch), threads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  constexpr long long kBags = kScaleThreads / 32;
+  bag_backward_scale_kernel<<<static_cast<unsigned>(
+                                  (batch + kBags - 1) / kBags),
+                              kScaleThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const int32_t*>(indices),
-      static_cast<const float*>(weights), vocab, dim, bag_len, mode,
-      static_cast<float*>(grad));
+      batch, bag_len, dim, static_cast<float*>(scaled));
   return static_cast<int>(cudaGetLastError());
+}
+
+// level: one level of the plan (kernels/embedding_bag.BagPlan's arrays,
+// int64: rows [n_rows], items, item_start, chunks and upto [size]; the
+// level's at int64 [n_chunks] and k_begin; n_chunks >= 1).  Level 0
+// passes perm (int64, the sorted flat entries) with src = g [batch, dim]
+// (fp32; for mean, scale's output) and weights [batch, bag_len] (fp32, or
+// null); a later level passes perm = null and src = the level before's
+// partial_out.  Finished rows go into grad [vocab, dim] (fp32, zeroed),
+// the other chunks' sums into partial_out [.., dim].
+extern "C" int repro_embedding_bag_backward_level(
+    const void* src, int dim, const void* perm, long long bag_len,
+    const void* weights, const void* rows, const void* items,
+    const void* item_start, const void* chunks, const void* upto,
+    long long n_rows, long long size, const void* at, long long k_begin,
+    long long n_chunks, void* grad, void* partial_out, void* stream) {
+  if (dim < 1 || n_chunks < 1 || n_rows < 1 || size < n_rows ||
+      (perm != nullptr && bag_len < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = dim % 4 == 0 && aligned16(src) && aligned16(grad) &&
+                   aligned16(partial_out);
+  const Plan plan{static_cast<const int64_t*>(rows),
+                  static_cast<const int64_t*>(items),
+                  static_cast<const int64_t*>(item_start),
+                  static_cast<const int64_t*>(chunks),
+                  static_cast<const int64_t*>(upto), n_rows, size};
+  const LevelArgs a{static_cast<const float*>(src), dim,
+                    static_cast<const int64_t*>(perm), bag_len,
+                    static_cast<const float*>(weights), plan,
+                    static_cast<const int64_t*>(at), k_begin, n_chunks,
+                    static_cast<float*>(grad),
+                    static_cast<float*>(partial_out)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a.perm != nullptr)
+    err = vec ? launch_level<4, true>(a, s) : launch_level<1, true>(a, s);
+  else
+    err = vec ? launch_level<4, false>(a, s) : launch_level<1, false>(a, s);
+  return static_cast<int>(err);
 }

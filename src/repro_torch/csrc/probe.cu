@@ -1,5 +1,6 @@
 // NeighborHash batch probe on Hopper (sm_90a): the two hand-written kernels
-// behind repro_torch.kernels.neighbor_lookup.  Built with
+// behind repro_torch.kernels.neighbor_lookup, and the RA gather that the
+// paper holds the probe's throughput against.  Built with
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libprobe.so probe.cu
@@ -466,6 +467,37 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// ---------------------------------------------------------------------------
+// random_access — the paper's RA yardstick, not a TPU kernel: the function
+// of src/repro/core/lookup.py::random_access (and of the port's
+// core/lookup.random_access) on the table probe_lines reads.  Each key
+// hashes to its home bucket (hash64 % capacity, as the reference's RA
+// hashes over the table's capacity) and gathers both value words there, in
+// the timed call, so that probe/RA holds the probe against the function
+// the paper names: hash plus one random read.
+//
+// Bound: bytes.  A key reads its 8 B and writes 8 B; its bucket's val_hi
+// and val_lo lie in two 32 B sectors of one 128 B line, so a key whose
+// line is cold moves 64 B from memory.  The hash is a dozen integer
+// operations, far below that.  One thread a key, as many keys in flight as
+// the card holds resident threads: the two loads are independent, so a
+// key waits on one memory latency.
+// ---------------------------------------------------------------------------
+constexpr int kRaThreads = 256;
+
+__global__ void __launch_bounds__(kRaThreads) random_access_kernel(
+    const uint32_t* __restrict__ lines, uint32_t capacity,
+    const uint32_t* __restrict__ q_hi, const uint32_t* __restrict__ q_lo,
+    uint32_t* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const int64_t b = home_of(q_hi[i], q_lo[i], capacity);
+  const uint32_t* w = lines + (b / kBpl) * kLineWords + (b % kBpl);
+  out[i] = __ldg(w + 2 * kBpl);          // val_hi
+  out[n + i] = __ldg(w + 3 * kBpl);      // val_lo
+}
+
 Segments segments(const long long* seg_end, int n_tables) {
   Segments s{};
   for (int t = 0; t < n_tables && t < kMaxTables; ++t) s.end[t] = seg_end[t];
@@ -555,5 +587,23 @@ extern "C" int repro_probe_smem(const void* desc, const long long* desc_rows,
       segments(seg_end, n_tables), image, n_arrays, slice_words,
       static_cast<const uint32_t*>(q_hi), static_cast<const uint32_t*>(q_lo),
       static_cast<uint32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lines: uint32 [n_lines, 4, kBpl] of one table of `capacity` buckets,
+// in [1, 2^32); out: uint32 [2, n] (val_hi, val_lo of each key's home
+// bucket); n >= 1.
+extern "C" int repro_random_access(const void* lines, long long capacity,
+                                   const void* q_hi, const void* q_lo,
+                                   void* out, long long n, void* stream) {
+  if (capacity < 1 || capacity > 0xFFFFFFFFll || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto blocks = static_cast<unsigned>((n + kRaThreads - 1) /
+                                            kRaThreads);
+  random_access_kernel<<<blocks, kRaThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(lines), static_cast<uint32_t>(capacity),
+      static_cast<const uint32_t*>(q_hi),
+      static_cast<const uint32_t*>(q_lo), static_cast<uint32_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

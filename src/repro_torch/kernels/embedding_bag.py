@@ -13,9 +13,18 @@ a stage of ``STAGE_ROWS`` entries at once in a ring of ``STAGES``; else
 they come by loads into registers (the source's note says why).  ``paths``
 counts the launches of each branch.
 
-``embedding_bag_backward`` launches the same library's gradient kernel:
-the table's fp32 [V, D] gradient for constant weights, zero-filled here
-and added into by fp32 atomics, one block a bag.  ``EmbeddingBag`` is the
+``embedding_bag_backward`` launches the same library's gradient kernels:
+the table's fp32 [V, D] gradient for constant weights, summed in one
+fixed order with no atomics, so every run gives the same bits.  Its plan
+(``embedding_bag_backward_sort`` and ``_plan``: a stable sort of the
+entries by id, each id's run cut into chunks of ``BAG_CHUNK`` terms,
+levels of chunks over the partial sums) is plain torch, made on a
+high-priority stream of its own: after the sort, the caller's stream
+zeroes the gradient while the plan is made, and the levels then follow
+the zeros there, a group of lanes a chunk, writing each touched row's
+sum once over its zeros.
+``ref.embedding_bag_backward_ordered`` is the plain version of exactly
+that order.  ``EmbeddingBag`` is the
 autograd ``Function`` that ``kernels/ops.py`` runs on a CUDA table that
 requires grad: its forward launches ``embedding_bag``, its backward
 ``embedding_bag_backward``.
@@ -30,6 +39,7 @@ tensors, and ``EmbeddingBag`` takes them for a CPU table only.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import Optional
 
@@ -42,6 +52,7 @@ launches = {"embedding_bag": 0, "embedding_bag_backward": 0}
 paths = {"staged": 0, "registers": 0}   # which branch each launch took
 STAGE_ROWS = 32                         # kStageRows in embedding_bag.cu
 STAGES = 2                              # kStages
+BAG_CHUNK = 32                          # the gradient's terms a chunk: kChunk
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}     # dtype codes of the .cu
 _MODES = {"sum": 0, "mean": 1}
@@ -50,6 +61,7 @@ _INT_MAX = 2**31 - 1                                 # the grid's x limit too
 _lock = threading.Lock()
 _resident: dict = {}          # (device, dtype, D, L) -> bags the staged
                               # branch holds at once there
+_plan_streams: dict = {}      # device index -> the gradient plan's stream
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -60,9 +72,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_embedding_bag_resident.argtypes = [i32, i32, i32,
                                                  ctypes.POINTER(i64)]
     lib.repro_embedding_bag_resident.restype = ctypes.c_int
-    lib.repro_embedding_bag_backward.argtypes = [vp, vp, vp, i64, i32, i64,
-                                                 i32, i32, vp, vp]
-    lib.repro_embedding_bag_backward.restype = ctypes.c_int
+    lib.repro_embedding_bag_backward_scale.argtypes = [vp, vp, i64, i32, i32,
+                                                       vp, vp]
+    lib.repro_embedding_bag_backward_level.argtypes = [
+        vp, i32, vp, i64, vp, vp, vp, vp, vp, vp, i64, i64, vp, i64, i64, vp,
+        vp, vp]
+    for step in ("scale", "level"):
+        getattr(lib, f"repro_embedding_bag_backward_{step}").restype = \
+            ctypes.c_int
 
 
 def _resident_bags(lib: ctypes.CDLL, table: torch.Tensor, n: int) -> int:
@@ -154,9 +171,13 @@ def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
     """The gradient of ``embedding_bag`` with respect to its [n_rows, D]
     table, for constant ``weights``: ``g`` fp32 [B, D] (the gradient of its
     output), ``indices`` int32 [B, L] and ``weights`` fp32 [B, L] or None,
-    all contiguous on one card -> fp32 [n_rows, D], zero-filled and then
-    added into on the current stream (``kernels/ref.embedding_bag_backward``
-    says what it computes).  Raises on anything else."""
+    all contiguous on one card -> fp32 [n_rows, D] on the current stream
+    (``kernels/ref.embedding_bag_backward`` says what it computes;
+    ``ref.embedding_bag_backward_ordered`` gives the same bits).  The sort
+    runs on a stream of its own; then the current stream zeroes the
+    gradient while the plan is made there (it waits for that stream to
+    learn its sizes), and the levels follow the zeros on the current
+    stream.  Raises on anything else."""
     if mode not in _MODES:
         raise ValueError(f"mode must be sum|mean, got {mode!r}")
     given = {"g": g, "indices": indices}
@@ -184,26 +205,192 @@ def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
                          f"[B, L] and weights [B, L] or None; got "
                          f"{[tuple(t.shape) for t in given.values()]}")
     (b, d), n = g.shape, indices.shape[1]
-    if max(b, n, d) > _INT_MAX or n_rows < 0:
+    if max(b, n, d, n_rows) > _INT_MAX or n_rows < 0:
         raise ValueError(f"g {tuple(g.shape)}, indices "
                          f"{tuple(indices.shape)} or {n_rows} rows exceed "
                          "the launch's limits")
-    grad = torch.zeros(n_rows, d, dtype=torch.float32, device=g.device)
     if b == 0 or d == 0 or n_rows == 0:
-        return grad
+        return torch.zeros(n_rows, d, dtype=torch.float32, device=g.device)
     lib = _build.library("embedding_bag", _bind)
+    stream = torch.cuda.current_stream(g.device)
+    side = _plan_stream(g.device)
+    side.wait_stream(stream)          # g and the ids as the caller left them
     with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.repro_embedding_bag_backward(
-            g.data_ptr(), indices.data_ptr(),
-            None if weights is None else weights.data_ptr(), n_rows, d, b,
-            n, _MODES[mode], grad.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"embedding_bag_backward launch failed: CUDA "
-                           f"error {err}")
+        with torch.cuda.stream(side):
+            keys, perm = embedding_bag_backward_sort(indices, n_rows)
+        stream.wait_stream(side)      # the sort and the fill contend
+        grad = torch.zeros(n_rows, d, dtype=torch.float32, device=g.device)
+        with torch.cuda.stream(side):     # while the zeros are written
+            plan = embedding_bag_backward_plan(keys, perm, n_rows)
+            src = g
+            if mode == "mean":        # each bag's g over its count, once
+                src = torch.empty_like(g)
+                _check(lib.repro_embedding_bag_backward_scale(
+                    g.data_ptr(), indices.data_ptr(), b, n, d,
+                    src.data_ptr(), side.cuda_stream), "scale")
+        for t in (plan.perm, plan.rows, plan.items, plan.item_start,
+                  plan.chunks, plan.upto, src,
+                  *(level.at for level in plan.levels)):
+            t.record_stream(stream)   # read here after the plan's stream
+        stream.wait_stream(side)
+        perm = plan.perm
+        for level in plan.levels:
+            partial = torch.empty(level.n_partials, d, dtype=torch.float32,
+                                  device=g.device)
+            _check(lib.repro_embedding_bag_backward_level(
+                src.data_ptr(), d, _ptr(perm), n, _ptr(weights),
+                plan.rows.data_ptr(), plan.items.data_ptr(),
+                plan.item_start.data_ptr(), plan.chunks.data_ptr(),
+                plan.upto.data_ptr(), plan.rows.numel(), plan.items.numel(),
+                level.at.data_ptr(), level.k_begin, level.n_chunks,
+                grad.data_ptr(), partial.data_ptr(), stream.cuda_stream),
+                "level")
+            src, perm = partial, None
     with _lock:
         launches["embedding_bag_backward"] += 1
     return grad
+
+
+@dataclasses.dataclass(frozen=True)
+class BagLevel:
+    """One level of an ``embedding_bag_backward_plan``: its chunks are
+    ``k_begin`` to ``k_begin + n_chunks`` of the plan's running count, and
+    ``at[k - k_begin]`` is chunk k's (level, row) in the plan's per-row
+    arrays; the level's sums that do not finish a row are the next level's
+    ``n_partials`` items."""
+    at: torch.Tensor            # int64 [n_chunks]
+    k_begin: int
+    n_chunks: int
+    n_partials: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BagPlan:
+    """The order of ``embedding_bag_backward``'s sums.  ``perm`` int64 [N]
+    is the flat entries ``b * L + j`` sorted stably by id, so each row's
+    entries run in (b, j) order; ``rows`` int64 [R] holds the ids of the
+    runs in that order (padding's -1 and the past-the-table id among them,
+    with no items).  The per-row arrays, [depth, R] flattened, give row r at
+    level l (index ``l * R + r``): ``items`` its items there (its terms at
+    level 0, then its partial sums of the level before), ``item_start`` the
+    first of them (a position of ``perm`` at level 0, then a slot of the
+    level before's partials), ``chunks`` how many chunks of ``chunk``
+    consecutive items sum them, and ``upto`` the running count of chunks
+    through it.  ``levels`` lists the levels that have chunks."""
+    perm: torch.Tensor
+    rows: torch.Tensor
+    items: torch.Tensor
+    item_start: torch.Tensor
+    chunks: torch.Tensor
+    upto: torch.Tensor
+    levels: list
+
+
+def _depth(n: int, chunk: int) -> int:
+    """The levels that sum a row of ``n`` terms: ``chunk ** depth >= n``."""
+    depth, reach = 1, chunk
+    while reach < n:
+        depth, reach = depth + 1, reach * chunk
+    return depth
+
+
+def embedding_bag_backward_sort(indices: torch.Tensor, n_rows: int):
+    """(keys, perm) of the bag's gradient for ``indices`` [B, L] into
+    ``n_rows`` rows: the flat entries' ids clamped into [-1, n_rows] (so
+    padding sorts first and ids past the table last) and sorted stably,
+    int32 [N], and their flat places ``b * L + j``, int64 [N], so each
+    row's entries run in (b, j) order."""
+    return torch.sort(indices.reshape(-1).clamp(-1, n_rows), stable=True)
+
+
+def embedding_bag_backward_plan(keys: torch.Tensor, perm: torch.Tensor,
+                                n_rows: int,
+                                chunk: int = BAG_CHUNK) -> BagPlan:
+    """The segment and chunk plan of the bag's gradient over the sorted
+    entries of ``embedding_bag_backward_sort``, on their device: each row's
+    run of terms (padding and ids past the table have none) cut into
+    chunks of ``chunk`` consecutive terms, and levels of chunks over each
+    row's partial sums, again ``chunk`` at a time, until the row has one
+    value.  Row r takes ``ceil(n_r / chunk ** (l + 1))`` chunks at level l
+    while ``n_r > chunk ** l``, so every level is computed at once, and the
+    plan waits for its device twice (the rows' count, the levels' sizes).
+    It orders the sum and computes none of it; ``level_chunks`` reads a
+    level's chunks off it."""
+    dev = keys.device
+    rows, runs = torch.unique_consecutive(keys, return_counts=True)
+    rows = rows.long()
+    count = torch.where((rows >= 0) & (rows < n_rows), runs, 0)
+    depth = _depth(keys.numel(), chunk)
+    level = torch.arange(depth, device=dev)[:, None]
+    reach = torch.pow(chunk, level + 1)
+    chunks = torch.where(count > torch.where(level > 0, reach // chunk, 0),
+                         (count + reach - 1) // reach, 0)
+    items = torch.cat([count[None], torch.where(chunks[:-1] > 1,
+                                                chunks[:-1], 0)])
+    # one scan over every level's rows (a scan along each row of a short,
+    # wide 2-D tensor is slow on the card), each level's start taken off;
+    # level 0's items are positions of perm, padding's run among them
+    before = items.reshape(-1).cumsum(0).view(depth, -1) - items
+    item_start = torch.cat([(runs.cumsum(0) - runs)[None],
+                            before[1:] - before[1:, :1]])
+    sizes = torch.cat([chunks.sum(1), items.sum(1)]).tolist()
+    n_chunks, n_items = sizes[:depth], sizes[depth:]
+    per_row = chunks.reshape(-1)
+    upto = per_row.cumsum(0)
+    # each chunk's (level, row): the first whose running count passes it
+    at = torch.searchsorted(upto, torch.arange(sum(n_chunks), device=dev),
+                            right=True)
+    levels, k = [], 0
+    for n, p in zip(n_chunks, n_items[1:] + [0]):
+        if n:
+            levels.append(BagLevel(at=at[k:k + n], k_begin=k, n_chunks=n,
+                                   n_partials=p))
+        k += n
+    return BagPlan(perm=perm, rows=rows, items=items.reshape(-1),
+                   item_start=item_start.reshape(-1), chunks=per_row,
+                   upto=upto, levels=levels)
+
+
+def level_chunks(plan: BagPlan, level: BagLevel, chunk: int = BAG_CHUNK):
+    """(start, length, dest) int64 [n_chunks] of a level's chunks, as the
+    gradient kernel works them out: chunk k, the i-th of its row r at level
+    l, sums that level's items ``start`` to ``start + length`` (1 to
+    ``chunk`` of them, one row's); ``dest`` >= 0 is the row its sum
+    finishes (where r has one chunk there), else the sum is item ``-1 -
+    dest`` of the next level, the row's i-th there."""
+    a = level.at
+    k = torch.arange(level.k_begin, level.k_begin + level.n_chunks,
+                     device=a.device)
+    i = k - (plan.upto[a] - plan.chunks[a])
+    start = plan.item_start[a] + i * chunk
+    length = (plan.items[a] - i * chunk).clamp(max=chunk)
+    later = (a + plan.rows.numel()).clamp(max=plan.items.numel() - 1)
+    dest = torch.where(plan.chunks[a] == 1, plan.rows[a % plan.rows.numel()],
+                       -1 - (plan.item_start[later] + i))
+    return start, length, dest
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check(err: int, step: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"embedding_bag_backward {step} failed: CUDA "
+                           f"error {err}")
+
+
+def _plan_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream ``embedding_bag_backward``'s sort and plan run on, one a
+    device: the plan waits for it (the sizes of its levels) while the
+    caller's stream zeroes the gradient after the sort.  Its priority is
+    high, so the plan's small kernels take SMs ahead of the zero fill's
+    waiting blocks."""
+    with _lock:
+        if device.index not in _plan_streams:
+            _plan_streams[device.index] = torch.cuda.Stream(device,
+                                                            priority=-1)
+        return _plan_streams[device.index]
 
 
 class EmbeddingBag(torch.autograd.Function):

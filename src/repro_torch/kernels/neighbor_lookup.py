@@ -17,10 +17,15 @@ package's two Pallas kernels:
   ``TableGroup.slice_words`` words by bulk async copies, and probes it
   through distributed shared memory.
 
-Both launch once per ``TableGroup`` (one engine shard): a device array of
-table descriptors, uploaded when the group is made, and the ends of the
-tables' query segments, passed by value, tell each query which table it
-probes, so a batch over several tables is one launch and copies nothing.
+Beside them, ``random_access`` is the paper's RA yardstick (not a TPU
+kernel): each key hashed to its home bucket and both value words gathered
+there, from the same line-packed table, one thread a key.
+
+The probes launch once per ``TableGroup`` (one engine shard): a device
+array of table descriptors, uploaded when the group is made, and the ends
+of the tables' query segments, passed by value, tell each query which
+table it probes, so a batch over several tables is one launch and copies
+nothing.
 
 The library is compiled with ``nvcc`` at first use, from the source in this
 package, into ``build/repro_torch/`` at the repository root
@@ -53,7 +58,7 @@ DESC_FIELDS = ("lines", "next_idx", "capacity", "home_capacity",
                "max_probes", "host_check", "smem_lines", "smem_next",
                "n_lines")
 
-launches = {"probe_lines": 0, "probe_smem": 0}
+launches = {"probe_lines": 0, "probe_smem": 0, "random_access": 0}
 lanes_launches = {1: 0, LINE_LANES: 0}   # probe_lines's, by lanes
 
 _lock = threading.Lock()
@@ -88,6 +93,14 @@ def _pack(words: Sequence[torch.Tensor], bpl: int) -> torch.Tensor:
     stack[1] = int(np.uint32(hc.EMPTY_LO).view(np.int32))
     stack[:, :cap] = torch.stack([w.to(stack.device) for w in words])
     return stack.view(4, n_lines, bpl).transpose(0, 1).contiguous()
+
+
+def value_words(table: DeviceTable) -> tuple[torch.Tensor, torch.Tensor]:
+    """A line-packed table's val_hi and val_lo, uint32 [capacity] each,
+    read back out of its lines where they lie."""
+    words = table.lines.view(torch.int32)
+    return tuple(words[:, f].reshape(-1)[:table.capacity].view(torch.uint32)
+                 for f in (2, 3))
 
 
 def pack_lines(key_hi: np.ndarray, key_lo: np.ndarray, val_hi: np.ndarray,
@@ -217,6 +230,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.repro_probe_smem.argtypes = [vp, seg, ctypes.c_int, seg,
                                      ctypes.c_int, ctypes.c_int, vp, vp, vp,
                                      ll, vp]
+    lib.repro_random_access.argtypes = [vp, ll, vp, vp, vp, ll, vp]
+    lib.repro_random_access.restype = ctypes.c_int
     lib.repro_probe_init.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     lib.repro_probe_init.restype = ctypes.c_int
     lib.repro_probe_lines.restype = ctypes.c_int
@@ -326,3 +341,40 @@ def probe_smem(group: TableGroup, q_hi: torch.Tensor, q_lo: torch.Tensor,
     of a cluster of ``CLUSTER`` blocks; the group must fit in
     ``SMEM_LIMIT`` bytes."""
     return _launch("probe_smem", group, q_hi, q_lo, seg)
+
+
+def random_access(table: DeviceTable, q_hi: torch.Tensor, q_lo: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paper's RA gather on the card: each key of ``q_hi`` / ``q_lo``
+    (contiguous uint32 [N] on the table's device) hashed to ``hash64 %
+    capacity`` (the table's) and both value words of that bucket read from
+    its lines -> (val_hi, val_lo) uint32 [N], the function of
+    ``core/lookup.random_access``, on the current stream.  Raises on
+    anything else."""
+    if table.lines.device.type != "cuda":
+        raise ValueError("random_access takes CUDA tensors; CPU tensors go "
+                         "to core/lookup.random_access through "
+                         "kernels/ops.py")
+    _check_table(table, table.lines.device)
+    for q in (q_hi, q_lo):
+        if q.device != table.lines.device or q.dtype != torch.uint32 \
+                or q.dim() != 1 or not q.is_contiguous():
+            raise ValueError("queries must be contiguous uint32 [N] on the "
+                             "table's device")
+    if q_hi.shape != q_lo.shape:
+        raise ValueError("q_hi / q_lo lengths differ")
+    n = q_hi.shape[0]
+    out = torch.empty((2, n), dtype=torch.int32,
+                      device=q_hi.device).view(torch.uint32)
+    if n == 0:
+        return out[0], out[1]
+    lib = _library()
+    stream = torch.cuda.current_stream(q_hi.device).cuda_stream
+    err = lib.repro_random_access(table.lines.data_ptr(), table.capacity,
+                                  q_hi.data_ptr(), q_lo.data_ptr(),
+                                  out.data_ptr(), n, stream)
+    if err != 0:
+        raise RuntimeError(f"random_access launch failed: CUDA error {err}")
+    with _lock:
+        launches["random_access"] += 1
+    return out[0], out[1]

@@ -1,5 +1,5 @@
-"""Dispatch for the port's kernels: the probe, the FM term and the bag
-lookup.
+"""Dispatch for the port's kernels: the probe (and the RA gather it is
+measured against), the FM term and the bag lookup.
 
 A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
 launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``,
@@ -111,6 +111,19 @@ def neighbor_lookup(key_hi, key_lo, val_hi, val_lo, q_hi, q_lo, *,
                         host_check=host_check, next_idx=next_idx,
                         device=device)
     return probe_table_group(group, q_hi, q_lo)
+
+
+def random_access(table: _nl.DeviceTable, q_hi: torch.Tensor,
+                  q_lo: torch.Tensor):
+    """The paper's RA gather over one line-packed table: (val_hi, val_lo)
+    uint32 [N] of each key's home bucket, ``hash64 % capacity`` (the
+    table's).  A CPU table takes ``core/lookup.random_access`` on its value
+    words; a CUDA one the ``random_access`` kernel."""
+    if table.lines.device.type == "cpu":
+        from repro_torch.core import lookup     # it imports this module
+        return lookup.random_access(*_nl.value_words(table), q_hi, q_lo,
+                                    capacity=table.capacity)
+    return _nl.random_access(table, q_hi, q_lo)
 
 
 def fm_interaction(emb: torch.Tensor) -> torch.Tensor:

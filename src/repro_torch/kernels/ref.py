@@ -13,7 +13,10 @@
   JAX package's Pallas kernel computes (fp32 accumulation and output);
   ``embedding_bag_backward``, of its gradient kernel with respect to the
   table (the JAX package differentiates its oracle), and
-  ``embedding_bag_backward_terms``, what bounds that kernel's rounding.
+  ``embedding_bag_backward_terms``, what bounds any order's rounding;
+  ``embedding_bag_backward_ordered``, the same gradient summed in exactly
+  the kernel's order (the plan that the kernel's wrapper makes, from
+  ``kernels/embedding_bag.py``).
 
 ``kernels/ops.py`` runs them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
@@ -199,10 +202,62 @@ def embedding_bag_backward_terms(g: torch.Tensor, indices: torch.Tensor,
     and |w|), n how many terms each row adds.  Two sums of the same n terms
     in any order differ by at most ``2 * n * 2**-24 * S`` in fp32
     (recursive summation's error bound, Higham), so that bounds the
-    kernel's atomics against the plain version."""
+    kernel's order against the plain version's."""
     rows, terms = _bag_terms(g.abs(), indices,
                              None if weights is None else weights.abs(),
                              mode, n_rows)
     s = torch.zeros(n_rows, g.shape[1], dtype=g.dtype, device=g.device)
     return s.index_add_(0, rows, terms), torch.bincount(rows,
                                                         minlength=n_rows)
+
+
+def embedding_bag_backward_ordered(g: torch.Tensor, indices: torch.Tensor,
+                                   weights: Optional[torch.Tensor],
+                                   mode: str, n_rows: int,
+                                   chunk: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """``embedding_bag_backward`` summed in the kernel's order, the plan of
+    ``kernels/embedding_bag.embedding_bag_backward_plan`` (chunks of
+    ``chunk`` terms, by default the kernel's ``BAG_CHUNK``): each chunk's
+    items added left to
+    right from +0.0 (``chunk`` vectorised adds, a chunk's missing items
+    adding +0.0, which leaves a sum from +0.0 as it is), level by level,
+    each row's last value written once.  The terms are rounded as
+    ``embedding_bag_backward`` rounds them, so on the card the kernel's
+    result equals this one bit for bit."""
+    from repro_torch.kernels import embedding_bag as bag  # it imports this
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be sum|mean, got {mode!r}")
+    chunk = bag.BAG_CHUNK if chunk is None else chunk
+    plan = bag.embedding_bag_backward_plan(
+        *bag.embedding_bag_backward_sort(indices, n_rows), n_rows, chunk)
+    scale = g
+    if mode == "mean":
+        scale = g / (indices >= 0).sum(dim=1).clamp(min=1).to(g.dtype)[:, None]
+    bag_len = max(indices.shape[1], 1)
+
+    def terms(pos: torch.Tensor) -> torch.Tensor:    # level 0's items
+        e = plan.perm[pos]
+        x = scale[e // bag_len]
+        if weights is not None:
+            x = x * weights.reshape(-1).to(g.dtype)[e][:, None]
+        return x
+
+    read = terms
+    out = torch.zeros(n_rows, g.shape[1], dtype=g.dtype, device=g.device)
+    for level in plan.levels:
+        start, length, dest = bag.level_chunks(plan, level, chunk)
+        acc = torch.zeros(level.n_chunks, g.shape[1], dtype=g.dtype,
+                          device=g.device)
+        for t in range(chunk):
+            live = length > t
+            acc = acc + torch.where(live[:, None],
+                                    read(torch.where(live, start + t, 0)),
+                                    0.0)
+        last = dest >= 0
+        out[dest[last]] = acc[last]
+        partial = torch.empty(level.n_partials, g.shape[1], dtype=g.dtype,
+                              device=g.device)
+        partial[-1 - dest[~last]] = acc[~last]
+        read = partial.__getitem__
+    return out

@@ -1241,8 +1241,8 @@ def _bag_grad_check(g, ids, w, mode, n_rows):
     """The gradient kernel against the plain gradient on the same tensors,
     element by element: |got - want| <= 2 n 2^-24 S + 1e-30, with n the
     terms a row adds and S the sum of their magnitudes (both sums add the
-    same n terms, in orders the atomics change from run to run; recursive
-    summation's bound, Higham).  Returns the kernel's gradient."""
+    same n terms, in two orders: recursive summation's bound, Higham).
+    Returns the kernel's gradient."""
     before = dict(bag.launches)
     got = bag.embedding_bag_backward(g, ids, w, mode, n_rows)
     assert bag.launches == {**before, "embedding_bag_backward":
@@ -1368,6 +1368,147 @@ def test_embedding_bag_under_grad_launches_both_kernels(weighted):
     assert bool(gt.abs().sum() > 0)
     assert bool(((gt - want).abs()
                  <= 2 * n[:, None] * 2.0 ** -24 * s + 1e-30).all())
+
+
+# (B, L, V, D) of the CPU tests of the ordered gradient
+# (test_torch_embedding_bag.py): one bag; D = 10 and 18 (scalar loads), 300
+# and 256 (16 B loads, 300 past a warp's 128 columns of them), 1; and a row
+# named by 1,200 entries, past C^2, so that it passes through three levels
+BWD_CASES = [(1, 7, 20, 10), (9, 6, 30, 18), (37, 50, 400, 300),
+             (37, 50, 400, 256), (37, 50, 400, 1), (40, 50, 60, 10)]
+
+
+def _bwd_inputs(b, n, v, d, seed):
+    """g [B, D], ids [B, L] (padding, ids past the table, an all-padding
+    bag where B > 1, 1,200 entries of row 3 in the (40, 50) case) and
+    weights [B, L], on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(-1, v + 3, (b, n), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if b > 1:
+        ids[1] = -1
+    if b == 40:
+        ids[:, :30] = 3
+    g = torch.randn(b, d, generator=gen, device="cuda")
+    w = torch.rand(b, n, generator=gen, device="cuda")
+    return g, ids, w
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _bwd_bitwise(g, ids, w, mode, v):
+    """The kernel, twice, against ``ref.embedding_bag_backward_ordered`` on
+    the same tensors: all three bit for bit, one launch each."""
+    before = bag.launches["embedding_bag_backward"]
+    got = bag.embedding_bag_backward(g, ids, w, mode, v)
+    again = bag.embedding_bag_backward(g, ids, w, mode, v)
+    assert bag.launches["embedding_bag_backward"] == before + 2
+    want = ref.embedding_bag_backward_ordered(g, ids, w, mode, v)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(again), _bits(got))
+    return got
+
+
+@pytest.mark.parametrize("b,n,v,d", BWD_CASES)
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_backward_kernel_equals_ordered_bitwise(b, n, v, d,
+                                                             mode, weighted):
+    g, ids, w = _bwd_inputs(b, n, v, d, seed=b * 1000 + d)
+    got = _bwd_bitwise(g, ids, w if weighted else None, mode, v)
+    if b == 40:
+        assert len(bag.embedding_bag_backward_plan(
+            *bag.embedding_bag_backward_sort(ids, v), v).levels) == 3
+    assert bool(got.isfinite().all())
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_backward_bitwise_at_two_tower_width(mode):
+    """A two-tower history batch ([4096, 50], zipf over 100,000 items,
+    D = 256, rows with thousands of terms): bitwise the ordered version and
+    itself; on g of ones in sum mode each row exactly its count."""
+    cfg = two_tower_retrieval.CONFIG
+    b = synthetic.recsys_batch(np.random.default_rng(4), cfg, 4096)
+    ids = torch.from_numpy(b["hist_items"] % 100_000).cuda()
+    ids[torch.from_numpy(b["hist_items"] < 0).cuda()] = -1
+    g = torch.randn(4096, 256, device="cuda") / 4096
+    _bwd_bitwise(g, ids, None, mode, 100_000)
+    counts = bag.embedding_bag_backward(torch.ones_like(g), ids, None, "sum",
+                                        100_000)
+    n = torch.bincount(ids[ids >= 0].long(), minlength=100_000)
+    assert bool((counts == n[:, None].float()).all())
+    assert int(n.max()) > 1000
+
+
+def test_embedding_bag_backward_unaligned_g_equals_ordered_bitwise():
+    """g a view off 16 B (D % 4 == 0 all the same): the scalar loads, the
+    same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    flat = torch.randn(37 * 256 + 1, generator=gen, device="cuda")
+    g = flat[1:].view(37, 256)
+    ids = torch.randint(-1, 500, (37, 50), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    assert g.data_ptr() % 16 and g.is_contiguous()
+    _bwd_bitwise(g, ids, None, "mean", 500)
+
+
+def test_embedding_bag_backward_counts_on_g_of_ones():
+    """On g of ones in sum mode every row's gradient is exactly its count of
+    entries (an integer fp32 adds exactly), past C^2 terms on one row."""
+    _, ids, _ = _bwd_inputs(40, 50, 60, 16, seed=9)
+    got = bag.embedding_bag_backward(torch.ones(40, 16, device="cuda"), ids,
+                                     None, "sum", 60)
+    n = torch.bincount(ids[(ids >= 0) & (ids < 60)].long(), minlength=60)
+    assert bool((got == n[:, None].float()).all())
+
+
+# ---------------------------------------------------------------------------
+# random_access: the paper's RA yardstick
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("variant", ["neighborhash", "coalesced"])
+@pytest.mark.parametrize("n_q", [1, 255, 256, 257, 4096, 5000])
+def test_random_access_kernel_equals_core_lookup(variant, n_q):
+    """The RA kernel on a built table's lines against
+    ``core/lookup.random_access`` on its value arrays, bitwise, hashed
+    modulo the table's capacity; through ``ops.random_access`` too."""
+    keys, t = _table(variant, 3000, seed=n_q)
+    table = _device_table(t, "cuda")
+    qh, ql = (nl.to_device(x, "cuda")
+              for x in hc.key_split_np(_queries(keys, n_q, 0.5, seed=n_q)))
+    vh, vl = (nl.to_device(x, "cuda") for x in (t.val_hi, t.val_lo))
+    before = nl.launches["random_access"]
+    got = nl.random_access(table, qh, ql)
+    via_ops = ops.random_access(table, qh, ql)
+    assert nl.launches["random_access"] == before + 2
+    want = lk.random_access(vh, vl, qh, ql, capacity=t.capacity)
+    torch.cuda.synchronize()
+    for a, b_, w in zip(got, via_ops, want):
+        assert a.dtype == torch.uint32 and a.shape == (n_q,)
+        assert torch.equal(_bits(a), _bits(w))
+        assert torch.equal(_bits(b_), _bits(w))
+
+
+def test_random_access_rejects_what_it_does_not_take():
+    keys, t = _table("neighborhash", 500, seed=3)
+    table = _device_table(t, "cuda")
+    qh, ql = (nl.to_device(x, "cuda")
+              for x in hc.key_split_np(_queries(keys, 64, 0.5, seed=3)))
+    before = dict(nl.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        nl.random_access(_device_table(t, "cpu"), qh.cpu(), ql.cpu())
+    with pytest.raises(ValueError, match="uint32"):
+        nl.random_access(table, qh.view(torch.int32), ql)
+    with pytest.raises(ValueError, match="uint32"):
+        nl.random_access(table, qh.cpu(), ql)
+    two = torch.stack([qh.view(torch.int32)] * 2, 1).view(torch.uint32)
+    with pytest.raises(ValueError, match="contiguous"):
+        nl.random_access(table, two[:, 0], ql)
+    with pytest.raises(ValueError, match="lengths"):
+        nl.random_access(table, qh[:10], ql)
+    assert nl.launches == before
 
 
 @pytest.mark.parametrize("sparse", [False, True])

@@ -247,3 +247,27 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA tensors"):
             kernel(nl.TableGroup([table]), qh, ql, [0, len(keys)])
     assert nl.launches == before
+
+
+@pytest.mark.parametrize("variant", ["neighborhash", "coalesced"])
+def test_random_access_through_ops_on_a_cpu_table(variant):
+    """``ops.random_access`` on a CPU table's line-packed words (what the
+    RA kernel reads on the card) against the JAX package's
+    ``random_access`` on the table's value arrays, bitwise, hashed modulo
+    the table's capacity; no kernel launches, and the kernel's wrapper
+    refuses the CPU table."""
+    keys, payloads = ref_nh.random_kv(1000, seed=9)
+    t = nh.build(keys, payloads, variant=variant)
+    table = eng._device_table(t, torch.device("cpu"))
+    qh, ql = ref_hc.key_split_np(_queries(keys, 777, 0.5, seed=9))
+    before = dict(nl.launches)
+    got = ops.random_access(table, torch.from_numpy(qh), torch.from_numpy(ql))
+    want = ref_lookup.random_access(
+        jnp.asarray(t.val_hi), jnp.asarray(t.val_lo), jnp.asarray(qh),
+        jnp.asarray(ql), capacity=t.capacity)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        nl.random_access(table, torch.from_numpy(qh), torch.from_numpy(ql))
+    assert nl.launches == before
