@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs thirteen phases.  Two send batch queries through
+together, then runs fifteen phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -20,6 +20,44 @@ delta midway, then a read-your-writes query.  Every grouped launch is held
 bitwise against the plain PyTorch probe on the card, every answer against
 the written data and the host ``HashTable.lookup_host_batch``, and every
 batch against the version it reports.
+
+* **N** — the paper's Table 1 and Fig. 9 on the card, with the JAX
+  benches' sizes and query mix (90% hits, misses from [2^62, 2^63)),
+  tables built at the card's 8 buckets a line.  T1: ``linear``,
+  ``coalesced`` and ``neighborhash`` at LF 0.8 and 2^14, 2^17 and 2^20
+  keys, 2^16 queries each, linear probing through the ``probe_linear``
+  kernel and the chained tables through ``probe_lines``; and ``linear``
+  at 2^22 keys (past the 50 MB L2) beside phase A's own 4M NeighborHash
+  table.  Each row: ms by events and kernel ms by profiler (the chained
+  tables' at 1 and at 8 lanes a query too: ``probe_linear`` runs one
+  thread a query), Mkeys/s, the host table's APCL, probe/RA (the
+  ``random_access`` kernel), the lines read and the share of steps that
+  leave their line (host trace).  F9: NeighborHash at 2^14, 2^18 and
+  2^20 keys, 256 queries through ``probe_sequential`` (one thread, one
+  query after another) and 2^15 through ``probe_lines``, Mkeys/s each;
+  the sequential probe's latency bound is its lines read times the
+  card's dependent-load latency, taken apart from it by the
+  ``load_chain`` kernel (one thread chasing line indices through a
+  buffer of the table's size).  Each linear table and each F9 table is
+  also probed once through the entry points a user calls,
+  ``core/lookup.lookup_linear`` and ``lookup_sequential`` on the card.
+  Every launch is held bitwise against its plain version and every
+  answer against ``lookup_host_batch``; no speed is gated.
+* **O** — the consistency protocol's replica fleet (``ClusterSim``,
+  ``SimConfig``'s defaults: 8 shards, 3 replicas, retain 2, hedging at
+  5 ms, naming propagation 2 s, reload 3 s; a rollout every 20 s) with
+  its data plane an engine on the card over phase A's deployment cut to
+  2^20 scalar keys and 200k 1 KB rows, each rollout a delta generation of
+  64 keys: 1000 batch queries of 4096 zipf keys over both tables in 200
+  s of sim time, under ``paper``, under ``naming``, and under ``paper``
+  behind the ``QueryServer``; then a latest and a pinned read through
+  ``FeatureClient(ClusterBackend(sim))``, and a ``BatchQueryService``
+  (4 MB shards) over the same keys, 64 batches against the engine and the
+  host tables.  Every key's answer is held bitwise against the rows
+  written at the version its shard answered from: under ``paper`` no
+  batch mixes versions, under ``naming`` some must.  It reports each
+  run's mixed rate, hedges, sim latency p90 and p99, host ms a query and
+  probe launches.
 
 * **C** — DeepFM CTR serving (``configs/deepfm.CONFIG``, full published
   width: a 1.56 GB field table on the card) behind the launcher's feature
@@ -157,7 +195,12 @@ words of its home bucket, held bitwise against
 ``core/lookup.random_access`` first, with the one-word ``torch.take``
 over keys hashed beforehand, timed as RA before it, beside it;
 ``F.embedding_bag`` for the bag; none for the FM term or its gradient)
-and its bound; ``fused_fm`` also at J's [65536, 39, 10], and
+and its bound (``probe_linear`` at T1's 2^20-key linear table, 20 B a
+query and 128 B a distinct line read; ``probe_sequential`` at F9's
+2^20 keys, its chain of dependent loads: queries x APCL x the load
+latency, timed as ``probe_sequential``'s time a query over keys that sit
+in their home bucket; neither has a library call); ``fused_fm`` also at
+J's [65536, 39, 10], and
 ``fused_fm_backward`` there; ``embedding_bag_backward`` at M.1's last
 launch, twice on the same inputs (the same bits), its plan and its sort
 timed apart and each of its kernels by profiler, beside both plain
@@ -188,6 +231,7 @@ import dataclasses
 import functools
 import gc
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -206,11 +250,13 @@ from repro_torch import api  # noqa: E402
 from repro_torch.configs import (bst, deepfm, din, registry,  # noqa: E402
                                  two_tower_retrieval)
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
+from repro_torch.core import cluster_sim as cs  # noqa: E402
 from repro_torch.core import convert  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import hashcore as hc  # noqa: E402
 from repro_torch.core import lookup as lk  # noqa: E402
 from repro_torch.core import neighborhash as nh  # noqa: E402
+from repro_torch.core.batch_query import BatchQueryService  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import embedding_bag as bagk  # noqa: E402
@@ -239,6 +285,25 @@ OPS_PER_PROBE_STEP = 40        # hash / compare / decode: integer ops, rough
 N_BATCHES, BATCH_KEYS, ABSENT = 64, 4096, 0.10
 DELTA_KEYS = 64
 ZIPF_A = 1.1
+# phase N: the paper's T1 and F9 on the card, at the JAX benches' sizes
+# (benchmarks/bench_scalar_tables.py, bench_vectorization.py)
+N_T1_SIZES = (1 << 14, 1 << 17, 1 << 20)
+N_T1_VARIANTS = ("linear", "coalesced", "neighborhash")
+N_T1_QUERIES = 1 << 16
+N_LINEAR_BIG = 1 << 22         # linear past the L2, beside phase A's table
+N_F9_SIZES = (1 << 14, 1 << 18, 1 << 20)
+N_F9_SEQ, N_F9_BATCH = 256, 1 << 15
+N_SQR = 0.9                    # the paper's successful-lookup ratio
+N_APCL_KEYS = 1500             # queries the host APCL is taken over
+N_LATENCY_LOADS = 4096         # dependent loads the load latency is timed on
+N_ITERS = 20
+N_BUILD_WORKERS = 6            # processes building N's host tables at once
+# phase O: the consistency protocol's replica fleet (SimConfig's defaults)
+O_KEYS, O_EMB_ROWS = 1 << 20, 200_000
+O_QUERIES, O_QPS = 1000, 5     # 200 s of sim time
+O_UPDATE_US = 20_000_000       # a naming rollout (3 x 5 s) ends first
+O_SEED = 0
+O_BQS_BATCHES = 64
 # phase C: DeepFM serving
 C_ITEMS, C_REQUESTS, C_ROWS, C_ABSENT = 200_000, 64, 512, 0.10
 # phase I: C's DeepFM and engine behind the QueryServer, concurrent clients
@@ -300,7 +365,9 @@ REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:79",
             "fused_fm_backward": "src/repro/kernels/fused_fm.py:31",
-            "embedding_bag_backward": "src/repro/kernels/embedding_bag.py:79"}
+            "embedding_bag_backward": "src/repro/kernels/embedding_bag.py:79",
+            "probe_linear": "src/repro/core/lookup.py:152",
+            "probe_sequential": "src/repro/core/lookup.py:209"}
 LIBRARIES = {"probe": "src/repro_torch/csrc/probe.cu",
              "fused_fm": "src/repro_torch/csrc/fused_fm.cu",
              "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu"}
@@ -776,6 +843,587 @@ def saturation(engine, flush, n, seed=7):
                                       if ra["ra_kernel_ms"] and k_ms
                                       else None),
             "home_lines": lines, "bound_ms": bound_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase N: the paper's T1 (NeighborHash against linear probing and
+# coalesced hashing) and F9 (the batch probe against one query at a time)
+# ---------------------------------------------------------------------------
+def query_mix(keys, n, sqr=N_SQR, seed=1):
+    """The paper's workload (the JAX bench's ``table_cache.query_mix``):
+    ``sqr`` of the queries hit, drawn uniformly from ``keys``; the rest
+    miss, drawn from [2^62, 2^63)."""
+    rng = np.random.default_rng(seed)
+    n_hit = int(n * sqr)
+    q = np.concatenate([keys[rng.choice(len(keys), n_hit)],
+                        rng.integers(2**62, 2**63, n - n_hit)
+                        .astype(np.uint64)])
+    rng.shuffle(q)
+    return q
+
+
+def n_build(n, variant):
+    """One phase-N table built on the host (a job of ``start_n_builds``'s
+    pool): ``random_kv(n, seed=0)`` at LF 0.8 and the card's 8 buckets a
+    line.  Returns the table and its build seconds."""
+    keys, payloads = nh.random_kv(n, seed=0)
+    t0 = time.perf_counter()
+    table = nh.build(keys, payloads, variant=variant, load_factor=0.8,
+                     buckets_per_line=hc.GPU_BUCKETS_PER_LINE)
+    return table, time.perf_counter() - t0
+
+
+def start_n_builds():
+    """Starts every phase-N table's host build in ``N_BUILD_WORKERS``
+    processes (the host builder inserts one key at a time), the largest
+    first: the T1 tables, linear at ``N_LINEAR_BIG`` and the F9 tables T1
+    lacks.  main() starts them once phases A and B have ended, so no
+    host-clock metric of theirs shares the host with them.  Returns (the
+    pool, {(keys, variant): future of (table, build seconds)});
+    ``drive_phase_n`` collects them and shuts the pool down."""
+    jobs = [(N_LINEAR_BIG, "linear")]
+    jobs += [(n, v) for n in N_T1_SIZES for v in N_T1_VARIANTS]
+    jobs += [(n, "neighborhash") for n in N_F9_SIZES if n not in N_T1_SIZES]
+    cost = {"linear": 1, "coalesced": 2, "neighborhash": 4}
+    jobs.sort(key=lambda j: -j[0] * cost[j[1]])
+    pool = concurrent.futures.ProcessPoolExecutor(
+        N_BUILD_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {j: pool.submit(n_build, *j) for j in jobs}
+
+
+class NCase:
+    """One table of phase N on the host and the card, and its queries."""
+
+    def __init__(self, n, variant, device, host, build_s):
+        self.n, self.variant = n, variant
+        self.keys = nh.random_kv(n, seed=0)[0]
+        self.host, self.build_s = host, build_s
+        self.statics = lk.probe_statics(host)
+        a = self.arrays = host.device_arrays()
+        words = (a["key_hi"], a["key_lo"], a["val_hi"], a["val_lo"])
+        st = self.statics
+        if variant == "linear":      # as ops.linear_lookup makes it
+            self.table = ops.one_table(
+                *words, max_probes=st["max_probes"], host_check=False,
+                capacity=host.capacity, device=device)
+        else:                        # as core/lookup.make_lookup_fn does
+            self.table = ops.one_table(
+                *words, max_probes=st["max_probes"],
+                home_capacity=st["home_capacity"],
+                host_check=st["host_check"],
+                next_idx=None if st["inline"] else a.get("next_idx"),
+                device=device)
+        self.group = nl.TableGroup([self.table])   # made once, not per call
+
+    def queries(self, n_q, seed=1):
+        q = query_mix(self.keys, n_q, seed=seed)
+        qh, ql = hc.key_split_np(q)
+        return q, nl.to_device(qh, self.table.lines.device), \
+            nl.to_device(ql, self.table.lines.device)
+
+    def probe(self, qh, ql):
+        """The batch probe: linear probing for the linear table, else
+        ``probe_lines`` (the engine's kernel for a table past shared
+        memory)."""
+        if self.variant == "linear":
+            return ops.probe_linear(self.table, qh, ql)
+        if self.group.device.type == "cpu":     # a rehearsal on the CPU
+            return ref.probe_group(self.group, qh, ql, [0, qh.shape[0]])
+        return nl.probe_lines(self.group, qh, ql, [0, qh.shape[0]])
+
+    def plain(self, qh, ql, sequential=False):
+        t = self.table
+        if self.variant == "linear":
+            return ref.probe_linear(t.lines, qh, ql, capacity=t.capacity,
+                                    max_probes=t.max_probes)
+        fn = ref.probe_sequential if sequential else ref.probe_table
+        return fn(t.lines, t.next_idx, qh, ql, capacity=t.capacity,
+                  home_capacity=t.home_capacity, host_check=t.host_check,
+                  max_probes=t.max_probes)
+
+    def check(self, what, out, q, qh, ql, sequential=False):
+        """``out`` bitwise its plain version on the same inputs and the host
+        table's ``lookup_host_batch``; returns the max abs error (0)."""
+        want = self.plain(qh, ql, sequential)
+        err = int((ref.u32(out) - ref.u32(want)).abs().max()) \
+            if out.numel() else 0
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            fail(f"[N] {what}: differs from its plain version (max abs err "
+                 f"{err})")
+        hf, hp = self.host.lookup_host_batch(q)
+        got = out.view(torch.int32).cpu().numpy().view(np.uint32)
+        if not (np.array_equal(got[0].astype(bool), hf) and np.array_equal(
+                (got[1].astype(np.uint64) << np.uint64(32))
+                | got[2].astype(np.uint64), hp)):
+            fail(f"[N] {what}: differs from lookup_host_batch")
+        return err
+
+    def entry(self, q, out):
+        """The same queries through the entry point a user calls,
+        ``core/lookup.lookup_linear`` for the linear table and
+        ``lookup_sequential`` for the others, on the card from the host
+        table's arrays: its answer held bitwise against ``out`` (the
+        kernel's on the same queries, already held against its plain
+        version and ``lookup_host_batch``)."""
+        a, st = self.arrays, self.statics
+        qh, ql = hc.key_split_np(q)
+        words = (a["key_hi"], a["key_lo"], a["val_hi"], a["val_lo"])
+        if self.variant == "linear":
+            got = lk.lookup_linear(*words, qh, ql,
+                                   capacity=self.host.capacity,
+                                   max_probes=st["max_probes"],
+                                   device=self.table.lines.device)
+        else:
+            got = lk.lookup_sequential(*words, a.get("next_idx"), qh, ql,
+                                       device=self.table.lines.device, **st)
+        found, p_hi, p_lo = got
+        if not (found.dtype == torch.bool and torch.equal(
+                found, out[0].view(torch.int32) != 0) and all(
+                torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for x, y in ((p_hi, out[1]), (p_lo, out[2])))):
+            fail(f"[N] core/lookup's entry for {self.variant} at {self.n} "
+                 "keys differs from its kernel's answer")
+
+
+def drive_phase_n(device, eng_a, builds):
+    """Phase N's main path: every T1 table probed once by its batch probe
+    (``probe_linear`` for linear probing, ``probe_lines`` for the chained
+    tables) at ``N_T1_QUERIES``, and every F9 table by ``probe_sequential``
+    at ``N_F9_SEQ`` and ``probe_lines`` at ``N_F9_BATCH``; each answer held
+    bitwise against its plain version and the host table.  Returns the
+    cases and what it printed."""
+    err = {"probe_linear": 0, "probe_sequential": 0, "probe_lines": 0}
+    t0 = time.perf_counter()
+    pool, futures = builds
+    with pool:
+        hosts = {j: f.result() for j, f in futures.items()}
+    print(f"[N] {len(hosts)} tables built by {N_BUILD_WORKERS} processes "
+          f"in {time.perf_counter() - t0:.1f} s after phase A", flush=True)
+    cases = {j: NCase(*j, device, *hosts.pop(j)) for j in sorted(hosts)}
+    runs = {}
+    for (n, variant), c in cases.items():
+        if n in N_T1_SIZES or n == N_LINEAR_BIG:
+            q, qh, ql = c.queries(N_T1_QUERIES)
+            kernel = "probe_linear" if variant == "linear" else "probe_lines"
+            out = c.probe(qh, ql)
+            err[kernel] = max(err[kernel], c.check(
+                f"T1 {variant} at {n} keys", out, q, qh, ql))
+            if variant == "linear":
+                c.entry(q, out)
+            runs["t1", n, variant] = (c, q, qh, ql)
+        if variant == "neighborhash" and n in N_F9_SIZES:
+            q, qh, ql = c.queries(N_F9_SEQ, seed=2)
+            out = ops.probe_sequential(c.table, qh, ql)
+            err["probe_sequential"] = max(err["probe_sequential"], c.check(
+                f"F9 sequential at {n} keys", out, q, qh, ql,
+                sequential=True))
+            c.entry(q, out)
+            runs["f9_seq", n, variant] = (c, q, qh, ql)
+            q, qh, ql = c.queries(N_F9_BATCH, seed=3)
+            err["probe_lines"] = max(err["probe_lines"], c.check(
+                f"F9 batch at {n} keys", c.probe(qh, ql), q, qh, ql))
+            runs["f9_batch", n, variant] = (c, q, qh, ql)
+    print("[N] build s: " + json.dumps(
+        {f"{v}_{n}": c.build_s for (n, v), c in cases.items()}), flush=True)
+    return {"runs": runs, "err": err, "eng_a": eng_a}
+
+
+def t1_row(c, q, qh, ql, flush):
+    """One T1 row: the batch probe by events and by profiler (a chained
+    table's ``probe_lines`` also forced to 1 and to 8 lanes a query:
+    ``probe_linear`` runs one thread a query), Mkeys/s, the host table's
+    APCL, probe/RA, the lines the probe touched and the share of its steps
+    that leave the line they were in (host trace), its bound (20 B a
+    query, 128 B a distinct line read)."""
+    n = qh.shape[0]
+    name = "probe_linear" if c.variant == "linear" else "probe_lines"
+    ms = time_ms(lambda: c.probe(qh, ql), N_ITERS, flush)
+    k_ms = kernel_ms(lambda: c.probe(qh, ql), f"{name}_kernel", N_ITERS,
+                     flush)
+    lanes = {} if c.variant == "linear" else lanes_ms(
+        c.group, qh, ql, [0, n], c.probe(qh, ql), flush, N_ITERS)
+    ra = ra_timing(nl.TableGroup([c.table]), qh, ql, flush, N_ITERS)
+    lines, reads, steps, in_line = touched([c.host], qh, ql, [0, n])
+    return {"variant": c.variant, "keys": c.n, "queries": n,
+            "kernel": name, "ms": ms, "kernel_ms": k_ms,
+            "kernel_ms_by_lanes": lanes,
+            "mkeys_per_s": n / ms / 1e3,
+            "kernel_mkeys_per_s": n / k_ms / 1e3 if k_ms else None,
+            "apcl": c.host.apcl(q[:N_APCL_KEYS]),
+            "max_probes": c.table.max_probes,
+            "lines_touched": lines, "bucket_reads": reads,
+            "steps": steps, "steps_leaving_line": steps - in_line,
+            "share_leaving_line": (steps - in_line) / steps if steps
+            else 0.0,
+            "bound_ms": (n * 20 + lines * 128) / HBM_BYTES_PER_S * 1e3,
+            "ra_ms": ra["ra_ms"], "ra_kernel_ms": ra["ra_kernel_ms"],
+            "probe_over_ra": ra["ra_ms"] / ms,
+            "probe_over_ra_kernels": (ra["ra_kernel_ms"] / k_ms
+                                      if ra["ra_kernel_ms"] and k_ms
+                                      else None),
+            "build_s": c.build_s}
+
+
+def load_latency_ns(c, flush):
+    """The card's dependent-load latency, taken apart from the probe it
+    bounds: the ``load_chain`` kernel's time a load, one thread following
+    ``N_LATENCY_LOADS`` lines drawn at random without repeats from a buffer
+    of the size and 128 B lines of ``c``'s table (word 0 of each line the
+    index of the next: no hash, no compare), the L2 flushed before each
+    call; its end held against the plain chain."""
+    n_lines = c.table.lines.shape[0]
+    order = np.random.default_rng(4).choice(n_lines, N_LATENCY_LOADS + 1,
+                                            replace=False)
+    words = torch.zeros((n_lines, 4 * nl.BUCKETS_PER_LINE),
+                        dtype=torch.int32)
+    words[torch.from_numpy(order[:-1]), 0] = torch.from_numpy(
+        order[1:].astype(np.int32))
+    words = words.to(flush.device)
+    start = int(order[0])
+    end = int(nl.load_chain(words, start, N_LATENCY_LOADS))
+    if end != int(order[-1]) or end != int(ref.load_chain(
+            words, start, N_LATENCY_LOADS)):
+        fail(f"[N] load_chain ended at line {end}, not {order[-1]}")
+    ms = time_ms(lambda: nl.load_chain(words, start, N_LATENCY_LOADS), 5,
+                 flush)
+    return ms * 1e6 / N_LATENCY_LOADS
+
+
+def time_phase_n(state, flush):
+    """Phase N's timings, after its launches were counted: T1's rows, the
+    linear probe past the L2 beside phase A's 4M NeighborHash table, F9's
+    rows, and the kernels line's ``probe_linear`` and
+    ``probe_sequential`` rows."""
+    runs = state["runs"]
+    t1 = [t1_row(*runs[k], flush) for k in sorted(
+        (k for k in runs if k[0] == "t1"), key=lambda k: (k[1], k[2]))]
+    for row in t1:
+        print("[N] T1 " + json.dumps(row), flush=True)
+    # phase A's own 4M NeighborHash table, past the L2, with the same mix
+    build = state["eng_a"].window.get(None)[2]
+    group, host = build.groups[0], build.shard_tables[0][0]
+    keys_a = host.items_arrays()[0]
+    q = query_mix(keys_a, N_T1_QUERIES)
+    qh, ql = (nl.to_device(x, flush.device) for x in hc.key_split_np(q))
+
+    def probe_a():
+        return nl.probe_lines(group, qh, ql, [0, len(q)])
+    ms = time_ms(probe_a, N_ITERS, flush)
+    k_ms = kernel_ms(probe_a, "probe_lines_kernel", N_ITERS, flush)
+    ra = ra_timing(group, qh, ql, flush, N_ITERS)
+    beside = {"variant": "neighborhash (phase A's table)",
+              "keys": len(keys_a), "queries": len(q), "ms": ms,
+              "kernel_ms": k_ms, "mkeys_per_s": len(q) / ms / 1e3,
+              "apcl": host.apcl(q[:N_APCL_KEYS]),
+              "probe_over_ra": ra["ra_ms"] / ms,
+              "probe_over_ra_kernels": (ra["ra_kernel_ms"] / k_ms
+                                        if ra["ra_kernel_ms"] and k_ms
+                                        else None)}
+    print("[N] T1 past the L2 beside linear: " + json.dumps(beside),
+          flush=True)
+    c_lat = runs["f9_seq", N_F9_SIZES[-1], "neighborhash"][0]
+    latency = load_latency_ns(c_lat, flush)
+    f9 = []
+    for n in N_F9_SIZES:
+        c, q, qh, ql = runs["f9_seq", n, "neighborhash"]
+        _, qb, qbh, qbl = runs["f9_batch", n, "neighborhash"]
+
+        def seq():
+            return nl.probe_sequential(c.table, qh, ql)
+        seq_ms = time_ms(seq, N_ITERS, flush)
+        batch_ms = time_ms(lambda: c.probe(qbh, qbl), N_ITERS, flush)
+        apcl = c.host.apcl(q)
+        lines, _, _, _ = touched([c.host], qh, ql, [0, len(q)])
+        row = {"keys": n, "seq_queries": len(q), "batch_queries": len(qb),
+               "seq_ms": seq_ms,
+               "seq_kernel_ms": kernel_ms(seq, "probe_sequential_kernel",
+                                          N_ITERS, flush),
+               "batch_ms": batch_ms,
+               "batch_kernel_ms": kernel_ms(lambda: c.probe(qbh, qbl),
+                                            "probe_lines_kernel", N_ITERS,
+                                            flush),
+               "seq_mkeys_per_s": len(q) / seq_ms / 1e3,
+               "batch_mkeys_per_s": len(qb) / batch_ms / 1e3,
+               "seq_apcl": apcl, "seq_lines": lines,
+               # each line read first costs one dependent load; a bucket
+               # of a line already read comes from L1
+               "seq_latency_bound_ms": lines * latency / 1e6,
+               "seq_bytes_bound_ms": (len(q) * 20 + lines * 128)
+               / HBM_BYTES_PER_S * 1e3}
+        row["speedup"] = row["batch_mkeys_per_s"] / row["seq_mkeys_per_s"]
+        f9.append(row)
+        print("[N] F9 " + json.dumps(row), flush=True)
+    lin = next(r for r in t1 if r["variant"] == "linear"
+               and r["keys"] == N_T1_SIZES[-1])
+    c, q, qh, ql = runs["t1", N_T1_SIZES[-1], "linear"]
+    linear_row = {
+        "name": "probe_linear", "route": "cuda",
+        "source": LIBRARIES["probe"],
+        "replaces": REPLACES["probe_linear"], "launches": None,
+        "max_abs_err": state["err"]["probe_linear"],
+        "ms": lin["ms"], "kernel_ms": lin["kernel_ms"],
+        "plain_ms": time_ms(lambda: c.plain(qh, ql), 3, flush),
+        "bound_ms": lin["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "none: no PyTorch call probes a hash table",
+        "shape": f"T1 at {lin['keys']} keys, {lin['queries']} queries",
+        "t1": [r for r in t1 if r["variant"] == "linear"]}
+    c, q, qh, ql = runs["f9_seq", N_F9_SIZES[-1], "neighborhash"]
+    f9_big = f9[-1]
+    seq_row = {
+        "name": "probe_sequential", "route": "cuda",
+        "source": LIBRARIES["probe"],
+        "replaces": REPLACES["probe_sequential"], "launches": None,
+        "max_abs_err": state["err"]["probe_sequential"],
+        "ms": f9_big["seq_ms"], "kernel_ms": f9_big["seq_kernel_ms"],
+        "plain_ms": time_ms(lambda: c.plain(qh, ql, sequential=True), 2,
+                            flush),
+        "bound_ms": f9_big["seq_bytes_bound_ms"], "bound_by": "bytes",
+        "latency_bound_ms": f9_big["seq_latency_bound_ms"],
+        "bound_note": "bound_ms: the function's bytes (20 B a query, 128 B "
+                      "a line read) at the memory rate, what a batch probe "
+                      "could approach; latency_bound_ms: this design's "
+                      "chain, the lines read one after another times the "
+                      "dependent-load latency",
+        "load_latency_ns": latency,
+        "load_latency_how": f"the load_chain kernel's time a load over "
+                            f"{N_LATENCY_LOADS} dependent loads of random "
+                            f"distinct lines of a buffer the size of the "
+                            f"{N_F9_SIZES[-1]}-key table's lines, L2 flushed "
+                            f"before each call",
+        "library_ms": None,
+        "library_note": "none: no PyTorch call probes a hash table",
+        "shape": f"F9 at {N_F9_SIZES[-1]} keys, {N_F9_SEQ} queries",
+        "f9": f9}
+    return {"t1": t1, "t1_past_l2_beside": beside, "f9": f9,
+            "load_latency_ns": latency}, [linear_row, seq_row]
+
+
+# ---------------------------------------------------------------------------
+# phase O: the consistency protocol's replica fleet on the card
+# ---------------------------------------------------------------------------
+class VersionedTruth:
+    """The rows as written at each version: a base and each version's
+    delta (keys, payloads, rows), applied in version order."""
+
+    def __init__(self, truth: Truth):
+        self.base, self.deltas = truth, {}
+
+    def add(self, version, k, p, rows):
+        o = np.argsort(k)
+        self.deltas[version] = (k[o], p[o], rows[o])
+
+    def _apply(self, q, version, out, field):
+        for v in sorted(self.deltas):
+            if v > version:
+                break
+            k = self.deltas[v][0]
+            i = np.clip(np.searchsorted(k, q), 0, len(k) - 1)
+            hit = k[i] == q
+            out[hit] = self.deltas[v][field][i[hit]]
+        return out
+
+    def scalar(self, q, version):
+        f, p = self.base.scalar(q)
+        return f, self._apply(q, version, p.copy(), 1)
+
+    def emb(self, q, version):
+        f, rows = self.base.emb(q)
+        return f, self._apply(q, version, rows.copy(), 2)
+
+
+class FleetData:
+    """Phase O's deployment: ``O_KEYS`` scalar keys and ``O_EMB_ROWS``
+    1 KB rows (phase A's shapes), each rollout a delta generation of
+    ``DELTA_KEYS`` keys drawn from the version's own seed."""
+
+    def __init__(self):
+        self.keys, payloads = nh.random_kv(O_KEYS, seed=5)
+        self.emb_keys = self.keys[:O_EMB_ROWS]
+        self.rows = np.random.default_rng(5).integers(
+            0, 256, (O_EMB_ROWS, CONFIG.value_bytes), dtype=np.uint8)
+        self.payloads = payloads
+        self.truth = VersionedTruth(Truth(self.keys, payloads, self.emb_keys,
+                                          self.rows))
+
+    def tables(self, version):
+        if version != 0:
+            fail(f"[O] a full build of version {version} was asked for; "
+                 "every rollout ships a delta")
+        return ([eng.ScalarTable("item_attr", self.keys, self.payloads,
+                                 load_factor=CONFIG.load_factor)],
+                [eng.EmbeddingTable("item_emb", self.emb_keys, self.rows,
+                                    hot_fraction=CONFIG.hot_fraction)])
+
+    def deltas(self, version):
+        rng = np.random.default_rng(1000 + version)
+        k = self.emb_keys[rng.choice(O_EMB_ROWS, DELTA_KEYS, replace=False)]
+        p = rng.integers(0, hc.PAYLOAD_MASK, DELTA_KEYS, dtype=np.uint64)
+        r = rng.integers(0, 256, (DELTA_KEYS, CONFIG.value_bytes),
+                         dtype=np.uint8)
+        self.truth.add(version, k, p, r)
+        return {"item_attr": (k, p), "item_emb": (k, r)}, {}
+
+    def check(self, q, key_versions, data, what):
+        """Each key's answer equal to the rows written at the version its
+        sim shard answered from."""
+        (af, ap), (ef, er) = data["item_attr"], data["item_emb"]
+        for v in np.unique(key_versions):
+            m = key_versions == v
+            f, p = self.truth.scalar(q[m], int(v))
+            if not (np.array_equal(af[m], f) and np.array_equal(ap[m], p)):
+                fail(f"{what}: item_attr differs from version {v}'s rows")
+            f, rows = self.truth.emb(q[m], int(v))
+            if not (np.array_equal(ef[m], f)
+                    and np.array_equal(er[m][f], rows[f])):
+                fail(f"{what}: item_emb differs from version {v}'s rows")
+
+
+def run_fleet(tag, data, protocol, device, log, use_query_server=False):
+    """One ``ClusterSim`` over ``data`` on ``device``: rollouts every
+    ``O_UPDATE_US`` of sim time, ``O_QUERIES`` batch queries of
+    ``BATCH_KEYS`` zipf keys over both tables, one every 1 / ``O_QPS`` s;
+    every answer checked at its shard's version, every probe launch
+    against the plain probe.  Returns the sim (open) and its metrics."""
+    cfg = cs.SimConfig(update_interval_us=O_UPDATE_US, seed=O_SEED)
+    t0 = time.perf_counter()
+    sim = cs.ClusterSim(cfg, protocol=protocol, tables_for_version=data.tables,
+                        deltas_for_version=data.deltas,
+                        use_query_server=use_query_server, device=device)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(O_SEED)
+    host_s, launches0 = [], sum(nl.launches.values())
+    mixed_keys = 0
+
+    def schedule_update(version):
+        sim.start_rolling_update(version)
+        sim.sim.after(cfg.update_interval_us,
+                      lambda: schedule_update(version + 1))
+
+    def query(i):
+        nonlocal mixed_keys
+        q = zipf_keys(rng, data.keys, BATCH_KEYS)
+        t = time.perf_counter()
+        ok, versions, _lat, answer = sim.query_batch(
+            {"item_attr": q, "item_emb": q})
+        host_s.append(time.perf_counter() - t)
+        log.check_pending()
+        if not ok:
+            return
+        if protocol == "paper" and len(set(versions)) != 1:
+            fail(f"[O] {tag}: batch {i} answered from versions {versions}")
+        key_versions = np.asarray(versions)[sim._shard_of_keys(q)]
+        mixed_keys += int((key_versions != key_versions.max()).sum())
+        data.check(q, key_versions, answer, f"[O] {tag} batch {i}")
+
+    sim.sim.after(cfg.update_interval_us, lambda: schedule_update(1))
+    step = int(1e6 / O_QPS)
+    for i in range(O_QUERIES):
+        sim.sim.at(i * step, functools.partial(query, i))
+    sim.sim.run_until(O_QUERIES * step - 1)   # before the next rollout
+    m = sim.metrics
+    ms = np.array(host_s) * 1e3
+    out = {"protocol": protocol, "query_server": use_query_server,
+           "build_s": build_s, "queries": m.queries,
+           "failures": m.failures, "mixed_version_batches":
+           m.mixed_version_batches, "mixed_rate": m.mixed_rate,
+           "keys_off_the_newest_version": mixed_keys,
+           "hedges": m.hedges,
+           "sim_latency_p90_us": m.latency_quantile(0.90),
+           "sim_latency_p99_us": m.latency_quantile(0.99),
+           "host_ms_per_query_p50": float(np.median(ms)),
+           "host_ms_per_query_mean": float(ms.mean()),
+           "versions_published": sim.current_version,
+           "update_wall_us": m.update_wall_us,
+           "compactions": m.compactions,
+           "probe_launches": sum(nl.launches.values()) - launches0}
+    print(f"[O] {tag} " + json.dumps(out), flush=True)
+    if m.queries != O_QUERIES or m.failures:
+        fail(f"[O] {tag}: {m.queries} queries, {m.failures} failed")
+    return sim, out
+
+
+def run_phase_o(device, log):
+    """Phase O: the fleet under ``paper``, under ``naming``, under
+    ``paper`` behind the ``QueryServer``; a latest and a pinned query
+    through ``FeatureClient(ClusterBackend(sim))``; and a
+    ``BatchQueryService`` over the same keys against the engine and the
+    host tables."""
+    t0 = time.perf_counter()
+    data = FleetData()
+    out = {"data_s": time.perf_counter() - t0}
+    sim, out["paper"] = run_fleet("paper", data, "paper", device, log)
+    if out["paper"]["mixed_version_batches"]:
+        fail("[O] the paper protocol answered a batch from mixed versions")
+    # the fleet as a backend: a latest and a pinned read
+    client = api.FeatureClient(api.ClusterBackend(sim))
+    q = zipf_keys(np.random.default_rng(9), data.keys, BATCH_KEYS)
+    latest = client.query({"item_attr": q, "item_emb": q})
+    log.check_pending()
+    if latest.version != sim.current_version:
+        fail(f"[O] latest read at {latest.version}, the fleet's newest is "
+             f"{sim.current_version}")
+    old = client.query({"item_attr": q, "item_emb": q},
+                       consistency=api.Consistency.pinned(latest.version - 1))
+    log.check_pending()
+    for res in (latest, old):
+        data.check(q, np.full(len(q), res.version),
+                   {name: (res[name].found, res[name].payloads
+                           if name == "item_attr" else res[name].values)
+                    for name in ("item_attr", "item_emb")},
+                   f"[O] ClusterBackend at version {res.version}")
+    out["cluster_backend"] = {"latest": latest.version,
+                              "pinned": old.version}
+    # BatchQueryService over the same keys at the newest version
+    newest = sim.current_version
+    payloads = data.truth.scalar(data.keys, newest)[1]
+    t0 = time.perf_counter()
+    svc = BatchQueryService(data.keys, payloads, device=device)
+    build_s = time.perf_counter() - t0
+    rng, lat = np.random.default_rng(10), []
+    for b in range(O_BQS_BATCHES):
+        q = zipf_keys(rng, data.keys, BATCH_KEYS)
+        t = time.perf_counter()
+        f, p = svc.query(q)
+        lat.append(time.perf_counter() - t)
+        log.check_pending()
+        res = sim.engine.query({"item_attr": q}, version=newest, strict=True)
+        wf, wp = data.truth.scalar(q, newest)
+        if not (np.array_equal(f, res["item_attr"].found)
+                and np.array_equal(p, res["item_attr"].payloads)
+                and np.array_equal(f, wf) and np.array_equal(p, wp)):
+            fail(f"[O] BatchQueryService batch {b} differs from the engine")
+        owners = svc.plan.shard_of_np(q)
+        for s, t in enumerate(svc.shards):
+            hf, hp = t.lookup_host_batch(q[owners == s])
+            if not (np.array_equal(f[owners == s], hf)
+                    and np.array_equal(p[owners == s], hp)):
+                fail(f"[O] BatchQueryService batch {b} differs from "
+                     "lookup_host_batch")
+    lat_ms = np.array(lat) * 1e3
+    out["batch_query_service"] = {
+        "shards": svc.n_shards, "build_s": build_s,
+        "batches": svc.stats.batches, "hits": svc.stats.hits,
+        "batch_p50_ms": float(np.median(lat_ms)),
+        "batch_p99_ms": float(np.percentile(lat_ms, 99))}
+    print("[O] BatchQueryService " + json.dumps(out["batch_query_service"]),
+          flush=True)
+    sim.close()
+    del sim, svc, client
+    gc.collect()
+    sim, out["naming"] = run_fleet("naming", data, "naming", device, log)
+    if not out["naming"]["mixed_rate"] > 0:
+        fail("[O] the naming baseline mixed no batch")
+    sim.close()
+    del sim
+    gc.collect()
+    sim, out["paper_query_server"] = run_fleet(
+        "paper behind the QueryServer", data, "paper", device, log,
+        use_query_server=True)
+    if out["paper_query_server"]["mixed_version_batches"]:
+        fail("[O] the paper protocol behind the QueryServer mixed versions")
+    sim.close()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3277,6 +3925,7 @@ def main() -> int:
             max_shard_bytes=CONFIG.max_shard_bytes,
             hot_fraction=CONFIG.hot_fraction, load_factor=CONFIG.load_factor,
             seed=2, device=device, log=log)
+    builds_n = start_n_builds()        # phase N's host tables
     counts, lanes_counts = dict(nl.launches), dict(nl.lanes_launches)
     print("launches on the main path: " + json.dumps(counts), flush=True)
     for k in ("probe_lines", "probe_smem"):
@@ -3286,6 +3935,45 @@ def main() -> int:
             or counts["probe_smem"] != m_b["launches"]:
         fail(f"kernel launches {counts} disagree with the engines' counts "
              f"A={m_a['launches']} B={m_b['launches']}")
+
+    # N: the paper's T1 and F9 through the two baselines' kernels and the
+    # batch probe, each launch held against its plain version as it runs
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    zero(nl.launches, nl.lanes_launches)
+    t_n = time.perf_counter()
+    state_n = drive_phase_n(device, eng_a, builds_n)
+    n_counts = dict(nl.launches)
+    print("[N] launches: " + json.dumps(n_counts), flush=True)
+    for k in ("probe_linear", "probe_sequential", "probe_lines"):
+        if n_counts[k] == 0:
+            fail(f"{k} was not launched in phase N")
+    m_n, n_rows = time_phase_n(state_n, flush)
+    print("[N] " + json.dumps(m_n), flush=True)
+    for row in n_rows:
+        row["launches"] = n_counts[row["name"]]
+    print(f"[N] took {time.perf_counter() - t_n:.1f} s", flush=True)
+    del state_n
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # O: the consistency protocol's fleet, its data plane on the card
+    print(f"reduced: phase O keys {CONFIG.n_items}->{O_KEYS}, embedding rows "
+          f"{CONFIG.n_items}->{O_EMB_ROWS}: each ClusterSim builds its own "
+          f"engine, and the host builder took 60.3 s at 4M keys")
+    zero(nl.launches, nl.lanes_launches)
+    t_o = time.perf_counter()
+    with LaunchLog() as log_o:
+        m_o = run_phase_o(device, log_o)
+    o_counts = dict(nl.launches)
+    m_o["launches"] = o_counts
+    m_o["seconds"] = time.perf_counter() - t_o
+    print("[O] " + json.dumps(m_o), flush=True)
+    if sum(o_counts[k] for k in ("probe_lines", "probe_smem")) == 0:
+        fail("no probe kernel was launched on phase O's fleet")
+    if o_counts["probe_linear"] or o_counts["probe_sequential"]:
+        fail(f"phase O launched a baseline kernel: {o_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     zero(nl.launches, fm.launches, fm.paths)
     with LaunchLog() as log_c, FMLog() as fm_log:
@@ -3353,15 +4041,17 @@ def main() -> int:
             or j_counts["embedding_bag_backward"]:
         fail(f"DeepFM training launched another kernel: {j_counts}")
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     kernels = []
     for name in ("probe_lines", "probe_smem"):
         row = measure(name, log.last[name], (eng_a, eng_b), log, flush)
-        row["launches"] = counts[name] + c_counts[name] + i_counts[name]
+        row["launches"] = counts[name] + n_counts[name] + o_counts[name] \
+            + c_counts[name] + i_counts[name]
         row["max_abs_err"] = max(row["max_abs_err"],
+                                 log_o.max_err.get(name, 0),
                                  log_c.max_err.get(name, 0),
                                  log_i.max_err.get(name, 0))
         kernels.append(row)
+    kernels.extend(n_rows)
     row = measure_fm(fm_log, flush, fm_log_e.last[0])
     row["launches"] = (c_counts["fused_fm"] + e_counts["fused_fm"]
                        + i_counts["fused_fm"] + j_counts["fused_fm"])

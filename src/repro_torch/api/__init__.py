@@ -15,7 +15,13 @@ One typed request/response protocol over every storage face:
                    router);
   - ``client``   — ``FeatureClient``, the session object every caller
                    uses; it fronts either a server (QoS-laned concurrent
-                   micro-batching) or a bare backend (direct calls).
+                   micro-batching) or a bare backend (direct calls);
+  - ``wire``     — the framed, pickle-free codec of every protocol
+                   message (JSON header plus raw array segments) and of
+                   typed errors, which decode as this package's own
+                   exception classes.
+
+``ClusterBackend`` fronts this package's own ``core/cluster_sim.ClusterSim``.
 """
 from repro_torch.api.types import (Consistency, ConsistencyError, QoSClass,
                                    QueryRequest, QueryResponse, UpdateRequest)

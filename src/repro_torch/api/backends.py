@@ -352,7 +352,8 @@ class StoreBackend:
 # ClusterSim replica fleets
 # ---------------------------------------------------------------------------
 class ClusterBackend:
-    """A replica fleet as a backend: the consistency pin resolves against
+    """A replica fleet (``core/cluster_sim.ClusterSim``, with its engine
+    data plane) as a backend: the consistency pin resolves against
     live replica *metadata* (a strict pin needs every shard to hold a live
     replica with that version; latest pins the fleet's newest common
     version), then the rows come from the fleet's shared engine data plane

@@ -100,6 +100,24 @@ def make_lookup_fn(table: HashTable):
 
 
 # ---------------------------------------------------------------------------
+# linear-probing lookup (T1 baseline — probe sequence, not chains)
+# ---------------------------------------------------------------------------
+def lookup_linear(key_hi_t, key_lo_t, val_hi_t, val_lo_t, q_hi, q_lo, *,
+                  capacity: int, max_probes: int, device=None):
+    """Linear probing over a built ``linear`` table: home ``hash64 %
+    capacity``, then the buckets that follow it (wrapping at ``capacity``)
+    until a hit or an empty bucket, at most ``max_probes`` steps past home.
+    Returns (found bool[N], payload_hi uint32[N], payload_lo uint32[N]) on
+    ``device`` (default: the queries' device when they are tensors, else
+    ``"cuda"``).  The table's ``next_idx`` plays no part, so none is
+    taken."""
+    found, p_hi, p_lo = ops.linear_lookup(
+        key_hi_t, key_lo_t, val_hi_t, val_lo_t, q_hi, q_lo,
+        capacity=capacity, max_probes=max_probes, device=device)
+    return found.view(torch.int32) != 0, p_hi, p_lo
+
+
+# ---------------------------------------------------------------------------
 # RA — the paper's "random access" throughput ceiling: hash + one gather.
 # ---------------------------------------------------------------------------
 def random_access(val_hi_t: torch.Tensor, val_lo_t: torch.Tensor,
@@ -108,3 +126,23 @@ def random_access(val_hi_t: torch.Tensor, val_lo_t: torch.Tensor,
         .clamp(0, val_hi_t.shape[0] - 1)
     return tuple(t.view(torch.int32)[idx].view(torch.uint32)
                  for t in (val_hi_t, val_lo_t))
+
+
+# ---------------------------------------------------------------------------
+# sequential (scalar-emulation) lookup — the "no IMV" baseline for Fig 9:
+# one query resolved at a time, no inter-query parallelism.
+# ---------------------------------------------------------------------------
+def lookup_sequential(key_hi_t, key_lo_t, val_hi_t, val_lo_t,
+                      next_idx_t: Optional[torch.Tensor], q_hi, q_lo, *,
+                      home_capacity: int, inline: bool, host_check: bool,
+                      max_probes: int, device=None):
+    """``lookup``'s answers with no inter-query parallelism: on the card one
+    thread resolves the queries one after another (the kernel
+    ``probe_sequential``), on the CPU the plain probe runs on one query at
+    a time.  Same arguments and returns as ``lookup``."""
+    found, p_hi, p_lo = ops.sequential_lookup(
+        key_hi_t, key_lo_t, val_hi_t, val_lo_t, q_hi, q_lo,
+        max_probes=max_probes, home_capacity=home_capacity,
+        host_check=host_check, next_idx=None if inline else next_idx_t,
+        device=device)
+    return found.view(torch.int32) != 0, p_hi, p_lo

@@ -1,6 +1,8 @@
 // NeighborHash batch probe on Hopper (sm_90a): the two hand-written kernels
-// behind repro_torch.kernels.neighbor_lookup, and the RA gather that the
-// paper holds the probe's throughput against.  Built with
+// behind repro_torch.kernels.neighbor_lookup, the RA gather that the paper
+// holds the probe's throughput against, and the paper's two baselines: the
+// linear-probing lookup (Table 1) and the sequential, one-query-at-a-time
+// probe (Fig. 9).  Built with
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libprobe.so probe.cu
@@ -498,6 +500,94 @@ __global__ void __launch_bounds__(kRaThreads) random_access_kernel(
   out[n + i] = __ldg(w + 3 * kBpl);      // val_lo
 }
 
+// ---------------------------------------------------------------------------
+// probe_linear — the T1 baseline, not a TPU kernel: the function of
+// src/repro/core/lookup.py::lookup_linear (and of the port's
+// core/lookup.lookup_linear), linear probing over the same line-packed
+// layout.  Hash to home = hash64 % capacity; hit if both key halves match a
+// non-empty bucket; miss on an empty bucket; else step to (idx + 1) %
+// capacity, at most max_probes steps past home (a query still going at the
+// bound reports not found, as the reference's while_loop leaves it).
+//
+// One thread a query, its buckets read as probe_lines's one-thread form
+// reads them (GlobalTable).  Eight consecutive buckets share one 128 B
+// line, so most steps read the line the step left, from L1: that locality
+// is linear probing's whole case against chaining, and the run's length is
+// what it pays for it.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kLinesThreads) probe_linear_kernel(
+    const uint32_t* __restrict__ lines, uint32_t capacity, int64_t max_probes,
+    const uint32_t* __restrict__ q_hi, const uint32_t* __restrict__ q_lo,
+    uint32_t* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const uint32_t qh = q_hi[i], ql = q_lo[i];
+  const GlobalTable table{lines, nullptr};
+  uint32_t idx = hash64(qh, ql) % capacity;
+  Bucket k = table.bucket(idx);
+  bool empty = k.khi == kEmpty && k.klo == kEmpty;
+  bool hit = !empty && k.khi == qh && k.klo == ql;
+  bool active = !empty && !hit;
+  for (int64_t step = 0; active && step < max_probes; ++step) {
+    idx = idx + 1 == capacity ? 0u : idx + 1;       // (idx + 1) % capacity
+    k = table.bucket(idx);
+    empty = k.khi == kEmpty && k.klo == kEmpty;
+    hit = !empty && k.khi == qh && k.klo == ql;
+    active = !empty && !hit;
+  }
+  out[i] = hit ? 1u : 0u;
+  out[n + i] = hit ? (k.vhi & kPayloadHiMask) : 0u;
+  out[2 * n + i] = hit ? k.vlo : 0u;
+}
+
+// ---------------------------------------------------------------------------
+// probe_sequential — the Fig. 9 baseline, not a TPU kernel: the card's
+// counterpart of src/repro/core/lookup.py::lookup_sequential (lax.map over
+// one-query lookups).  One thread resolves the queries one after another,
+// each through probe_one over GlobalTable, the per-query function of
+// probe_lines's one-thread form (inline offsets or next_idx, and the lodger
+// check), so no query's loads overlap another's.  Bound: the chain of
+// dependent loads, queries x lines a query x the card's load latency.
+// ---------------------------------------------------------------------------
+__global__ void probe_sequential_kernel(
+    const uint32_t* __restrict__ lines, const int32_t* __restrict__ next_idx,
+    int64_t capacity, uint32_t home_capacity, int64_t max_probes,
+    bool host_check, const uint32_t* __restrict__ q_hi,
+    const uint32_t* __restrict__ q_lo, uint32_t* __restrict__ out,
+    int64_t n) {
+  GlobalTable table{lines, next_idx};
+  for (int64_t i = 0; i < n; ++i) {
+    const Answer a = probe_one(table, capacity, home_capacity, max_probes,
+                               host_check, q_hi[i], q_lo[i]);
+    out[i] = a.found;
+    out[n + i] = a.p_hi;
+    out[2 * n + i] = a.p_lo;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// load_chain — a yardstick, not a TPU kernel: the card's dependent-load
+// latency, which bounds probe_sequential, measured apart from it.  One
+// thread follows a chain of 128 B lines: word 0 of each line holds the
+// index of the next, so each load's address is the load before it, with no
+// hash or compare between them.  The loads are plain global loads, as
+// GlobalTable's; an index past the last line is clipped to it (one integer
+// min a load, a few cycles against the load's hundreds), so a bad chain
+// reads nothing outside the buffer.  out[0] = the line reached after
+// `steps` loads.
+// ---------------------------------------------------------------------------
+__global__ void load_chain_kernel(const int32_t* words, uint32_t last,
+                                  uint32_t start, int64_t steps,
+                                  int64_t* out) {
+  uint32_t line = start;
+  for (int64_t s = 0; s < steps; ++s)
+    line = min(static_cast<uint32_t>(words[static_cast<int64_t>(line) *
+                                           kLineWords]),
+               last);
+  *out = line;
+}
+
 Segments segments(const long long* seg_end, int n_tables) {
   Segments s{};
   for (int t = 0; t < n_tables && t < kMaxTables; ++t) s.end[t] = seg_end[t];
@@ -605,5 +695,60 @@ extern "C" int repro_random_access(const void* lines, long long capacity,
       static_cast<const uint32_t*>(lines), static_cast<uint32_t>(capacity),
       static_cast<const uint32_t*>(q_hi),
       static_cast<const uint32_t*>(q_lo), static_cast<uint32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lines: uint32 [n_lines, 4, kBpl] holding at least `capacity` buckets,
+// capacity in [1, 2^32); out: uint32 [3, n] (found, payload_hi, payload_lo);
+// n >= 1.
+extern "C" int repro_probe_linear(const void* lines, long long capacity,
+                                  long long max_probes, const void* q_hi,
+                                  const void* q_lo, void* out, long long n,
+                                  void* stream) {
+  if (capacity < 1 || capacity > 0xFFFFFFFFll || max_probes < 0 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto blocks = static_cast<unsigned>((n + kLinesThreads - 1) /
+                                            kLinesThreads);
+  probe_linear_kernel<<<blocks, kLinesThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(lines), static_cast<uint32_t>(capacity),
+      max_probes, static_cast<const uint32_t*>(q_hi),
+      static_cast<const uint32_t*>(q_lo), static_cast<uint32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lines as above, `capacity` buckets; next_idx: int32 [capacity] or null
+// (inline offsets); home_capacity in [1, capacity]; out as above; n >= 1.
+// One block of one thread.
+extern "C" int repro_probe_sequential(const void* lines, const void* next_idx,
+                                      long long capacity,
+                                      long long home_capacity,
+                                      long long max_probes, int host_check,
+                                      const void* q_hi, const void* q_lo,
+                                      void* out, long long n, void* stream) {
+  if (home_capacity < 1 || home_capacity > capacity ||
+      capacity > 0xFFFFFFFFll || max_probes < 0 || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  probe_sequential_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(lines),
+      static_cast<const int32_t*>(next_idx), capacity,
+      static_cast<uint32_t>(home_capacity), max_probes, host_check != 0,
+      static_cast<const uint32_t*>(q_hi), static_cast<const uint32_t*>(q_lo),
+      static_cast<uint32_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// words: int32 [n_lines, kLineWords], word 0 of each line the index of the
+// next; n_lines in [1, 2^32); out: int64 [1]; start in [0, n_lines),
+// steps >= 0.  One block of one thread.
+extern "C" int repro_load_chain(const void* words, long long n_lines,
+                                long long start, long long steps, void* out,
+                                void* stream) {
+  if (n_lines < 1 || n_lines > 0xFFFFFFFFll || start < 0 ||
+      start >= n_lines || steps < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  load_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(words), static_cast<uint32_t>(n_lines - 1),
+      static_cast<uint32_t>(start), steps, static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

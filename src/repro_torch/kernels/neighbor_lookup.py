@@ -17,9 +17,16 @@ package's two Pallas kernels:
   ``TableGroup.slice_words`` words by bulk async copies, and probes it
   through distributed shared memory.
 
-Beside them, ``random_access`` is the paper's RA yardstick (not a TPU
-kernel): each key hashed to its home bucket and both value words gathered
-there, from the same line-packed table, one thread a key.
+Beside them, three kernels that are not TPU kernels read the same
+line-packed table: ``random_access``, the paper's RA yardstick (each key
+hashed to its home bucket and both value words gathered there, one thread
+a key); ``probe_linear``, the linear-probing lookup of the T1 baseline
+(``core/lookup.lookup_linear``, one thread a query); and
+``probe_sequential``, the no-parallelism baseline of Fig. 9
+(``core/lookup.lookup_sequential``: one thread resolves the queries one
+after another).  ``load_chain``, a yardstick for the last, follows a chain
+of dependent line loads with one thread: the card's load latency, measured
+apart from any probe.
 
 The probes launch once per ``TableGroup`` (one engine shard): a device
 array of table descriptors, uploaded when the group is made, and the ends
@@ -58,7 +65,8 @@ DESC_FIELDS = ("lines", "next_idx", "capacity", "home_capacity",
                "max_probes", "host_check", "smem_lines", "smem_next",
                "n_lines")
 
-launches = {"probe_lines": 0, "probe_smem": 0, "random_access": 0}
+launches = {"probe_lines": 0, "probe_smem": 0, "random_access": 0,
+            "probe_linear": 0, "probe_sequential": 0, "load_chain": 0}
 lanes_launches = {1: 0, LINE_LANES: 0}   # probe_lines's, by lanes
 
 _lock = threading.Lock()
@@ -232,6 +240,13 @@ def _bind(lib: ctypes.CDLL) -> None:
                                      ll, vp]
     lib.repro_random_access.argtypes = [vp, ll, vp, vp, vp, ll, vp]
     lib.repro_random_access.restype = ctypes.c_int
+    lib.repro_probe_linear.argtypes = [vp, ll, ll, vp, vp, vp, ll, vp]
+    lib.repro_probe_linear.restype = ctypes.c_int
+    lib.repro_probe_sequential.argtypes = [vp, vp, ll, ll, ll, ctypes.c_int,
+                                           vp, vp, vp, ll, vp]
+    lib.repro_probe_sequential.restype = ctypes.c_int
+    lib.repro_load_chain.argtypes = [vp, ll, ll, ll, vp, vp]
+    lib.repro_load_chain.restype = ctypes.c_int
     lib.repro_probe_init.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     lib.repro_probe_init.restype = ctypes.c_int
     lib.repro_probe_lines.restype = ctypes.c_int
@@ -343,18 +358,14 @@ def probe_smem(group: TableGroup, q_hi: torch.Tensor, q_lo: torch.Tensor,
     return _launch("probe_smem", group, q_hi, q_lo, seg)
 
 
-def random_access(table: DeviceTable, q_hi: torch.Tensor, q_lo: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The paper's RA gather on the card: each key of ``q_hi`` / ``q_lo``
-    (contiguous uint32 [N] on the table's device) hashed to ``hash64 %
-    capacity`` (the table's) and both value words of that bucket read from
-    its lines -> (val_hi, val_lo) uint32 [N], the function of
-    ``core/lookup.random_access``, on the current stream.  Raises on
-    anything else."""
+def _one_table_launch(name: str, table: DeviceTable, q_hi: torch.Tensor,
+                      q_lo: torch.Tensor, rows: int, launch) -> torch.Tensor:
+    """Checks a one-table kernel's operands, makes its uint32 [rows, N]
+    output and, for N > 0, calls ``launch(lib, out, n, stream)``, which
+    returns the entry point's CUDA error; counts the launch."""
     if table.lines.device.type != "cuda":
-        raise ValueError("random_access takes CUDA tensors; CPU tensors go "
-                         "to core/lookup.random_access through "
-                         "kernels/ops.py")
+        raise ValueError(f"{name} takes CUDA tensors; CPU tensors go to "
+                         "its plain version through kernels/ops.py")
     _check_table(table, table.lines.device)
     for q in (q_hi, q_lo):
         if q.device != table.lines.device or q.dtype != torch.uint32 \
@@ -364,17 +375,93 @@ def random_access(table: DeviceTable, q_hi: torch.Tensor, q_lo: torch.Tensor
     if q_hi.shape != q_lo.shape:
         raise ValueError("q_hi / q_lo lengths differ")
     n = q_hi.shape[0]
-    out = torch.empty((2, n), dtype=torch.int32,
+    out = torch.empty((rows, n), dtype=torch.int32,
                       device=q_hi.device).view(torch.uint32)
     if n == 0:
-        return out[0], out[1]
-    lib = _library()
+        return out
     stream = torch.cuda.current_stream(q_hi.device).cuda_stream
-    err = lib.repro_random_access(table.lines.data_ptr(), table.capacity,
-                                  q_hi.data_ptr(), q_lo.data_ptr(),
-                                  out.data_ptr(), n, stream)
+    err = launch(_library(), out, n, stream)
     if err != 0:
-        raise RuntimeError(f"random_access launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     with _lock:
-        launches["random_access"] += 1
+        launches[name] += 1
+    return out
+
+
+def random_access(table: DeviceTable, q_hi: torch.Tensor, q_lo: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paper's RA gather on the card: each key of ``q_hi`` / ``q_lo``
+    (contiguous uint32 [N] on the table's device) hashed to ``hash64 %
+    capacity`` (the table's) and both value words of that bucket read from
+    its lines -> (val_hi, val_lo) uint32 [N], the function of
+    ``core/lookup.random_access``, on the current stream.  Raises on
+    anything else."""
+    out = _one_table_launch(
+        "random_access", table, q_hi, q_lo, 2,
+        lambda lib, out, n, stream: lib.repro_random_access(
+            table.lines.data_ptr(), table.capacity, q_hi.data_ptr(),
+            q_lo.data_ptr(), out.data_ptr(), n, stream))
     return out[0], out[1]
+
+
+def probe_linear(table: DeviceTable, q_hi: torch.Tensor, q_lo: torch.Tensor
+                 ) -> torch.Tensor:
+    """Linear probing over a line-packed table on the card -> uint32 [3, N]
+    (found, payload_hi, payload_lo), the function of
+    ``core/lookup.lookup_linear``: home ``hash64 % capacity``, then
+    ``(idx + 1) % capacity`` until a hit, an empty bucket or
+    ``table.max_probes`` steps past home.  The table's ``next_idx``,
+    ``home_capacity`` and ``host_check`` are not read.  Raises on CPU
+    tensors."""
+    return _one_table_launch(
+        "probe_linear", table, q_hi, q_lo, 3,
+        lambda lib, out, n, stream: lib.repro_probe_linear(
+            table.lines.data_ptr(), table.capacity, table.max_probes,
+            q_hi.data_ptr(), q_lo.data_ptr(), out.data_ptr(), n, stream))
+
+
+def probe_sequential(table: DeviceTable, q_hi: torch.Tensor,
+                     q_lo: torch.Tensor) -> torch.Tensor:
+    """The probe of ``probe_lines`` (one table) with no parallelism: one
+    thread resolves the queries one after another -> uint32 [3, N], the
+    function of ``core/lookup.lookup_sequential``.  Raises on CPU
+    tensors."""
+    nxt = table.next_idx
+    return _one_table_launch(
+        "probe_sequential", table, q_hi, q_lo, 3,
+        lambda lib, out, n, stream: lib.repro_probe_sequential(
+            table.lines.data_ptr(), None if nxt is None else nxt.data_ptr(),
+            table.capacity, table.home_capacity, table.max_probes,
+            int(table.host_check), q_hi.data_ptr(), q_lo.data_ptr(),
+            out.data_ptr(), n, stream))
+
+
+def load_chain(words: torch.Tensor, start: int, steps: int
+               ) -> torch.Tensor:
+    """One thread follows ``steps`` dependent loads through ``words``
+    (contiguous int32 [n_lines, 32] on the card: 128 B lines, word 0 of
+    each the index of the next line) from line ``start`` -> int64 [1], the
+    line reached, the function of ``ref.load_chain``, on the current
+    stream.  Each load's address is
+    the load before it, so the launch's time over ``steps`` is the card's
+    dependent-load latency.  A word 0 past the last line is read as the
+    last line.  Raises on CPU tensors."""
+    if words.device.type != "cuda":
+        raise ValueError("load_chain takes a CUDA tensor; a CPU chain goes "
+                         "to ref.load_chain")
+    if words.dtype != torch.int32 or words.dim() != 2 \
+            or words.shape[1] != 4 * BUCKETS_PER_LINE \
+            or not words.is_contiguous():
+        raise ValueError("words must be contiguous int32 [n_lines, 32]")
+    n_lines = words.shape[0]
+    if not 0 <= start < n_lines or steps < 0:
+        raise ValueError("start or steps out of range")
+    out = torch.empty(1, dtype=torch.int64, device=words.device)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _library().repro_load_chain(words.data_ptr(), n_lines, start, steps,
+                                      out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"load_chain launch failed: CUDA error {err}")
+    with _lock:
+        launches["load_chain"] += 1
+    return out

@@ -1,5 +1,6 @@
 """Dispatch for the port's kernels: the probe (and the RA gather it is
-measured against), the FM term and the bag lookup.
+measured against, and its linear-probing and sequential baselines), the FM
+term and the bag lookup.
 
 A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
 launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``,
@@ -69,14 +70,27 @@ def table_group(key_hi, key_lo, val_hi, val_lo, *, max_probes: int,
     ``device``, line-packed where the arrays lie: tensors already on
     ``device`` never pass through the host.  ``next_idx`` None follows the
     inline offsets."""
+    return _nl.TableGroup([one_table(
+        key_hi, key_lo, val_hi, val_lo, max_probes=max_probes,
+        home_capacity=home_capacity, host_check=host_check,
+        next_idx=next_idx, device=device)])
+
+
+def one_table(key_hi, key_lo, val_hi, val_lo, *, max_probes: int,
+              home_capacity: Optional[int] = None, host_check: bool = True,
+              next_idx=None, capacity: Optional[int] = None,
+              device) -> _nl.DeviceTable:
+    """One SoA table (numpy arrays or tensors) line-packed as a
+    ``DeviceTable`` on ``device`` (see ``table_group``); ``capacity``
+    defaults to the arrays' length."""
     arrays = dict(key_hi=key_hi, key_lo=key_lo, val_hi=val_hi, val_lo=val_lo)
     if next_idx is not None:
         arrays["next_idx"] = next_idx
-    capacity = key_hi.shape[0]
-    return _nl.TableGroup([_nl.device_table(
+    capacity = capacity or key_hi.shape[0]
+    return _nl.device_table(
         arrays, capacity=capacity, home_capacity=home_capacity or capacity,
         host_check=host_check, max_probes=max_probes,
-        device=resolve_device(device))])
+        device=resolve_device(device))
 
 
 def probe_table_group(group: _nl.TableGroup, q_hi, q_lo):
@@ -104,13 +118,71 @@ def neighbor_lookup(key_hi, key_lo, val_hi, val_lo, q_hi, q_lo, *,
     line-packed for this one call; to probe a table many times, make its
     group once with ``table_group`` (``core/lookup.make_lookup_fn`` does).
     ``next_idx`` None follows the inline offsets."""
-    if device is None and isinstance(q_hi, torch.Tensor):
-        device = q_hi.device
     group = table_group(key_hi, key_lo, val_hi, val_lo,
                         max_probes=max_probes, home_capacity=home_capacity,
                         host_check=host_check, next_idx=next_idx,
-                        device=device)
+                        device=_query_device(q_hi, device))
     return probe_table_group(group, q_hi, q_lo)
+
+
+def _query_device(q_hi, device):
+    """The device a lookup runs on: ``device``, by default that of
+    ``q_hi`` when it is a tensor, else ``"cuda"``."""
+    if device is None and isinstance(q_hi, torch.Tensor):
+        return q_hi.device
+    return device
+
+
+def probe_linear(table: _nl.DeviceTable, q_hi: torch.Tensor,
+                 q_lo: torch.Tensor) -> torch.Tensor:
+    """Linear probing of one line-packed table -> uint32 [3, N]: the plain
+    version for a CPU table, the ``probe_linear`` kernel for a CUDA one."""
+    if table.lines.device.type == "cpu":
+        return _ref.probe_linear(table.lines, q_hi, q_lo,
+                                 capacity=table.capacity,
+                                 max_probes=table.max_probes)
+    return _nl.probe_linear(table, q_hi, q_lo)
+
+
+def probe_sequential(table: _nl.DeviceTable, q_hi: torch.Tensor,
+                     q_lo: torch.Tensor) -> torch.Tensor:
+    """The probe of one table, one query after another -> uint32 [3, N]:
+    the plain version for a CPU table, the ``probe_sequential`` kernel for
+    a CUDA one."""
+    if table.lines.device.type == "cpu":
+        return _ref.probe_sequential(
+            table.lines, table.next_idx, q_hi, q_lo, capacity=table.capacity,
+            home_capacity=table.home_capacity, host_check=table.host_check,
+            max_probes=table.max_probes)
+    return _nl.probe_sequential(table, q_hi, q_lo)
+
+
+def linear_lookup(key_hi, key_lo, val_hi, val_lo, q_hi, q_lo, *,
+                  capacity: int, max_probes: int, device=None):
+    """Linear probing of one SoA table (no ``next_idx``: the probe sequence
+    is the buckets that follow home) -> (found u32[N], payload_hi u32[N],
+    payload_lo u32[N]) on ``device``, chosen as ``neighbor_lookup``
+    chooses it."""
+    device = _query_device(q_hi, device)
+    table = one_table(key_hi, key_lo, val_hi, val_lo, max_probes=max_probes,
+                      host_check=False, capacity=capacity, device=device)
+    q_hi, q_lo = (_query_words(q, table.lines.device) for q in (q_hi, q_lo))
+    out = probe_linear(table, q_hi, q_lo)
+    return out[0], out[1], out[2]
+
+
+def sequential_lookup(key_hi, key_lo, val_hi, val_lo, q_hi, q_lo, *,
+                      max_probes: int, home_capacity: Optional[int] = None,
+                      host_check: bool = True, next_idx=None, device=None):
+    """``neighbor_lookup`` with the queries resolved one after another
+    (the Fig. 9 baseline) -> (found, payload_hi, payload_lo) u32[N]."""
+    device = _query_device(q_hi, device)
+    table = one_table(key_hi, key_lo, val_hi, val_lo, max_probes=max_probes,
+                      home_capacity=home_capacity, host_check=host_check,
+                      next_idx=next_idx, device=device)
+    q_hi, q_lo = (_query_words(q, table.lines.device) for q in (q_hi, q_lo))
+    out = probe_sequential(table, q_hi, q_lo)
+    return out[0], out[1], out[2]
 
 
 def random_access(table: _nl.DeviceTable, q_hi: torch.Tensor,

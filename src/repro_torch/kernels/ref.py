@@ -5,7 +5,12 @@
   (line-packed tables, uint32 queries, query segments) and return the same
   uint32 ``[3, N]``.  The whole batch advances one chain step per iteration
   under an active-lane mask, as the JAX package's ``core/lookup.lookup``
-  does.
+  does.  ``probe_linear``, of the linear-probing kernel (the JAX package's
+  ``core/lookup.lookup_linear``), and ``probe_sequential``, of the
+  sequential one (``probe_table`` one query at a time, as the JAX
+  package's ``lookup_sequential`` maps its one-query lookups).
+  ``load_chain``, of the load-latency yardstick: a chain of line indices
+  followed one hop at a time.
 * ``fused_fm``, of the FM kernel in ``fused_fm.py``: the JAX package's
   ``kernels/ref.fused_fm``; ``fused_fm_backward``, of its gradient kernel
   (the JAX package has none: it differentiates that oracle).
@@ -42,6 +47,19 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).view(torch.uint32)
 
 
+def _reader(lines: torch.Tensor, capacity: int):
+    """read(idx, field) -> int64 word ``field`` (key_hi, key_lo, val_hi,
+    val_lo) of buckets ``idx`` of a line-packed table (uint32 [n_lines, 4,
+    BPL]), each index clamped into ``[0, capacity)``."""
+    bpl = lines.shape[-1]
+    flat = lines.reshape(-1).view(torch.int32)     # gathers move int32 words
+
+    def read(idx: torch.Tensor, field: int) -> torch.Tensor:
+        b = idx.clamp(0, capacity - 1)
+        return u32(flat[(b // bpl) * (4 * bpl) + field * bpl + b % bpl])
+    return read
+
+
 def probe_table(lines: torch.Tensor, next_idx: Optional[torch.Tensor],
                 q_hi: torch.Tensor, q_lo: torch.Tensor, *, capacity: int,
                 home_capacity: int, host_check: bool,
@@ -50,13 +68,7 @@ def probe_table(lines: torch.Tensor, next_idx: Optional[torch.Tensor],
     uint32 [3, N]: found, payload_hi (20 bits), payload_lo.  ``next_idx``
     None follows the inline offsets.  Reads clamp the bucket index into
     ``[0, capacity)``; the chain position itself is carried unclamped."""
-    bpl = lines.shape[-1]
-    flat = lines.reshape(-1).view(torch.int32)     # gathers move int32 words
-
-    def read(idx: torch.Tensor, field: int) -> torch.Tensor:
-        b = idx.clamp(0, capacity - 1)
-        return u32(flat[(b // bpl) * (4 * bpl) + field * bpl + b % bpl])
-
+    read = _reader(lines, capacity)
     qh, ql = u32(q_hi), u32(q_lo)
     idx = hc.bucket_of_torch(qh, ql, home_capacity)
     khi, klo, vhi, vlo = (read(idx, f) for f in range(4))
@@ -86,6 +98,68 @@ def probe_table(lines: torch.Tensor, next_idx: Optional[torch.Tensor],
         p_lo = torch.where(hit, vlo, p_lo)
         active &= ~hit
     return as_u32(torch.stack([found.long(), p_hi, p_lo]))
+
+
+def probe_linear(lines: torch.Tensor, q_hi: torch.Tensor,
+                 q_lo: torch.Tensor, *, capacity: int,
+                 max_probes: int) -> torch.Tensor:
+    """Plain version of ``neighbor_lookup.probe_linear``: linear probing of
+    one line-packed table -> uint32 [3, N] (found, payload_hi, payload_lo).
+    Home ``hash64 % capacity``; each active query steps to ``(idx + 1) %
+    capacity`` until a hit, an empty bucket, or ``max_probes`` steps past
+    home, the whole batch one step per iteration as the JAX package's
+    ``lookup_linear`` does."""
+    read = _reader(lines, capacity)
+    qh, ql = u32(q_hi), u32(q_lo)
+    idx = hc.bucket_of_torch(qh, ql, capacity)
+    khi, klo, vhi, vlo = (read(idx, f) for f in range(4))
+    empty = (khi == hc.EMPTY_HI) & (klo == hc.EMPTY_LO)
+    hit = (khi == qh) & (klo == ql) & ~empty
+    found = hit
+    p_hi = torch.where(hit, vhi & hc.PAYLOAD_HI_MASK, 0)
+    p_lo = torch.where(hit, vlo, 0)
+    active = ~empty & ~hit
+    for _ in range(max_probes):
+        if not bool(active.any()):
+            break
+        idx = torch.where(active, (idx + 1) % capacity, idx)
+        khi, klo, vhi, vlo = (read(idx, f) for f in range(4))
+        empty = (khi == hc.EMPTY_HI) & (klo == hc.EMPTY_LO)
+        hit = active & (khi == qh) & (klo == ql) & ~empty
+        found = found | hit
+        p_hi = torch.where(hit, vhi & hc.PAYLOAD_HI_MASK, p_hi)
+        p_lo = torch.where(hit, vlo, p_lo)
+        active &= ~hit & ~empty
+    return as_u32(torch.stack([found.long(), p_hi, p_lo]))
+
+
+def probe_sequential(lines: torch.Tensor, next_idx: Optional[torch.Tensor],
+                     q_hi: torch.Tensor, q_lo: torch.Tensor, *,
+                     capacity: int, home_capacity: int, host_check: bool,
+                     max_probes: int) -> torch.Tensor:
+    """Plain version of ``neighbor_lookup.probe_sequential``: ``probe_table``
+    called on one query at a time -> uint32 [3, N]."""
+    out = torch.zeros((3, q_hi.shape[0]), dtype=torch.int32,
+                      device=q_hi.device)
+    for i in range(q_hi.shape[0]):
+        out[:, i:i + 1] = probe_table(
+            lines, next_idx, q_hi[i:i + 1], q_lo[i:i + 1], capacity=capacity,
+            home_capacity=home_capacity, host_check=host_check,
+            max_probes=max_probes).view(torch.int32)
+    return out.view(torch.uint32)
+
+
+def load_chain(words: torch.Tensor, start: int, steps: int) -> torch.Tensor:
+    """Plain version of ``neighbor_lookup.load_chain``: ``steps`` hops from
+    line ``start`` of int32 [n_lines, 32], each to the line that word 0 of
+    the current one names (read as unsigned, past the last line clipped to
+    it) -> int64 [1], the line reached."""
+    last = words.shape[0] - 1
+    heads = [min(h & 0xFFFFFFFF, last) for h in words[:, 0].tolist()]
+    line = start
+    for _ in range(steps):
+        line = heads[line]
+    return torch.tensor([line], dtype=torch.int64, device=words.device)
 
 
 def probe_group(group, q_hi: torch.Tensor, q_lo: torch.Tensor,

@@ -16,6 +16,7 @@ test_torch_streaming.py.  Run on a CUDA machine with
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
 import contextlib
+import dataclasses
 import threading
 import time
 
@@ -1671,3 +1672,253 @@ def test_bst_and_two_tower_train_launchers_on_card(arch, capsys):
     assert launched == ({"embedding_bag": 3, "embedding_bag_backward": 3}
                         if arch == "two-tower-retrieval" else {})
     assert capsys.readouterr().out.rstrip().endswith("done")
+
+
+# ---------------------------------------------------------------------------
+# probe_linear and probe_sequential: the T1 and Fig. 9 baselines
+# ---------------------------------------------------------------------------
+def _linear_table(device, t, max_probes=None):
+    """A built linear table's lines (no next_idx) on ``device``, as
+    ``ops.linear_lookup`` makes them."""
+    a = t.device_arrays()
+    return ops.one_table(
+        a["key_hi"], a["key_lo"], a["val_hi"], a["val_lo"],
+        capacity=t.capacity, host_check=False, device=device,
+        max_probes=max(t.max_probe_len() + 1, 2) if max_probes is None
+        else max_probes)
+
+
+def _baseline_both(kernel, plain, table_of, t, q):
+    """``kernel`` on the card against ``plain`` on the same table on the
+    card, bitwise; and the card's answer against the CPU's."""
+    qh, ql = (nl.to_device(x, "cuda") for x in hc.key_split_np(q))
+    table = table_of("cuda", t)
+    name = kernel.__name__
+    before = nl.launches[name]
+    got = kernel(table, qh, ql)
+    assert nl.launches[name] == before + int(len(q) > 0)
+    want = plain(table, qh, ql)
+    cpu = plain(table_of("cpu", t), qh.cpu(), ql.cpu())
+    torch.cuda.synchronize()
+    assert got.shape == (3, len(q)) and got.dtype == torch.uint32
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got).cpu(), _bits(cpu))
+    return got.cpu()
+
+
+def _device_table_of(device, t):
+    return _device_table(t, device)
+
+
+def _plain_linear(table, qh, ql):
+    return ref.probe_linear(table.lines, qh, ql, capacity=table.capacity,
+                            max_probes=table.max_probes)
+
+
+def _plain_sequential(table, qh, ql):
+    return ref.probe_sequential(
+        table.lines, table.next_idx, qh, ql, capacity=table.capacity,
+        home_capacity=table.home_capacity, host_check=table.host_check,
+        max_probes=table.max_probes)
+
+
+@pytest.mark.parametrize("lf", [0.5, 0.8, 0.95])
+@pytest.mark.parametrize("n_q", [0, 1, 255, 256, 257, 4096, 70_000])
+def test_probe_linear_matches_plain(n_q, lf):
+    keys, t = _table("linear", 5000, seed=n_q + 1, lf=lf)
+    q = _queries(keys, n_q, 0.9, seed=n_q)
+    got = _baseline_both(nl.probe_linear, _plain_linear, _linear_table, t, q)
+    hf, hp = t.lookup_host_batch(q)
+    np.testing.assert_array_equal(got[0].numpy().astype(bool), hf)
+    np.testing.assert_array_equal(
+        (got[1].numpy().astype(np.uint64) << np.uint64(32))
+        | got[2].numpy().astype(np.uint64), hp)
+
+
+def _wrapping_linear(n_tail=10, capacity=64):
+    cand = np.arange(2**41, 2**41 + 200_000, dtype=np.uint64)
+    homes = hc.bucket_of_np(*hc.key_split_np(cand), capacity)
+    tail = cand[homes >= capacity - 4][:n_tail]
+    rest = cand[(homes > 8) & (homes < capacity - 8)][:12]
+    keys = np.concatenate([tail, rest])
+    t = nh.build(keys, keys & np.uint64(0xFFFFFFFFFF), variant="linear",
+                 capacity=capacity)
+    misses = cand[homes >= capacity - 2]
+    return keys, misses[~np.isin(misses, keys)][:16], t
+
+
+def test_probe_linear_wraps_past_the_end():
+    keys, misses, t = _wrapping_linear()
+    q = np.concatenate([keys, misses])
+    got = _baseline_both(nl.probe_linear, _plain_linear, _linear_table, t, q)
+    assert got[0, :len(keys)].bool().all() and not got[0, len(keys):].any()
+
+
+@pytest.mark.parametrize("max_probes", [0, 1, 2, 4])
+def test_probe_linear_max_probes_cut_off(max_probes):
+    keys, misses, t = _wrapping_linear(n_tail=14)
+    q = np.concatenate([keys, misses])
+    got = _baseline_both(
+        nl.probe_linear, _plain_linear,
+        lambda d, t: _linear_table(d, t, max_probes=max_probes), t, q)
+    assert 0 < int(got[0].sum()) < len(keys)
+
+
+@pytest.mark.parametrize("variant", nh.VARIANTS)
+@pytest.mark.parametrize("n_q", [0, 1, 255, 257, 600])
+def test_probe_sequential_matches_plain(variant, n_q):
+    """Every variant, inline offsets and next_idx chains (``coalesced``'s
+    cellar chains among them), with lodgers at LF 0.95."""
+    keys, t = _table(variant, 3000, seed=n_q + 2, lf=0.95)
+    q = _queries(keys, n_q, 0.8, seed=n_q)
+    got = _baseline_both(nl.probe_sequential, _plain_sequential,
+                         _device_table_of, t, q)
+    qh, ql = (nl.to_device(x, "cuda") for x in hc.key_split_np(q))
+    batch = nl.probe_lines(nl.TableGroup([_device_table_of("cuda", t)]),
+                           qh, ql, [0, n_q]) if n_q else got
+    assert torch.equal(_bits(got), _bits(batch).cpu())
+
+
+@pytest.mark.parametrize("max_probes", [0, 1, 2])
+def test_probe_sequential_max_probes_cut_off(max_probes):
+    keys, t = _table("coalesced", 3000, seed=5, lf=0.95)
+    q = _queries(keys, 300, 1.0, seed=5)
+
+    def table_of(device, t):
+        return dataclasses.replace(_device_table(t, device),
+                                   max_probes=max_probes)
+    got = _baseline_both(nl.probe_sequential, _plain_sequential, table_of,
+                         t, q)
+    assert 0 < int(got[0].sum()) < len(q)
+
+
+def test_baseline_lookups_through_core_lookup_on_card():
+    """``core/lookup``'s two baselines on the card (the kernels) equal the
+    same calls on the CPU (the plain versions)."""
+    keys, t = _table("linear", 4000, seed=8)
+    q = _queries(keys, 1000, 0.9, seed=8)
+    qh, ql = hc.key_split_np(q)
+    a = t.device_arrays()
+    for device in ("cuda", "cpu"):
+        got = lk.lookup_linear(a["key_hi"], a["key_lo"], a["val_hi"],
+                               a["val_lo"], qh, ql, capacity=t.capacity,
+                               max_probes=t.max_probe_len() + 1,
+                               device=device)
+        if device == "cuda":
+            card = [x.cpu() for x in got]
+        else:
+            for g, c in zip(got, card):
+                assert torch.equal(g.view(torch.uint8), c.view(torch.uint8))
+    keys, t = _table("neighborhash", 4000, seed=9)
+    q = _queries(keys, 300, 0.9, seed=9)
+    qh, ql = hc.key_split_np(q)
+    a = t.device_arrays()
+    out = [lk.lookup_sequential(a["key_hi"], a["key_lo"], a["val_hi"],
+                                a["val_lo"], None, qh, ql, device=d,
+                                **lk.probe_statics(t))
+           for d in ("cuda", "cpu")]
+    for g, c in zip(*out):
+        assert torch.equal(g.cpu().view(torch.uint8), c.view(torch.uint8))
+
+
+def test_baselines_reject_what_they_do_not_take():
+    keys, t = _table("linear", 500, seed=3)
+    table = _linear_table("cuda", t)
+    qh, ql = (nl.to_device(x, "cuda")
+              for x in hc.key_split_np(_queries(keys, 64, 0.5, seed=3)))
+    before = dict(nl.launches)
+    for kernel in (nl.probe_linear, nl.probe_sequential):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernel(_linear_table("cpu", t), qh.cpu(), ql.cpu())
+        with pytest.raises(ValueError, match="uint32"):
+            kernel(table, qh.view(torch.int32), ql)
+        with pytest.raises(ValueError, match="lengths"):
+            kernel(table, qh[:10], ql)
+    assert nl.launches == before
+
+
+def _chain(n_lines, length, seed):
+    """int32 [n_lines, 32] whose word 0 links ``length`` + 1 distinct
+    random lines into a chain, and the chain's lines in order."""
+    order = np.random.default_rng(seed).choice(n_lines, length + 1,
+                                               replace=False)
+    words = torch.zeros((n_lines, 32), dtype=torch.int32)
+    words[torch.from_numpy(order[:-1]), 0] = torch.from_numpy(
+        order[1:].astype(np.int32))
+    return words, order
+
+
+@pytest.mark.parametrize("steps", [0, 1, 7, 4096])
+def test_load_chain_follows_the_chain(steps):
+    """The load-latency yardstick ends where its plain version does, at
+    the chain's ``steps``-th line."""
+    words, order = _chain(20_000, 4096, seed=steps)
+    before = nl.launches["load_chain"]
+    got = nl.load_chain(words.cuda(), int(order[0]), steps)
+    assert nl.launches["load_chain"] == before + 1
+    want = ref.load_chain(words, int(order[0]), steps)
+    assert got.dtype == torch.int64 and got.shape == (1,)
+    assert int(got) == int(want) == int(order[steps])
+
+
+def test_load_chain_clips_and_rejects():
+    """A word past the last line is read as the last line, as the plain
+    version reads it; CPU tensors, other dtypes and a start out of range
+    are refused without a launch."""
+    words = torch.zeros((64, 32), dtype=torch.int32)
+    words[0, 0], words[63, 0] = 1_000_000, -5
+    want = ref.load_chain(words, 0, 3)
+    assert int(nl.load_chain(words.cuda(), 0, 3)) == int(want) == 63
+    before = dict(nl.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        nl.load_chain(words, 0, 3)
+    with pytest.raises(ValueError, match="int32"):
+        nl.load_chain(words.cuda().float(), 0, 3)
+    with pytest.raises(ValueError, match="out of range"):
+        nl.load_chain(words.cuda(), 64, 3)
+    assert nl.launches == before
+
+
+def test_cluster_sim_data_plane_on_card_matches_cpu():
+    """A small ClusterSim whose data plane is an engine on the card answers
+    every batch as the same sim on the CPU, bitwise, through a rolling
+    delta update, with the probe kernels launched."""
+    from repro_torch.core import cluster_sim as cs
+    keys, payloads = nh.random_kv(3000, seed=12)
+    rows = np.random.default_rng(12).integers(0, 256, (3000, 16),
+                                              dtype=np.uint8)
+
+    def tables(v):
+        return ([eng.ScalarTable("s", keys, payloads)],
+                [eng.EmbeddingTable("e", keys, rows, hot_fraction=0.2)])
+
+    def deltas(v):
+        sel = keys[v * 50:v * 50 + 64]
+        return ({"s": (sel, np.full(64, v, dtype=np.uint64)),
+                 "e": (sel, np.full((64, 16), v, dtype=np.uint8))}, {})
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = sum(nl.launches.values())
+        sim = cs.ClusterSim(cs.SimConfig(n_shards=4, n_replicas=2, seed=2),
+                            protocol="naming", tables_for_version=tables,
+                            deltas_for_version=deltas, device=device)
+        got = []
+        for step in range(12):
+            if step % 4 == 1:
+                sim.start_rolling_update(step // 4 + 1)
+            sim.sim.run_until(sim.sim.now + 1_500_000)
+            q = _queries(keys, 512, 0.9, seed=step)
+            ok, versions, _lat, data = sim.query_batch({"s": q, "e": q})
+            got.append((ok, versions, {} if data is None else
+                        {k: (f.copy(), d.copy())
+                         for k, (f, d) in data.items()}))
+        sim.close()
+        out[device] = got
+        if device == "cuda":
+            assert sum(nl.launches.values()) > before
+    for (ok_a, v_a, d_a), (ok_b, v_b, d_b) in zip(out["cuda"], out["cpu"]):
+        assert ok_a == ok_b and v_a == v_b
+        for name in d_a:
+            for x, y in zip(d_a[name], d_b[name]):
+                np.testing.assert_array_equal(x, y)

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the whole package
+``chip_smoke.py``) imports JAX or the JAX package, or names a module of the
+JAX package in a string literal (an ``importlib`` target, such as ``wire``'s
+error sources, would import it at run time), and the whole package
 imports in a process where ``jax`` cannot be imported.  And no module of
 the package hands a kernel's work to a library call or to ``torch.compile``
 (``chip_smoke.py`` may time such a call beside a kernel)."""
@@ -44,6 +46,35 @@ def test_no_jax_or_reference_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path)
            if mod in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# a string literal that is a module of the JAX package: "repro" or
+# "repro.<name>..."
+REFERENCE_MODULE = re.compile(r"^repro(\.[A-Za-z_]\w*)*$")
+
+
+def _reference_module_names(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and REFERENCE_MODULE.match(node.value)]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_reference_module_named_in_a_string(path):
+    bad = _reference_module_names(path)
+    assert not bad, f"{os.path.relpath(path, REPO)} names {bad}"
+
+
+def test_string_scan_finds_the_reference_error_sources():
+    """The scan sees what it must refuse: the JAX package's own ``wire``
+    names its error sources as strings for ``importlib``."""
+    found = {name for _, name in _reference_module_names(
+        os.path.join(REPO, "src", "repro", "api", "wire.py"))}
+    assert {"repro.core.query_types", "repro.api.types",
+            "repro.serve.scheduler", "repro.serve.fabric"} <= found
 
 
 # the library call a kernel of the port stands beside, and the compiler

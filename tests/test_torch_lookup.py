@@ -17,6 +17,7 @@ from repro_torch.core import lookup as lk
 from repro_torch.core import neighborhash as nh
 from repro_torch.kernels import neighbor_lookup as nl
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as plain
 
 
 def _build(n, seed, lf=0.8):
@@ -271,3 +272,190 @@ def test_random_access_through_ops_on_a_cpu_table(variant):
     with pytest.raises(ValueError, match="CUDA tensors"):
         nl.random_access(table, torch.from_numpy(qh), torch.from_numpy(ql))
     assert nl.launches == before
+
+
+@pytest.mark.parametrize("steps", [0, 1, 5, 300])
+def test_load_chain_plain_version(steps):
+    """The load-latency yardstick's plain version (``ref.load_chain``, what
+    its kernel is held against) ends at the chain's ``steps``-th line; a
+    word past the last line reads as the last line; the kernel's wrapper
+    refuses the CPU tensor without a launch."""
+    order = np.random.default_rng(steps).choice(1000, 301, replace=False)
+    words = torch.zeros((1000, 32), dtype=torch.int32)
+    words[torch.from_numpy(order[:-1]), 0] = torch.from_numpy(
+        order[1:].astype(np.int32))
+    before = dict(nl.launches)
+    got = plain.load_chain(words, int(order[0]), steps)
+    assert got.dtype == torch.int64 and int(got) == int(order[steps])
+    words[int(order[0]), 0] = 5000
+    assert int(plain.load_chain(words, int(order[0]), 2)) == \
+        int(words[999, 0])
+    with pytest.raises(ValueError, match="CUDA"):
+        nl.load_chain(words, int(order[0]), steps)
+    assert nl.launches == before
+
+
+# ---------------------------------------------------------------------------
+# core/lookup: the T1 linear-probing and Fig. 9 sequential baselines
+# ---------------------------------------------------------------------------
+def _linear_both(t_ref, t_port, q, max_probes=None):
+    """lookup_linear of both packages on the same table and queries,
+    bitwise; returns the port's (found, payload uint64)."""
+    mp = max(t_ref.max_probe_len() + 1, 2) if max_probes is None \
+        else max_probes
+    qh, ql = ref_hc.key_split_np(q)
+    want = ref_lookup.lookup_linear(
+        *(jnp.asarray(getattr(t_ref, k))
+          for k in ("key_hi", "key_lo", "val_hi", "val_lo")),
+        jnp.asarray(qh), jnp.asarray(ql), capacity=t_ref.capacity,
+        max_probes=mp)
+    arrs = t_port.device_arrays()
+    before = dict(nl.launches)
+    got = lk.lookup_linear(arrs["key_hi"], arrs["key_lo"], arrs["val_hi"],
+                           arrs["val_lo"], qh, ql, capacity=t_port.capacity,
+                           max_probes=mp, device="cpu")
+    assert nl.launches == before
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.uint32
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    return got[0].numpy(), (got[1].numpy().astype(np.uint64)
+                            << np.uint64(32)) | got[2].numpy()
+
+
+@pytest.mark.parametrize("hit_rate", [0.0, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("lf", [0.5, 0.8, 0.95])
+def test_lookup_linear_hit_miss_mixes(hit_rate, lf):
+    keys, payloads = ref_nh.random_kv(2500, seed=61)
+    t_ref = ref_nh.build(keys, payloads, variant="linear", load_factor=lf)
+    t_port = nh.build(keys, payloads, variant="linear", load_factor=lf)
+    q = _queries(keys, 700, hit_rate, seed=62)
+    found, payload = _linear_both(t_ref, t_port, q)
+    hf, hp = t_ref.lookup_host_batch(q)
+    np.testing.assert_array_equal(found, hf)
+    np.testing.assert_array_equal(payload, hp)
+
+
+def _wrapping_linear_table(capacity=64, n_tail=10, seed=5):
+    """A linear table whose last buckets are full and whose runs wrap past
+    the end to bucket 0: ``n_tail`` keys homed in its last four buckets,
+    plus a few homed elsewhere; and misses homed in the last two buckets."""
+    cand = np.arange(2**41, 2**41 + 200_000, dtype=np.uint64)
+    homes = ref_hc.bucket_of_np(*ref_hc.key_split_np(cand), capacity)
+    tail = cand[homes >= capacity - 4][:n_tail]
+    rest = cand[(homes > 8) & (homes < capacity - 8)][:12]
+    keys = np.concatenate([tail, rest])
+    payloads = (keys * np.uint64(2654435761)) & np.uint64(ref_hc.PAYLOAD_MASK)
+    misses = cand[homes >= capacity - 2]
+    misses = misses[~np.isin(misses, keys)][:16]
+    kw = dict(variant="linear", capacity=capacity)
+    t_ref = ref_nh.build(keys, payloads, **kw)
+    t_port = nh.build(keys, payloads, **kw)
+    return keys, misses, t_ref, t_port
+
+
+def test_lookup_linear_wraps_past_the_end():
+    keys, misses, t_ref, t_port = _wrapping_linear_table()
+    # the tail run really wraps: bucket 0 holds a key homed at the end
+    home0 = ref_hc.bucket_of_int(int(t_ref.key_hi[0]), int(t_ref.key_lo[0]),
+                                 t_ref.capacity)
+    assert home0 >= t_ref.capacity - 4
+    q = np.concatenate([keys, misses, keys[::-1]])
+    found, payload = _linear_both(t_ref, t_port, q)
+    hf, hp = t_ref.lookup_host_batch(q)
+    np.testing.assert_array_equal(found, hf)
+    np.testing.assert_array_equal(payload, hp)
+    assert found[:len(keys)].all() and not found[len(keys):-len(keys)].any()
+
+
+@pytest.mark.parametrize("max_probes", [0, 1, 2, 4])
+def test_lookup_linear_max_probes_below_the_runs(max_probes):
+    """A bound below what the table needs: a query still going at the
+    bound reports not found, in both packages alike."""
+    keys, misses, t_ref, t_port = _wrapping_linear_table(n_tail=14)
+    assert t_ref.max_probe_len() > max_probes + 1
+    q = np.concatenate([keys, misses])
+    found, _ = _linear_both(t_ref, t_port, q, max_probes=max_probes)
+    assert 0 < found.sum() < len(keys)
+
+
+def test_lookup_linear_empty_batch_and_empty_home():
+    keys, payloads = ref_nh.random_kv(300, seed=3)
+    t_ref = ref_nh.build(keys, payloads, variant="linear", load_factor=0.3)
+    t_port = nh.build(keys, payloads, variant="linear", load_factor=0.3)
+    found, _ = _linear_both(t_ref, t_port, np.zeros(0, np.uint64))
+    assert found.shape == (0,)
+    # misses whose home bucket is empty end at once
+    cand = np.arange(2**50, 2**50 + 5000, dtype=np.uint64)
+    homes = ref_hc.bucket_of_np(*ref_hc.key_split_np(cand), t_ref.capacity)
+    empty = t_ref.key_hi[homes] == np.uint32(ref_hc.EMPTY_HI)
+    found, _ = _linear_both(t_ref, t_port, cand[empty][:64], max_probes=0)
+    assert not found.any()
+
+
+def _sequential_both(t_ref, t_port, q):
+    """lookup_sequential of both packages, bitwise, and equal to the batch
+    lookup; returns the port's found."""
+    qh, ql = ref_hc.key_split_np(q)
+    st = lk.probe_statics(t_port)
+    ref_arrs = t_ref.device_arrays()
+    want = ref_lookup.lookup_sequential(
+        *(jnp.asarray(ref_arrs[k])
+          for k in ("key_hi", "key_lo", "val_hi", "val_lo")),
+        jnp.asarray(ref_arrs["next_idx"]) if "next_idx" in ref_arrs
+        else None, jnp.asarray(qh), jnp.asarray(ql), **st)
+    arrs = t_port.device_arrays()
+    before = dict(nl.launches)
+    got = lk.lookup_sequential(arrs["key_hi"], arrs["key_lo"],
+                               arrs["val_hi"], arrs["val_lo"],
+                               arrs.get("next_idx"), qh, ql, device="cpu",
+                               **st)
+    assert nl.launches == before
+    batch = lk.lookup(arrs["key_hi"], arrs["key_lo"], arrs["val_hi"],
+                      arrs["val_lo"], arrs.get("next_idx"), qh, ql,
+                      device="cpu", **st)
+    assert got[0].dtype == torch.bool
+    for g, w, b in zip(got, want, batch):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert torch.equal(g, b)
+    return got[0].numpy()
+
+
+@pytest.mark.parametrize("variant", nh.VARIANTS)
+def test_lookup_sequential_every_variant(variant):
+    keys, payloads = ref_nh.random_kv(1200, seed=71)
+    t_ref = ref_nh.build(keys, payloads, variant=variant, load_factor=0.9)
+    t_port = nh.build(keys, payloads, variant=variant, load_factor=0.9)
+    q = _queries(keys, 150, 0.8, seed=72)
+    found = _sequential_both(t_ref, t_port, q)
+    if variant != "linear":       # the chain probe does not walk runs
+        np.testing.assert_array_equal(found, t_ref.lookup_host_batch(q)[0])
+
+
+@pytest.mark.parametrize("hit_rate", [0.0, 1.0])
+def test_lookup_sequential_hit_miss_mixes(hit_rate):
+    keys, payloads = ref_nh.random_kv(1500, seed=73)
+    t_ref = ref_nh.build(keys, payloads, variant="neighborhash")
+    t_port = nh.build(keys, payloads, variant="neighborhash")
+    found = _sequential_both(t_ref, t_port, _queries(keys, 120, hit_rate, 74))
+    assert found.all() if hit_rate else not found.any()
+
+
+def test_lookup_sequential_empty_batch():
+    keys, payloads = ref_nh.random_kv(100, seed=75)
+    t_ref = ref_nh.build(keys, payloads, variant="coalesced")
+    t_port = nh.build(keys, payloads, variant="coalesced")
+    assert _sequential_both(t_ref, t_port,
+                            np.zeros(0, np.uint64)).shape == (0,)
+
+
+def test_baseline_wrappers_refuse_cpu_tensors():
+    keys, payloads = ref_nh.random_kv(200, seed=76)
+    for variant, kernel in (("linear", nl.probe_linear),
+                            ("coalesced", nl.probe_sequential)):
+        table = eng._device_table(nh.build(keys, payloads, variant=variant),
+                                  torch.device("cpu"))
+        qh, ql = (torch.from_numpy(x) for x in ref_hc.key_split_np(keys))
+        before = dict(nl.launches)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernel(table, qh, ql)
+        assert nl.launches == before

@@ -17,8 +17,10 @@ the dict oracle in each package and between the two packages where the
 answers do not depend on timing; a timing-driven case asserts the same
 contract in both, not equal timings.
 
-``tests/test_query_server.py::TestClusterSimIntegration`` waits for the
-port's ``ClusterSim`` (ROADMAP queue 1, item 9b) and has no case here.
+``tests/test_query_server.py::TestClusterSimIntegration`` runs here too,
+over each package's own ``ClusterSim`` (``core/cluster_sim.py``) with a
+``QueryServer`` in front of its engine data plane; the two packages' sims,
+from the same seed, answer every batch alike, bitwise.
 """
 import math
 import sys
@@ -32,12 +34,14 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 import repro.api as japi
+from repro.core import cluster_sim as jcs
 from repro.core import engine as jeng
 from repro.core.hybrid_store import HybridKVStore as JStore
 from repro.obs import trace as jtrace
 from repro.serve import scheduler as jsched
 from repro.serve import server as jserver
 import repro_torch.api as tapi
+from repro_torch.core import cluster_sim as tcs
 from repro_torch.core import engine as teng
 from repro_torch.core.hybrid_store import HybridKVStore as TStore
 from repro_torch.obs import trace as ttrace
@@ -51,10 +55,10 @@ VALUE_BYTES = 16
 PKGS = {
     "jax": types.SimpleNamespace(name="jax", api=japi, eng=jeng, Store=JStore,
                                  trace=jtrace, sched=jsched, server=jserver,
-                                 engine_kw={}),
+                                 cs=jcs, engine_kw={}),
     "torch": types.SimpleNamespace(name="torch", api=tapi, eng=teng,
                                    Store=TStore, trace=ttrace, sched=tsched,
-                                   server=tserver,
+                                   server=tserver, cs=tcs,
                                    engine_kw={"device": "cpu"}),
 }
 
@@ -619,6 +623,67 @@ def test_failed_embedding_delta_leaves_engine_retryable(pkg):
     res = eng.query({"e": keys[:8]}, version=2)
     assert (res["e"].values[:4] == 9).all()
     assert (res["e"].values[4:] == 7).all()
+
+
+def _sim_through_query_server(pkg):
+    """``TestClusterSimIntegration``'s scenario: sim replicas serve real
+    rows through a ``QueryServer`` while a rolling update publishes a new
+    build.  Returns each batch's (versions, attr payloads, emb rows)."""
+    cs = pkg.cs
+    n = 600
+    keys = np.arange(1, n + 1, dtype=np.uint64)
+
+    def tables(v):
+        return ([pkg.eng.ScalarTable("attr", keys,
+                                     np.full(n, v + 10, dtype=np.uint64))],
+                [pkg.eng.EmbeddingTable("emb", keys,
+                                        np.full((n, 8), (v + 1) % 251,
+                                                dtype=np.uint8))])
+
+    sim = cs.ClusterSim(cs.SimConfig(n_shards=4, n_replicas=2, seed=3),
+                        protocol="paper", tables_for_version=tables,
+                        use_query_server=True, **pkg.engine_kw)
+    batches = []
+    try:
+        assert sim.query_server is not None
+        sim.start_rolling_update(1)
+
+        def q():
+            ok, versions, _lat, data = sim.query_batch(
+                {"attr": keys[:64], "emb": keys[:32]})
+            assert ok
+            f, p = data["attr"]
+            assert f.all()
+            assert len(set(p.tolist())) == 1     # one version per batch
+            fe, ve = data["emb"]
+            assert fe.all()
+            assert len(set(ve[:, 0].tolist())) == 1
+            # cross-table: the embedding generation of the same version
+            assert int(ve[0, 0]) == (int(p[0]) - 10 + 1) % 251
+            batches.append((list(versions), p.copy(), ve.copy()))
+
+        for t in range(0, 10_000_000, 600_000):
+            sim.sim.at(t, q)
+        sim.sim.run_until(10_000_000)
+    finally:
+        sim.close()
+    assert sim.query_server is None
+    return batches
+
+
+def test_sim_data_plane_through_query_server(pkg):
+    batches = _sim_through_query_server(pkg)
+    seen = {int(p[0]) - 10 for _, p, _ in batches}
+    assert seen == {0, 1}, seen              # both generations served
+
+
+def test_sim_through_query_server_equal_across_packages():
+    got = {name: _sim_through_query_server(p) for name, p in PKGS.items()}
+    assert len(got["jax"]) == len(got["torch"]) > 0
+    for (jv, jp, je), (tv, tp, te) in zip(got["jax"], got["torch"]):
+        assert jv == tv
+        np.testing.assert_array_equal(tp, jp)
+        np.testing.assert_array_equal(te, je)
 
 
 def test_stress_many_threads_counts_reconcile(dataset):
