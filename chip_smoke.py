@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs fifteen phases.  Two send batch queries through
+together, then runs seventeen phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -125,6 +125,24 @@ concatenation of the columns and the pageable copy to the card.
   float64 recompute on the card written here from the model's tensors
   (every row at ``serve_p99``, 4,096 fixed rows at ``serve_bulk``).
 
+* **P** — DIN's (**P.1**, on G's model) and BST's (**P.2**, on H's)
+  ``retrieval_cand`` cell, right after each model's G or H: 1,000,000
+  candidate rows a request, each with its own history
+  (``synthetic.recsys_batch``, the JAX cell's shape), through the
+  launcher's ``cell_requests`` (``serve_step.bulk_rank_fn``: the model's
+  columns of all rows uploaded in one copy, the forward on slices of
+  ``rec.BULK_CHUNK_ROWS`` = 262,144 rows writing one [1M] fp32 logits
+  tensor, one ``lax_top_k``): a warm-up, 8 timed requests and one
+  traced, drawn as 8 distinct batches (one a host core; DIN's take ~50 s
+  each) and cycled, the host draw's time and bytes printed.  Every
+  request's top 100 is held to the card's own logits (each value its
+  index's logit bitwise, ``jax.lax.top_k``'s order), and the logits of
+  its top 100 and of 4,096 fixed rows within 1e-5 of the float64
+  recompute; once, 262,144 rows of a request ranked in slices of 65,536
+  against one slice (values within 1e-5, indices by the tie rule), with
+  one slice's forward timed by events.  No kernel may launch, and the
+  peak memory must stay under 80 GB.
+
 * **J** — DeepFM training (``configs/deepfm.CONFIG``, full published
   width, its own model from seed 0, after E's is freed) on the
   ``train_batch`` cell's 65,536 rows, batches drawn and uploaded first:
@@ -186,6 +204,14 @@ concatenation of the columns and the pageable copy to the card.
   sparse step at the published 20M users and 10M items (30.8 GB), no
   kernel.  Both run L's steps and checks.
 
+* **Q** — the port's ``launch/loadtest.py`` in-process, after M, at its
+  defaults with ``--adaptive`` (8 s of zipf sessions at 60 a second with a
+  4x flash crowd against a ``QueryServer`` over a host ``HybridKVStore``,
+  the ``AdaptiveController`` ticking every 0.25 s): it must exit 0, its
+  SLO report line parse and its registry hold the traffic and controller
+  families; attainment, sheds and the controller's decisions are printed,
+  not gated (they are timings).  No device work, no kernel.
+
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (for the
@@ -230,6 +256,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import multiprocessing
 import os
@@ -331,6 +358,15 @@ SEQ_P99_ROWS, SEQ_P99_REQUESTS = 512, 64
 SEQ_BULK_ROWS, SEQ_BULK_REQUESTS = 262_144, 8
 SEQ_CHECK_ROWS = 4096          # fixed rows of each serve_bulk request
 SEQ_TOL = 1e-5                 # fp32 model vs float64 recompute, probs
+# phase P: DIN's and BST's retrieval_cand (1M candidate rows, top 100)
+P_REQUESTS = 8                 # timed requests, after a warm-up
+P_DISTINCT = 8                 # distinct requests drawn (one a host core),
+#                                cycled: DIN's take ~50 s each to draw
+P_TOL = 1e-5                   # fp32 logits vs float64 recompute
+P_CHUNK_CHECK = (262_144, 65_536)  # rows held, chunked into slices of
+P_PEAK_BYTES = 80 * 10**9      # the card's 80 GB
+# phase Q: the port's load-test launcher at its defaults, in-process
+Q_ARGV = ["--adaptive"]
 # phase J: DeepFM training, the train_batch cell
 J_ROWS = 65_536                # registry.REC_CELLS' train_batch
 J_STEPS = 8                    # timed steps of each train step
@@ -479,6 +515,7 @@ class LayerClock:
     def __init__(self, spans=SPANS):
         self.spans = spans
         self.seconds = dict.fromkeys([s[2] for s in spans], 0.0)
+        self.calls = dict.fromkeys([s[2] for s in spans], 0)
         self.orig = [getattr(cls, attr) for cls, attr, _ in spans]
 
     def __enter__(self):
@@ -497,6 +534,7 @@ class LayerClock:
                 return fn(*args, **kw)
             finally:
                 self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
         return timed
 
 
@@ -2715,6 +2753,169 @@ def run_phase_seq(name, cfg, device, p99_rows=SEQ_P99_ROWS,
     bulk = run_seq_cell(name, model, registry.cell_by_name("serve_bulk"),
                         bulk_rows, bulk_requests, check_rows, seed=8)
     print(f"[{name}] " + json.dumps(bulk), flush=True)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# phase P: DIN's and BST's retrieval_cand (1M candidate rows a request)
+# ---------------------------------------------------------------------------
+LOGITS64 = {"din": din_logits64, "bst": bst_logits64}
+
+
+def chunk_check(name, model, batch, rows, small):
+    """``rows`` fixed rows of ``batch`` on the card ranked whole (one
+    slice) and in slices of ``small``: values within TOP_K_TOL, indices
+    by the tie rule; and one slice's forward timed by events."""
+    cols = serve_step._upload({k: np.ascontiguousarray(batch[k][:rows])
+                               for k in model.inputs}, model.device)
+    with Calls(rec, "lax_top_k") as whole:
+        want = rec.bulk_rank(model, cols, TOP_K, chunk_rows=rows)
+    with Calls(rec, "lax_top_k") as sliced:
+        got = rec.bulk_rank(model, cols, TOP_K, chunk_rows=small)
+    res = check_top_k(got, sliced.calls[0][0], want, whole.calls[0][0],
+                      f"[{name}] {rows} rows in slices of {small}")
+    res.pop("distinct_values")
+    res.update(rows=rows, slice_rows=small)
+    if model.device.type == "cuda":
+        warm = torch.empty(1, dtype=torch.uint8, device=model.device)
+        with torch.inference_mode():
+            res["slice_forward_ms"] = time_ms(
+                lambda: model(*(cols[k] for k in model.inputs)), 3, warm)
+    return res
+
+
+def run_phase_p(name, model, n=R_CANDIDATES, requests=P_REQUESTS,
+                distinct=P_DISTINCT, check_rows=SEQ_CHECK_ROWS,
+                chunk=P_CHUNK_CHECK, seed=9):
+    """DIN's or BST's retrieval_cand on ``model`` (by default at full
+    published width): ``n`` candidate rows a request, each with its own
+    history (``synthetic.recsys_batch``), through the launcher's
+    ``cell_requests`` (``serve_step.bulk_rank_fn``: one upload, the
+    forward in slices of ``rec.BULK_CHUNK_ROWS``, one ``lax_top_k``); a
+    warm-up, ``requests`` timed, one traced, drawn as ``distinct`` batches
+    cycled.  Every request's top 100 is held to the card's own [n] logits
+    (bitwise, ``lax.top_k``'s order), and the logits of its top 100 and
+    of ``check_rows`` fixed rows to the float64 recompute; once, the
+    chunked answer to the unchunked one.  Returns the phase's metrics."""
+    cfg, device = model.cfg, model.device
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    cell = registry.cell_by_name("retrieval_cand")
+    cell = registry.Cell(cell.name, cell.kind,
+                         dict(cell.dims, n_candidates=n))
+    step, draw = launch_serve.cell_requests(cfg, cell, n, model)
+    t0 = time.perf_counter()
+    batches = draw_requests(draw, distinct, seed)
+    drawn = {"distinct": distinct, "seconds": time.perf_counter() - t0,
+             "bytes_per_request": sum(batches[0][0][k].nbytes
+                                      for k in model.inputs)}
+    print(f"[{name}] drew {distinct} requests of {n} rows "
+          f"({drawn['bytes_per_request']} B each) in "
+          f"{drawn['seconds']:.1f} s", flush=True)
+    fixed = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+        n, check_rows, replace=False))).to(device)
+    clock = LayerClock((
+        (serve_step, "_upload", "upload"),
+        (type(model), "forward", "forward_enqueue"),
+        (rec, "lax_top_k", "top_k_enqueue")))
+    last = {}
+
+    def check(got, uploads, topk, what):
+        (scores, _), = topk.calls
+        if scores.shape != (n,) or not bool(scores.isfinite().all()):
+            fail(f"{what}: logits are not finite of shape ({n},)")
+        res = check_top_k(got, scores, got, scores, what)
+        dev = uploads.last[1]
+        idx = torch.cat([got[1], fixed])
+        want = LOGITS64[cfg.arch](model, {k: dev[k][idx]
+                                          for k in model.inputs})
+        err = float((scores[idx].double() - want).abs().max())
+        if not err <= P_TOL:
+            fail(f"{what}: logits differ from the float64 recompute by "
+                 f"{err}")
+        res["max_abs_err_vs_fp64"] = err
+        last["scores"] = scores
+        return res
+
+    lat, wait, checks, prof, traced_ms = run_retrieval(
+        name, step, [batches[r % distinct] for r in range(requests + 2)],
+        check, clock, lambda what: None, device)
+    m = retrieval_metrics(name, cfg, n, lat, wait, checks, clock, prof,
+                          traced_ms, device)
+    slices = -(-n // rec.BULK_CHUNK_ROWS)
+    if clock.calls["forward_enqueue"] != slices * requests:
+        fail(f"[{name}] {clock.calls['forward_enqueue']} forwards in "
+             f"{requests} timed requests, expected {slices} each")
+    m.update(
+        drawn=drawn, chunk_rows=rec.BULK_CHUNK_ROWS,
+        slices_per_request=slices,
+        host_forward_enqueue_ms_per_slice=clock.seconds["forward_enqueue"]
+        * 1e3 / clock.calls["forward_enqueue"],
+        max_abs_err_vs_fp64=max(c["max_abs_err_vs_fp64"] for c in checks),
+        rows_checked_vs_fp64=TOP_K + check_rows,
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    m["traced_request"]["device_ms_by_op"] = ops_by_device_ms(prof)
+    m["chunk_check"] = chunk_check(name, model, batches[0][0], *chunk)
+    if device.type == "cuda":
+        warm = torch.empty(1, dtype=torch.uint8, device=device)
+        m["top_k_ms"] = time_ms(
+            lambda: rec.lax_top_k(last["scores"], TOP_K), 5, warm)
+        m["max_memory_allocated"] = max_memory(device)
+        if not m["max_memory_allocated"] < P_PEAK_BYTES:
+            fail(f"[{name}] peak memory {m['max_memory_allocated']} B is "
+                 f"not under {P_PEAK_BYTES} B")
+    return m
+
+
+# ---------------------------------------------------------------------------
+# phase Q: the port's load-test launcher, in-process
+# ---------------------------------------------------------------------------
+def run_phase_q(argv=Q_ARGV):
+    """``launch/loadtest.main(argv)`` in-process with a record file: the
+    run must exit 0, its SLO report line parse, and its registry hold the
+    traffic and controller families.  Returns the report's numbers (none
+    is gated: they are timings)."""
+    from repro_torch.launch import loadtest
+    record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_loadtest.json")
+    os.makedirs(os.path.dirname(record), exist_ok=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            loadtest.main(list(argv) + ["--record", record])
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    print("\n".join("[Q] " + line for line in text.splitlines()),
+          flush=True)
+    if rc != 0:
+        fail(f"[Q] loadtest exited {rc}")
+    prefix = "loadtest SLO report: "
+    lines = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    if len(lines) != 1:
+        fail(f"[Q] {len(lines)} SLO report lines")
+    report = json.loads(lines[0][len(prefix):])
+    with open(record) as f:
+        metrics = json.load(f)["metrics"]
+    os.remove(record)
+    families = {k.split("{")[0] for k in metrics}
+    for want in ("repro_traffic_requests_offered_total",
+                 "repro_traffic_class_requests_offered_total",
+                 "repro_traffic_ctl_ticks_total",
+                 "repro_traffic_ctl_lane_max_batch_keys"):
+        if want not in families:
+            fail(f"[Q] the registry lacks {want}")
+    keys = ("offered", "completed", "shed", "failed", "attainment",
+            "offered_rps", "dispatch_lag_ms", "p50_ms", "p99_ms",
+            "per_class", "burst", "controller")
+    return {"phase": "Q", "argv": list(argv), "exit_code": rc,
+            "seconds": seconds,
+            "families": sorted(f for f in families
+                               if f.startswith("repro_traffic")),
+            **{k: report.get(k) for k in keys}}
 
 
 # ---------------------------------------------------------------------------
@@ -4145,19 +4346,33 @@ def main() -> int:
     bag_row["retrieval"]["launches"] = f_counts["embedding_bag"]
     kernels.append(bag_row)
 
-    # G and H reach none of the four kernels: the two-tower tables (30.8 GB,
-    # also held by the bag logs' last launches) go first, then DIN's tables
-    # (7.2 GB) go with run_phase_seq's frame before BST draws its 12.8 GB.
+    # G, H and P reach none of the four kernels: the two-tower tables (30.8
+    # GB, also held by the bag logs' last launches) go first; P.1 ranks
+    # retrieval_cand on G's DIN, P.2 on H's BST; DIN's tables (7.2 GB) go
+    # before BST draws its 12.8 GB.
     del two_tower, bag_log, bag_log_f
-    for name, cfg in (("G", din.CONFIG), ("H", bst.CONFIG)):
+    for name, p_name, cfg in (("G", "P.1", din.CONFIG),
+                              ("H", "P.2", bst.CONFIG)):
         gc.collect()
         torch.cuda.empty_cache()
         zero(nl.launches, fm.launches, bagk.launches)
-        run_phase_seq(name, cfg, device)
+        seq_model = run_phase_seq(name, cfg, device)
         launched = {**nl.launches, **fm.launches, **bagk.launches}
         print(f"[{name}] launches: " + json.dumps(launched), flush=True)
         if any(launched.values()):
             fail(f"{cfg.name} serving launched a kernel: {launched}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero(nl.launches, fm.launches, bagk.launches)
+        t_p = time.perf_counter()
+        m_p = run_phase_p(p_name, seq_model)
+        m_p["launches"] = kernel_counts()
+        m_p["seconds"] = time.perf_counter() - t_p
+        print(f"[{p_name}] " + json.dumps(m_p), flush=True)
+        if any(m_p["launches"].values()):
+            fail(f"{cfg.name}'s retrieval_cand launched a kernel: "
+                 f"{m_p['launches']}")
+        del seq_model
 
     # K reaches none of the kernels either: DIN trained on train_batch at
     # published width (K.1, BST's 12.8 GB gone with H's frame), then the
@@ -4214,6 +4429,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("in-batch softmax: " + json.dumps(softmax_timing(device, flush)),
           flush=True)
+
+    # Q: the load-test launcher over a host store; no device work
+    zero(nl.launches, fm.launches, bagk.launches)
+    m_q = run_phase_q()
+    m_q["launches"] = kernel_counts()
+    print("[Q] " + json.dumps(m_q), flush=True)
+    if any(m_q["launches"].values()):
+        fail(f"phase Q launched a kernel: {m_q['launches']}")
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -31,9 +31,9 @@ sequence, printing the request latency's p50 and p99.
   the top 100 (at most the candidates), with no feature source, as the JAX
   launcher's ``build_cell`` does: two-tower through
   ``serve_step.retrieval_fn`` (one user's columns, zipf candidate items and
-  categories), DeepFM through ``serve_step.bulk_rank_fn`` (a batch of
-  candidate rows).  For ``din`` and ``bst`` it exits naming ROADMAP:
-  their ``retrieval_cand`` is not ported.
+  categories); DeepFM, DIN and BST through ``serve_step.bulk_rank_fn`` (a
+  batch of candidate rows from ``synthetic.recsys_batch``, each with its
+  own history; DIN's and BST's forward runs on slices of 262,144 rows).
 * ``train_batch`` exits, pointing to the train launcher
   (``python -m repro_torch.launch.train``).
 
@@ -298,10 +298,6 @@ def main(argv=None) -> dict:
     if cell.kind == "rec_train":
         raise SystemExit(f"--shape {cell.name} is a train cell: run python "
                          "-m repro_torch.launch.train")
-    if cell.kind == "rec_retrieval" and \
-            configs.CONFIG.arch not in serve_step.RETRIEVAL_ARCHS:
-        raise SystemExit(f"--shape {cell.name}: "
-                         + serve_step.RANK_NOT_PORTED.format(arch=args.arch))
     if args.batch is not None and cell.kind != "rec_serve":
         ap.error(f"--batch sets a scoring cell's rows; {cell.name} ranks "
                  "its cell's candidates")
@@ -323,7 +319,7 @@ def main(argv=None) -> dict:
         ap.error("--requests and --batch must be at least 1")
     device = ops.resolve_device(args.device)
     cfg = configs.SMOKE if args.smoke else configs.CONFIG
-    if n_cand is not None and cfg.arch == "deepfm":
+    if n_cand is not None and cfg.arch != "two_tower":
         rows = n_cand                           # one candidate a row
     model = rec.recsys_init(cfg, seed=0, device=device)
     if args.feature_server:

@@ -30,10 +30,11 @@ reach no kernel: their gathers are ``embed_lookup`` and their layers
 plain PyTorch, as the JAX package computes them outside any Pallas kernel.
 
 ``retrieval_scores`` (two-tower: user vectors against every candidate's
-item vector) and ``bulk_rank`` (DeepFM: the logits of a batch of candidate
-rows) end in ``lax_top_k``, which keeps ``jax.lax.top_k``'s order: values
-descending by the float total order (+0.0 above -0.0, NaN by its sign
-beyond the infinities), equal values by ascending index.
+item vector) and ``bulk_rank`` (DeepFM, DIN, BST: the logits of a batch of
+candidate rows, scored in row slices) end in ``lax_top_k``, which keeps
+``jax.lax.top_k``'s order: values descending by the float total order
+(+0.0 above -0.0, NaN by its sign beyond the infinities), equal values by
+ascending index.
 
 The training half (``table_ids`` to ``recsys_loss``) is the JAX package's,
 over the parameters as one flat dict of tensors keyed by the JAX pytree
@@ -491,18 +492,43 @@ def retrieval_scores(model: TwoTower, batch: dict, cand_ids, cand_cats,
         return lax_top_k(u @ c.T, top_k)                       # [B, N]
 
 
-def bulk_rank(model: DeepFM, batch: dict,
-              top_k: int = 100) -> tuple[torch.Tensor, torch.Tensor]:
-    """``retrieval_cand`` for a pointwise arch, as the JAX package's
-    ``bulk_rank_fn`` does it: the logits [N] of a batch of N candidate rows
-    (not probabilities) and their top ``top_k`` -> (values, indices), each
-    [top_k]."""
-    if not isinstance(model, DeepFM):
+BULK_CHUNK_ROWS = 262_144   # serve_bulk's batch: DIN's and BST's slice
+
+
+def bulk_rank(model: _Recsys, batch: dict, top_k: int = 100,
+              chunk_rows: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``retrieval_cand`` for a pointwise arch (DeepFM, DIN, BST), as the
+    JAX package's ``bulk_rank_fn`` does it: the logits [N] of a batch of N
+    candidate rows (not probabilities) and their top ``top_k`` ->
+    (values, indices), each [top_k].
+
+    The forward runs on row slices of at most ``chunk_rows`` (default:
+    the whole batch for DeepFM, ``BULK_CHUNK_ROWS`` for DIN and BST, whose
+    per-row activations for 1M rows do not fit one card), each slice's
+    logits written into one fp32 [N] tensor on the model's device, and
+    ``lax_top_k`` ranks all N once.  Every op of the three forwards is
+    row-wise (no batch statistic), so a slice changes only the batch a
+    GEMM sees.  An out-of-memory error is raised, not retried smaller."""
+    if not isinstance(model, (DeepFM, DIN, BST)):
         raise NotImplementedError(
-            f"bulk_rank takes a pointwise model (DeepFM), not "
-            f"{type(model).__name__}")
+            f"bulk_rank takes a pointwise model (DeepFM, DIN, BST), not "
+            f"{type(model).__name__}; two-tower ranks through "
+            "retrieval_scores")
+    cols = _columns(model, batch)
+    n = cols[0].shape[0]
+    if chunk_rows is None:
+        chunk_rows = n if isinstance(model, DeepFM) else BULK_CHUNK_ROWS
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be at least 1, got {chunk_rows}")
     with torch.inference_mode():
-        return lax_top_k(model(*_columns(model, batch)), top_k)
+        if chunk_rows >= n:
+            return lax_top_k(model(*cols), top_k)
+        logits = torch.empty(n, dtype=torch.float32, device=model.device)
+        for r0 in range(0, n, chunk_rows):
+            logits[r0:r0 + chunk_rows] = model(
+                *(c[r0:r0 + chunk_rows] for c in cols))
+        return lax_top_k(logits, top_k)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 ``recsys_score_fn`` scores a batch with any of the four recsys archs (DIN,
 BST, DeepFM, the two-tower user tower); ``retrieval_fn`` (two-tower) and
-``bulk_rank_fn`` (DeepFM) serve the ``retrieval_cand`` cell, the top
+``bulk_rank_fn`` (DeepFM, DIN, BST: 1M candidate rows, DIN's and BST's
+scored in row slices) serve the ``retrieval_cand`` cell, the top
 candidates of one user.
 Each step sends the columns the model reads (and the candidates) to the
 card in one copy and the model scores them there.  With a feature source,
@@ -23,14 +24,6 @@ import torch
 from repro_torch.api.client import FeatureClient
 from repro_torch.api.types import QoSClass
 from repro_torch.models import recsys as rec
-
-# the archs whose retrieval_cand is ported: two_tower through retrieval_fn,
-# deepfm through bulk_rank_fn
-RETRIEVAL_ARCHS = ("two_tower", "deepfm")
-RANK_NOT_PORTED = ("retrieval_cand for {arch} is not ported: a batch of 1M "
-                   "candidate rows with their histories needs a row-chunked "
-                   "plan for one card (ROADMAP queue 1, 'retrieval_cand for "
-                   "DIN and BST')")
 
 
 def _upload(batch: dict, device: torch.device) -> dict:
@@ -168,21 +161,23 @@ def retrieval_fn(cfg, model, top_k: int = 100):
     return step
 
 
-def bulk_rank_fn(cfg, model, top_k: int = 100):
-    """``retrieval_cand`` for a pointwise arch (DeepFM): ``step(batch)``
-    uploads the model's columns of N candidate rows in one copy and returns
-    ``rec.bulk_rank`` of them on the model's device -> (values, indices) of
-    the top ``top_k`` logits.  DIN's and BST's are not ported."""
-    if cfg.arch not in RETRIEVAL_ARCHS:
-        raise ValueError(f"bulk_rank_fn ranks DeepFM, not {cfg.arch}; "
-                         + RANK_NOT_PORTED.format(arch=cfg.arch))
-    if cfg.arch != "deepfm":
-        raise ValueError(f"bulk_rank_fn ranks DeepFM, the pointwise arch "
-                         f"the port serves, not {cfg.arch}; two_tower "
-                         "retrieves through retrieval_fn")
+def bulk_rank_fn(cfg, model, top_k: int = 100,
+                 chunk_rows: Optional[int] = None):
+    """``retrieval_cand`` for a pointwise arch (DeepFM, DIN, BST):
+    ``step(batch)`` uploads the model's columns of N candidate rows in one
+    copy and returns ``rec.bulk_rank`` of them on the model's device ->
+    (values, indices) of the top ``top_k`` logits, the forward run on row
+    slices of the uploaded columns (``chunk_rows``: ``rec.bulk_rank``'s
+    default when None)."""
+    if cfg.arch == "two_tower":
+        raise ValueError("bulk_rank_fn ranks a pointwise arch (DeepFM, DIN, "
+                         "BST), not two_tower; two_tower retrieves through "
+                         "retrieval_fn")
+    if cfg.arch not in rec.INIT:
+        raise NotImplementedError(rec.NOT_PORTED.format(arch=cfg.arch))
     device = model.device
 
     def step(batch):
         return rec.bulk_rank(model, _upload(
-            {k: batch[k] for k in model.inputs}, device), top_k)
+            {k: batch[k] for k in model.inputs}, device), top_k, chunk_rows)
     return step

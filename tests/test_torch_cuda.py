@@ -17,6 +17,9 @@ test_torch_streaming.py.  Run on a CUDA machine with
 """
 import contextlib
 import dataclasses
+import importlib.util
+import os
+import sys
 import threading
 import time
 
@@ -1076,14 +1079,63 @@ def test_lax_top_k_signed_zeros_and_nan_on_the_card(row):
 
 @pytest.mark.parametrize("arch,kernel", [("deepfm", "fused_fm"),
                                          ("two-tower-retrieval",
-                                          "embedding_bag")])
+                                          "embedding_bag"),
+                                         ("din", None), ("bst", None)])
 def test_retrieval_cand_launcher_on_card(arch, kernel):
-    launches = fm.launches if kernel == "fused_fm" else bag.launches
-    before = launches[kernel]
+    """DeepFM's and two-tower's retrieval_cand launch their kernel once a
+    request (warm-up + 2); DIN's and BST's launch none of the four."""
+    before = _kernel_launches()
     out = launch_serve.main(["--arch", arch, "--shape", "retrieval_cand",
                              "--smoke", "--requests", "2"])
     assert out["device"].startswith("cuda") and out["finite"]
-    assert launches[kernel] == before + 3            # warm-up + 2
+    want = dict(before)
+    if kernel is not None:
+        want[kernel] += 3
+    assert _kernel_launches() == want
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root, imported for its float64
+    recomputes of DIN's and BST's logits."""
+    if "chip_smoke" not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py")
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = mod      # its dataclasses look it up
+        spec.loader.exec_module(mod)
+    return sys.modules["chip_smoke"]
+
+
+@pytest.mark.parametrize("cfg", [din.SMOKE, bst.SMOKE], ids=["din", "bst"])
+def test_bulk_rank_chunked_on_card(cfg, monkeypatch):
+    """32,768 candidate rows through ``bulk_rank_fn`` in slices of 4,096
+    against one slice: the top 100 values within 1e-5, the indices by the
+    tie rule; every logit of the sliced run within 1e-5 of the float64
+    recompute on the card; no kernel launched."""
+    smoke = _chip_smoke()
+    model = rec.recsys_init(cfg, seed=0, device="cuda")
+    batch = synthetic.recsys_batch(np.random.default_rng(7), cfg, 32_768)
+    batch.pop("label")
+    ranked, top_k = [], rec.lax_top_k
+
+    def record(scores, k):
+        ranked.append(scores)
+        return top_k(scores, k)
+
+    monkeypatch.setattr(rec, "lax_top_k", record)
+    before = _kernel_launches()
+    got = serve_step.bulk_rank_fn(cfg, model, chunk_rows=4096)(batch)
+    whole = serve_step.bulk_rank_fn(cfg, model, top_k=101)(batch)
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before
+    sliced, _ = ranked
+    _same_top_k(got, (whole[0][:100].cpu(), whole[1][:100].cpu()),
+                whole[0][100:].cpu())
+    cols = {k: torch.from_numpy(batch[k]).cuda() for k in model.inputs}
+    want = {"din": smoke.din_logits64, "bst": smoke.bst_logits64}[
+        cfg.arch](model, cols)
+    assert float((sliced.double() - want).abs().max()) <= 1e-5
 
 
 # ---------------------------------------------------------------------------

@@ -198,23 +198,24 @@ def test_deepfm_from_reference_rejects_another_config(jparams):
 
 
 @pytest.mark.parametrize("arch", ["din", "bst"])
-def test_other_archs_name_the_roadmap_item(arch):
-    """DIN and BST score, but their retrieval_cand is not ported: the
-    bulk-ranking step and the launcher's retrieval_cand refuse them, naming
-    ROADMAP, and the model's bulk_rank takes DeepFM alone."""
-    cfg = dataclasses.replace(deepfm.SMOKE, arch=arch)
-    with pytest.raises(ValueError, match=f"not {arch}; retrieval_cand "
-                                         f"for {arch} .*ROADMAP"):
-        serve_step.bulk_rank_fn(cfg, None)
-    model = rec.recsys_init(registry.ARCHS[arch].SMOKE, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=f"pointwise model \\(DeepFM\\), not "
-                             f"{arch.upper()}"):
-        rec.bulk_rank(model, {})
-    with pytest.raises(SystemExit, match=f"retrieval_cand for {arch}.*"
-                                         "ROADMAP"):
-        launch_serve.main(["--arch", arch, "--shape", "retrieval_cand",
-                           "--smoke", "--device", "cpu"])
+def test_din_and_bst_rank_through_bulk_rank(arch):
+    """DIN's and BST's retrieval_cand: the bulk-ranking step and the
+    model's bulk_rank rank their candidate rows (the launcher's cell is
+    held in test_torch_bulk_rank.py), and the step still refuses an arch
+    the port lacks."""
+    cfg = registry.ARCHS[arch].SMOKE
+    model = rec.recsys_init(cfg, device="cpu")
+    batch = synthetic.recsys_batch(np.random.default_rng(0), cfg, 30)
+    values, indices = serve_step.bulk_rank_fn(cfg, model, top_k=5,
+                                              chunk_rows=7)(batch)
+    assert values.shape == indices.shape == (5,)
+    want = rec.bulk_rank(model, batch, 5)
+    torch.testing.assert_close(values, want[0], rtol=0, atol=1e-6)
+    with torch.inference_mode():
+        logits = model(*rec._columns(model, batch))
+    torch.testing.assert_close(values, logits[indices], rtol=0, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP"):
+        serve_step.bulk_rank_fn(dataclasses.replace(cfg, arch="gcn"), model)
 
 
 def test_entry_points_default_to_the_card():
@@ -524,11 +525,11 @@ def test_launcher_feature_server_needs_sparse_ids(arch):
                            "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["din", "qwen3_14b"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "graphsage-reddit"])
 def test_launcher_refuses_unported_archs(arch):
-    """An arch the port does not serve (qwen3_14b), or a cell it does not
-    serve for the arch (DIN's retrieval_cand), exits naming ROADMAP before
-    any model is built (here at CONFIG width)."""
+    """An arch the port does not serve (an LM, a GNN) exits naming ROADMAP
+    before any model is built, also for the retrieval_cand cell the
+    recsys archs all serve."""
     with pytest.raises(SystemExit, match="ROADMAP"):
         launch_serve.main(["--arch", arch, "--shape", "retrieval_cand",
                            "--device", "cpu"])

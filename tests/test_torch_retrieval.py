@@ -320,8 +320,8 @@ def test_steps_refuse_the_other_arch(tt_model, fm_model):
         serve_step.retrieval_fn(deepfm.SMOKE, fm_model)
     with pytest.raises(ValueError, match="retrieval_fn"):
         serve_step.bulk_rank_fn(tt.SMOKE, tt_model)
-    with pytest.raises(ValueError, match="not din"):
-        serve_step.bulk_rank_fn(dataclasses.replace(deepfm.SMOKE, arch="din"),
+    with pytest.raises(NotImplementedError, match="gcn is not ported"):
+        serve_step.bulk_rank_fn(dataclasses.replace(deepfm.SMOKE, arch="gcn"),
                                 fm_model)
     with pytest.raises(NotImplementedError, match="two-tower"):
         rec.retrieval_scores(fm_model, {}, [0], [0])
