@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
 ``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs seventeen phases.  Two send batch queries through
+together, then runs eighteen phases.  Two send batch queries through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -211,6 +211,27 @@ concatenation of the columns and the pageable copy to the card.
   SLO report line parse and its registry hold the traffic and controller
   families; attainment, sheds and the controller's decisions are printed,
   not gated (they are timings).  No device work, no kernel.
+* **R** — the port's multi-process serving fabric (``serve/fabric.py``),
+  after Q, on the host: every ``Router`` runs in a child interpreter
+  (``python -c`` with the source of ``R_CHILD``, so that the spawned shard
+  servers re-run no ``__main__`` file) whose ``PYTHONPATH`` starts with a
+  ``torch`` package that raises ``ImportError``, so every shard server
+  shows that it boots without torch; the children's output goes to the
+  log with an ``[R]`` prefix.  **R.1**: phase A's and O's 200,000 1 KB
+  rows (hot fraction 0.1) on 2 shards x 2 replicas, 4 client threads x 50
+  batches of 4096 zipf keys (10% absent) through
+  ``FeatureClient(FabricBackend(router))``, a publisher writing 128 rows
+  every 0.2 s and chaos killing a random replica every 1 s (the first
+  once a quarter of the batches are answered): every answer a response
+  or a typed ``FabricError``, every response's rows bitwise the rows last
+  written at or before its version and every absent key not found, no
+  mixed batch, at least one respawn, then every replica asked directly at
+  the fleet version for every key written in the run, bitwise.  **R.2**:
+  ``python -m repro_torch.launch.fabric --smoke --chaos --record``: exit
+  0, the record ``ok`` with the fabric's families.  **R.3**:
+  ``test_fabric_qps_scaling_acceptance``'s queries/s at 1 and 4 shards,
+  printed with the host's CPU count, not gated.  No device work, no
+  kernel.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
@@ -367,6 +388,22 @@ P_CHUNK_CHECK = (262_144, 65_536)  # rows held, chunked into slices of
 P_PEAK_BYTES = 80 * 10**9      # the card's 80 GB
 # phase Q: the port's load-test launcher at its defaults, in-process
 Q_ARGV = ["--adaptive"]
+# phase R: the serving fabric, in a child interpreter that cannot import
+# torch.  R.1: phase A's and O's 200k 1 KB rows (hot 0.1) on the
+# launcher's 2 shards x 2 replicas, phase O's traffic, the launcher's
+# publisher (128 rows every 0.2 s) and chaos (a kill every 1 s, the first
+# once a quarter of the batches are answered); R.3:
+# test_fabric_qps_scaling_acceptance's setup
+R1 = {"rows": 200_000, "value_bytes": CONFIG.value_bytes,
+      "hot_fraction": CONFIG.hot_fraction, "shards": 2, "replicas": 2,
+      "clients": 4, "batches": 50, "batch_keys": BATCH_KEYS,
+      "zipf_a": ZIPF_A, "absent": ABSENT, "delta_rows": 128,
+      "publish_s": 0.2, "chaos_s": 1.0, "snapshot_every": 4,
+      "health_period_s": 0.25, "wait_s": 120.0, "seed": 0}
+R3 = {"rows": 50_000, "value_bytes": 32, "hot_fraction": 0.2,
+      "shards": (1, 4), "clients": 8, "queries": 25, "batch_keys": 1024}
+R2_ARGV = ["--smoke", "--chaos"]
+R_TIMEOUT_S = 600
 # phase J: DeepFM training, the train_batch cell
 J_ROWS = 65_536                # registry.REC_CELLS' train_batch
 J_STEPS = 8                    # timed steps of each train step
@@ -2919,6 +2956,415 @@ def run_phase_q(argv=Q_ARGV):
 
 
 # ---------------------------------------------------------------------------
+# phase R: the serving fabric, every Router in a torch-free child
+# ---------------------------------------------------------------------------
+# r_expected, r1_deployment, r3_qps and r_child run in the child
+# interpreter, which gets their source through ``python -c`` (no file for
+# the spawned shard servers to re-run as ``__main__``) and cannot import
+# torch: each imports what it needs itself and reads nothing of this
+# module's globals.
+def r_expected(keys, rows, written, q, version):
+    """The rows of present keys ``q`` as last written at or before
+    ``version``: the built rows, then each key's publishes in order."""
+    import bisect
+
+    import numpy as np
+    idx = np.searchsorted(keys, q)
+    out = rows[idx]
+    for i in np.flatnonzero(np.isin(idx, np.fromiter(written, np.int64))):
+        versions, got = written[int(idx[i])]
+        j = bisect.bisect_right(versions, version)
+        if j:
+            out[i] = got[j - 1]
+    return out
+
+
+def r1_deployment(p):
+    """R.1: the checked deployment.  Returns its numbers and the checks it
+    failed."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from repro_torch.api import (Consistency, FeatureClient, QueryRequest,
+                                 UpdateRequest, as_backend, wire)
+    from repro_torch.core.query_types import EmbeddingTable
+    from repro_torch.serve.fabric import (FabricConfig, FabricError, Router,
+                                          shard_of_keys)
+
+    failures = []
+    rng = np.random.default_rng(p["seed"])
+    keys = np.unique(rng.integers(1, 1 << 62, p["rows"] * 2,
+                                  dtype=np.uint64))[:p["rows"]]
+    rows = rng.integers(0, 256, (len(keys), p["value_bytes"]),
+                        dtype=np.uint8)
+    cfg = FabricConfig(n_shards=p["shards"], n_replicas=p["replicas"],
+                       snapshot_root=p["root"],
+                       health_period_s=p["health_period_s"],
+                       snapshot_every=p["snapshot_every"])
+    t0 = time.perf_counter()
+    router = Router.build([EmbeddingTable(
+        "emb", keys, rows, hot_fraction=p["hot_fraction"])], cfg)
+    m = {"build_and_spawn_s": time.perf_counter() - t0}
+    print(f"R.1: {p['shards']} shards x {p['replicas']} replicas over "
+          f"{len(keys)} rows of {p['value_bytes']} B up in "
+          f"{m['build_and_spawn_s']:.2f} s", flush=True)
+    # key index -> ([version, ...], [row, ...]) in version order, written
+    # before each publish goes out: a publish that fails typed stays in
+    # the router's update log and reaches the fleet with the next one
+    written: dict = {}
+    wlock = threading.Lock()
+    stop = threading.Event()
+    client = FeatureClient(as_backend(router), default_budget_s=5.0)
+    answers, lat, fabric_errors, other_errors = [], [], [0], []
+    kills, kill_to_answer = [], []
+    lock = threading.Lock()
+    total = p["clients"] * p["batches"]
+    # the first kill waits for a quarter of the batches, so that one lands
+    # under load however fast the host drives them; then one every chaos_s
+    quarter = threading.Event()
+
+    def worker(cid):
+        wrng = np.random.default_rng(100 + cid)
+        for _ in range(p["batches"]):
+            idx = (wrng.zipf(p["zipf_a"], p["batch_keys"]) - 1) % len(keys)
+            q = keys[idx]
+            absent = wrng.random(len(q)) < p["absent"]
+            q[absent] = wrng.integers(2**63, 2**64 - 2, int(absent.sum()),
+                                      dtype=np.uint64)
+            t = time.perf_counter()
+            try:
+                res = client.query({"emb": q})
+            except FabricError:
+                with lock:
+                    fabric_errors[0] += 1
+                continue
+            except Exception as e:  # noqa: BLE001  (a check that fails)
+                with lock:
+                    other_errors.append(repr(e))
+                continue
+            ms = (time.perf_counter() - t) * 1e3
+            with lock:
+                lat.append(ms)
+                answers.append((q, res.version, res["emb"].found,
+                                res["emb"].values))
+                if 4 * len(answers) >= total:
+                    quarter.set()
+
+    def publisher():
+        prng = np.random.default_rng(7)
+        version = router.fleet_version
+        while not stop.wait(p["publish_s"]):
+            version += 1
+            idx = prng.choice(len(keys), p["delta_rows"], replace=False)
+            new = prng.integers(0, 256, (len(idx), p["value_bytes"]),
+                                dtype=np.uint8)
+            with wlock:
+                for i, row in zip(idx.tolist(), new):
+                    vs, rs = written.setdefault(i, ([], []))
+                    vs.append(version)
+                    rs.append(row)
+            try:
+                router.apply_update(UpdateRequest(
+                    version=version, upserts={"emb": (keys[idx], new)}))
+            except FabricError:
+                pass
+
+    def first_answer(s, r, dead, t_kill):
+        deadline = time.monotonic() + p["wait_s"]
+        while time.monotonic() < deadline:
+            h = router.replicas[s][r]
+            if h is not None and h is not dead and h.alive:
+                try:
+                    h.call(wire.KIND_HEALTH, wire.encode_tree({}),
+                           timeout=p["wait_s"])
+                except FabricError:
+                    continue
+                with lock:
+                    kill_to_answer.append(time.monotonic() - t_kill)
+                return
+            time.sleep(0.005)
+
+    watchers = []
+
+    def chaos():
+        crng = np.random.default_rng(13)
+        quarter.wait(p["wait_s"])
+        while not stop.is_set():
+            s = int(crng.integers(0, p["shards"]))
+            r = int(crng.integers(0, p["replicas"]))
+            h = router.replicas[s][r]
+            if h is not None and h.alive:
+                print(f"chaos: killing shard {s} replica {r}", flush=True)
+                t_kill = time.monotonic()
+                h.kill()
+                kills.append((s, r))
+                w = threading.Thread(target=first_answer,
+                                     args=(s, r, h, t_kill), daemon=True)
+                w.start()
+                watchers.append(w)
+            stop.wait(p["chaos_s"])
+
+    threads = [threading.Thread(target=worker, args=(c,))
+               for c in range(p["clients"])]
+    aux = [threading.Thread(target=publisher, daemon=True),
+           threading.Thread(target=chaos, daemon=True)]
+    t0 = time.perf_counter()
+    for t in threads + aux:
+        t.start()
+    for t in threads:
+        t.join(p["wait_s"] * 4)
+    wall = time.perf_counter() - t0
+    stop.set()
+    for t in aux:
+        t.join(p["wait_s"])
+    for t in watchers:
+        t.join(p["wait_s"])
+    if any(t.is_alive() for t in threads + aux + watchers):
+        failures.append("a client, publisher or chaos thread hung")
+
+    def whole():
+        """Every replica alive and at the fleet version."""
+        for g in router.replicas:
+            for h in g:
+                if h is None or not h.alive:
+                    return False
+                try:
+                    _, data = h.call(wire.KIND_HEALTH, wire.encode_tree({}),
+                                     timeout=p["wait_s"])
+                except FabricError:
+                    return False
+                if wire.decode_tree(data)["version"] != router.fleet_version:
+                    return False
+        return True
+
+    # the whole fleet back at the fleet version, then one snapshot timed
+    deadline = time.monotonic() + p["wait_s"]
+    while time.monotonic() < deadline:
+        if whole():
+            break
+        time.sleep(0.05)
+    else:
+        failures.append("the fleet did not come back whole at the fleet "
+                        "version")
+    t = time.perf_counter()
+    router.snapshot_now()
+    m["snapshot_s"] = time.perf_counter() - t
+
+    # every answer against the rows written at or before its version
+    if len(answers) + fabric_errors[0] + len(other_errors) != total:
+        failures.append(f"{total} batches sent, {len(answers)} answered, "
+                        f"{fabric_errors[0] + len(other_errors)} errors")
+    if other_errors:
+        failures.append(f"errors not typed FabricError: {other_errors[:3]}")
+    bad = 0
+    for q, version, found, values in answers:
+        present = q < np.uint64(2**63)
+        if not np.array_equal(found, present):
+            bad += 1
+            continue
+        want = r_expected(keys, rows, written, q[present], version)
+        if not np.array_equal(values[present], want):
+            bad += 1
+    if bad:
+        failures.append(f"{bad} of {len(answers)} answers differ from the "
+                        f"rows written at their versions")
+    # every replica asked directly, at the fleet version, for every key
+    # written in the run: the respawned ones replayed the update log
+    v = router.fleet_version
+    widx = np.array(sorted(written), dtype=np.int64)
+    owner = shard_of_keys(keys[widx], p["shards"])
+    readback = 0
+    for s, group in enumerate(router.replicas):
+        sk = keys[widx[owner == s]]
+        want = r_expected(keys, rows, written, sk, v)
+        for r, h in enumerate(group):
+            try:
+                _, data = h.call(wire.KIND_QUERY, wire.encode_request(
+                    QueryRequest(tables={"emb": sk},
+                                 consistency=Consistency.pinned(v))),
+                    timeout=p["wait_s"])
+                res = wire.decode_response(data)
+            except Exception as e:  # noqa: BLE001  (a check that fails)
+                failures.append(f"shard {s} replica {r}: {e!r}")
+                continue
+            tr = res.tables["emb"]
+            if res.version != v or not tr.found.all() \
+                    or not np.array_equal(tr.values, want):
+                failures.append(f"shard {s} replica {r} does not hold the "
+                                f"rows written up to version {v}")
+            readback += len(sk)
+    c = router.metrics.snapshot()
+    router.close()
+    if c.mixed_version_averted:
+        failures.append(f"mixed_version_averted = {c.mixed_version_averted}")
+    if c.respawns < 1:
+        failures.append("no replica was respawned")
+    done = len(lat)
+    m.update({
+        "batches": total, "answered": done, "fabric_errors": fabric_errors[0],
+        "batch_p50_ms": float(np.percentile(lat, 50)) if lat else None,
+        "batch_p99_ms": float(np.percentile(lat, 99)) if lat else None,
+        "batches_per_s": done / wall,
+        "key_seeks_per_s": done * p["batch_keys"] / wall,
+        "drive_s": wall, "kills": len(kills),
+        "kill_to_first_answer_s": sorted(kill_to_answer),
+        "fleet_version": v, "keys_written": len(widx),
+        "readback_keys": readback, "answers_checked": len(answers),
+        "counts": {k: getattr(c, k) for k in (
+            "queries", "sub_queries", "updates", "consistent_batches",
+            "mixed_version_averted", "version_retries", "failovers",
+            "replica_failures", "respawns", "snapshots")}})
+    return m, failures
+
+
+def r3_qps(p):
+    """R.3: test_fabric_qps_scaling_acceptance's measurement, not gated:
+    8 client threads x 25 queries of 1024 keys at 1 and 4 shards."""
+    import os
+    import threading
+    import time
+
+    import numpy as np
+
+    from repro_torch.api import QueryRequest
+    from repro_torch.core.query_types import EmbeddingTable
+    from repro_torch.serve.fabric import FabricConfig, Router
+
+    n = p["rows"]
+    rng = np.random.default_rng(0)
+    keys = np.unique(rng.integers(1, 1 << 62, n * 2, dtype=np.uint64))[:n]
+    vals = np.random.default_rng(3).integers(0, 255, (n, p["value_bytes"]),
+                                             dtype=np.uint8)
+    table = EmbeddingTable("emb", keys, vals,
+                           hot_fraction=p["hot_fraction"])
+    qps = {}
+    for n_shards in p["shards"]:
+        router = Router.build([table], FabricConfig(
+            n_shards=n_shards, n_replicas=1, respawn=False,
+            snapshot_root=os.path.join(p["root"], f"s{n_shards}")))
+        try:
+            reqs = [{"emb": keys[np.random.default_rng(100 + c).integers(
+                0, n, p["batch_keys"])]} for c in range(p["clients"])]
+            for r in reqs[:2]:
+                router.query(QueryRequest(tables=r))
+            done = [0]
+            lock = threading.Lock()
+
+            def worker(req):
+                for _ in range(p["queries"]):
+                    router.query(QueryRequest(tables=req))
+                    with lock:
+                        done[0] += 1
+
+            threads = [threading.Thread(target=worker, args=(r,))
+                       for r in reqs]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            qps[n_shards] = done[0] / (time.perf_counter() - t0)
+        finally:
+            router.close()
+    lo, hi = min(p["shards"]), max(p["shards"])
+    return {"qps": {str(k): v for k, v in qps.items()},
+            "ratio": qps[hi] / qps[lo], "reference_floor": 2.5,
+            "host_cpus": os.cpu_count()}
+
+
+def r_child(p):
+    """Phase R's child: R.1, then R.3; one ``R result:`` line."""
+    import json
+    import sys
+    m1, failures = r1_deployment(p["r1"])
+    m3 = r3_qps(p["r3"])
+    torch_mods = sorted(k for k, v in sys.modules.items()
+                        if v is not None and k.split(".")[0] == "torch")
+    if torch_mods:
+        failures.append(f"the fabric's interpreter imported {torch_mods}")
+    print("R result: " + json.dumps({"r1": m1, "r3": m3,
+                                     "failures": failures}), flush=True)
+    return 1 if failures else 0
+
+
+R_CHILD = (r_expected, r1_deployment, r3_qps, r_child)
+
+
+def run_phase_r(r1=R1, r3=R3):
+    """R.1 and R.3 in one child interpreter (``python -c``, so the spawned
+    shard servers re-run no ``__main__`` file), R.2 as ``python -m
+    repro_torch.launch.fabric``; in both, ``PYTHONPATH`` starts with a
+    directory whose ``torch`` package raises ``ImportError``, so every
+    process of every fabric is shown to boot without torch.  Their output
+    goes to the log with an ``[R]`` prefix; a non-zero exit (the child's
+    on a failed check of R.1, which it lists on its ``R result:`` line) or
+    a bad record fails the run.  Returns the numbers: R.1's checks are the
+    only gates, R.3's ratio is printed, not gated."""
+    import inspect
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", "chip_smoke_fabric")
+    shutil.rmtree(work, ignore_errors=True)
+    shim = os.path.join(work, "shim", "torch")
+    os.makedirs(shim)
+    with open(os.path.join(shim, "__init__.py"), "w") as f:
+        f.write("raise ImportError('phase R: the fabric runs without "
+                "torch')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(shim), os.path.join(repo, "src")]))
+    code = "\n\n".join(inspect.getsource(fn) for fn in R_CHILD) \
+        + "\n\nimport json, sys\nsys.exit(r_child(json.loads(sys.argv[1])))\n"
+    params = {"r1": {**r1, "root": os.path.join(work, "r1")},
+              "r3": {**r3, "root": os.path.join(work, "r3")}}
+
+    def run(tag, argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=repo, env=env, capture_output=True,
+                              text=True, timeout=R_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        print("\n".join("[R] " + line for line in text.splitlines()),
+              flush=True)
+        if proc.returncode != 0:
+            fail(f"[R] {tag} exited {proc.returncode}")
+        return proc.stdout, seconds
+
+    try:
+        out, seconds = run("R.1/R.3", [sys.executable, "-c", code,
+                                       json.dumps(params)])
+        prefix = "R result: "
+        result = json.loads([ln for ln in out.splitlines()
+                             if ln.startswith(prefix)][-1][len(prefix):])
+        record = os.path.join(repo, "build", "chip_smoke_fabric.json")
+        _, r2_seconds = run("R.2", [
+            sys.executable, "-m", "repro_torch.launch.fabric", *R2_ARGV,
+            "--snapshot-root", os.path.join(work, "r2"), "--record",
+            record])
+        with open(record) as f:
+            rec = json.load(f)
+        os.remove(record)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if rec.get("ok") is not True:
+        fail(f"[R] the launcher's record says ok={rec.get('ok')}")
+    families = {k.split("{")[0] for k in rec["metrics"]}
+    for want in ("repro_fabric_version_retries_total",
+                 "repro_fabric_failovers_total",
+                 "repro_fabric_respawns_total"):
+        if want not in families:
+            fail(f"[R] the launcher's record lacks {want}")
+    if not rec["metrics"].get("repro_fabric_queries_total", 0) > 0:
+        fail("[R] the launcher's record counts no query")
+    r2 = {"argv": R2_ARGV, "alias": rec["alias"], "seconds": r2_seconds,
+          **{k.split("_total")[0].removeprefix("repro_fabric_"): v
+             for k, v in rec["metrics"].items()
+             if k.startswith("repro_fabric_")}}
+    return {"phase": "R", "seconds_r1_r3": seconds, "r1": result["r1"],
+            "r2": r2, "r3": result["r3"]}
+
+
+# ---------------------------------------------------------------------------
 # phase J: DeepFM training on the card (train_batch at published width)
 # ---------------------------------------------------------------------------
 class BackwardLog(Recorder):
@@ -4437,6 +4883,17 @@ def main() -> int:
     print("[Q] " + json.dumps(m_q), flush=True)
     if any(m_q["launches"].values()):
         fail(f"phase Q launched a kernel: {m_q['launches']}")
+
+    # R: the serving fabric in torch-free child interpreters; no device work
+    print(f"reduced: phase R rows {CONFIG.n_items}->{R1['rows']} (the "
+          f"fabric's builder writes every shard's snapshot and each replica "
+          f"restores it at boot; the build stays near 15 s)")
+    zero(nl.launches, fm.launches, bagk.launches)
+    m_r = run_phase_r()
+    m_r["launches"] = kernel_counts()
+    print("[R] " + json.dumps(m_r), flush=True)
+    if any(m_r["launches"].values()):
+        fail(f"phase R launched a kernel: {m_r['launches']}")
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -259,10 +259,10 @@ def decode_update(data) -> tuple[int, dict, dict]:
 # modules whose exception classes may cross the wire by name; resolved
 # lazily so api/ never imports serve/ at module load (layering) while a
 # shard's QueueFullError still re-raises typed on the router side.  The
-# port's own modules only: the fabric's errors join when serve/fabric.py
-# is ported
+# port's own modules only
 _ERROR_SOURCES = ("builtins", "repro_torch.core.query_types",
-                  "repro_torch.api.types", "repro_torch.serve.scheduler")
+                  "repro_torch.api.types", "repro_torch.serve.scheduler",
+                  "repro_torch.serve.fabric")
 
 
 def _error_class(name: str) -> Optional[type]:

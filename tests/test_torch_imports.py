@@ -2,7 +2,8 @@
 ``chip_smoke.py``) imports JAX or the JAX package, or names a module of the
 JAX package in a string literal (an ``importlib`` target, such as ``wire``'s
 error sources, would import it at run time), and the whole package
-imports in a process where ``jax`` cannot be imported.  And no module of
+imports in a process where ``jax`` cannot be imported; the fabric's two
+modules import no torch either, at any scope.  And no module of
 the package hands a kernel's work to a library call or to ``torch.compile``
 (``chip_smoke.py`` may time such a call beside a kernel)."""
 import ast
@@ -45,6 +46,22 @@ def _imported_roots(path):
 def test_no_jax_or_reference_imports(path):
     bad = [(line, mod) for line, mod in _imported_roots(path)
            if mod in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# the shard server's boot path: spawned shard processes import these (and
+# what they import) and nothing else, so torch stays out of every one
+FABRIC = [os.path.join(PORT, "serve", "fabric.py"),
+          os.path.join(PORT, "launch", "fabric.py")]
+
+
+@pytest.mark.parametrize("path", FABRIC,
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_fabric_imports_no_torch(path):
+    """At module scope or inside a function: ``_imported_roots`` walks the
+    whole tree."""
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in FORBIDDEN | {"torch", "triton"}]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 

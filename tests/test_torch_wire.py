@@ -225,10 +225,16 @@ def test_unknown_error_type_degrades_to_runtimeerror():
     got = twire.decode_error(twire.encode_error(Weird("boom")))
     assert isinstance(got, RuntimeError)
     assert "Weird" in str(got) and "boom" in str(got)
-    # the fabric's errors are not the port's yet: they degrade too
-    from repro.serve.fabric import NoReplicaError
-    got = twire.decode_error(jwire.encode_error(NoReplicaError("none")))
-    assert type(got) is RuntimeError and "NoReplicaError" in str(got)
+    # the fabric's errors are the port's own now, from either encoder
+    from repro.serve import fabric as jfabric
+    from repro_torch.serve import fabric as tfabric
+    for wire_of, err in ((jwire, jfabric.NoReplicaError("none")),
+                         (twire, tfabric.NoReplicaError("none"))):
+        got = twire.decode_error(wire_of.encode_error(err))
+        assert type(got) is tfabric.NoReplicaError and "none" in str(got)
+    got = twire.decode_error(twire.encode_tree(
+        {"type": "NoSuchFabricError", "message": "gone"}))
+    assert type(got) is RuntimeError and "NoSuchFabricError" in str(got)
 
 
 def test_errors_decode_without_the_jax_package():
@@ -240,7 +246,8 @@ def test_errors_decode_without_the_jax_package():
         "sys.modules['repro'] = None\n"
         "from repro_torch.api import wire\n"
         "for name in ('VersionEvictedError', 'QueueFullError',\n"
-        "             'ConsistencyError', 'NoReplicaError', 'KeyError'):\n"
+        "             'ConsistencyError', 'NoReplicaError',\n"
+        "             'ReplicaDeadError', 'KeyError'):\n"
         "    data = wire.encode_tree({'type': name, 'message': 'm'})\n"
         "    print(name, type(wire.decode_error(data)).__module__)\n"
         "assert not any(m == 'repro' or m.startswith('repro.')\n"
@@ -254,7 +261,9 @@ def test_errors_decode_without_the_jax_package():
     assert mods == {"VersionEvictedError": "repro_torch.core.query_types",
                     "QueueFullError": "repro_torch.serve.scheduler",
                     "ConsistencyError": "repro_torch.api.types",
-                    "NoReplicaError": "builtins", "KeyError": "builtins"}
+                    "NoReplicaError": "repro_torch.serve.fabric",
+                    "ReplicaDeadError": "repro_torch.serve.fabric",
+                    "KeyError": "builtins"}
 
 
 def test_malformed_payloads_raise_wire_errors():
