@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu`` and
-``embedding_bag.cu``) with nvcc, one process per library, all started
-together, then runs eighteen phases.  Two send batch queries through
+Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu``,
+``embedding_bag.cu`` and ``segment_sum.cu``) with nvcc, one per library,
+all started together, then runs nineteen phases.  Two send batch queries
+through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
 * **A** — the paper's deployment (``configs/bili_feature_store.CONFIG``: 1 KB
@@ -227,11 +228,41 @@ concatenation of the columns and the pageable copy to the card.
   written at or before its version and every absent key not found, no
   mixed batch, at least one respawn, then every replica asked directly at
   the fleet version for every key written in the run, bitwise.  **R.2**:
-  ``python -m repro_torch.launch.fabric --smoke --chaos --record``: exit
-  0, the record ``ok`` with the fabric's families.  **R.3**:
+  ``python -m repro_torch.launch.fabric --n-keys 8000 --requests 600
+  --chaos --record`` (the smoke's keys, 4 clients x 600 batches of 512
+  keys, long enough for several 1 s chaos ticks): exit 0, the record
+  ``ok`` with the fabric's families, at least one ``chaos: killing``
+  line, one update and one respawn.  **R.3**:
   ``test_fabric_qps_scaling_acceptance``'s queries/s at 1 and 4 shards,
   printed with the host's CPU count, not gated.  No device work, no
   kernel.
+
+* **S** — GraphSAGE (``configs/graphsage_reddit.CONFIG``: 2 layers of
+  128, the mean aggregator) trained on the card in its three regimes,
+  after R, at the four GNN cells' published dims, each graph (or batch
+  set) built once on the host from a seed: **S.1** ``full_graph_sm``
+  (Cora's shape: 2,708 nodes, 10,556 edges, 1,433 features), **S.2**
+  ``ogb_products`` (2,449,029 nodes, 61,859,140 edges, 100 features),
+  **S.3** ``minibatch_lg`` (Reddit's shape: 232,965 nodes, 114,615,892
+  edges, 602 features; 10 blocks of 1,024 seeds sampled 15-10 by
+  ``graph_sampler.sample_block`` from one ``CSRGraph``, uploaded before
+  the steps) and **S.4** ``molecule`` (10 batches of 128 graphs of 30
+  nodes), each through ``make_train_step(gnn_loss_fn(cfg, regime),
+  OptConfig())`` (Adam): a warm-up, 8 timed steps (CUDA events and the
+  host clock) and one traced for the card's busy share, with the host
+  seconds of the graph, the CSR and (S.3) each block's sampling and
+  upload, nodes (seeds, graphs) a second, each step's loss and
+  ``grad_norm`` and ``max_memory_allocated``.  The neighbour mean of S.1,
+  S.2 and S.4 runs on the ``csr_sum`` kernel, three launches a step
+  (both layers' forward, layer 2's backward over the transposed CSR;
+  the features need no gradient); S.3's dense masked means reach no
+  kernel.  Every launch is held against ``ref.csr_sum`` within min(2 n
+  2^-24, 1e-4) S + 1e-30 on every row (S.2: 65,536 fixed rows and the
+  longest segment), the first step's loss within 1e-5 of the plain
+  version's (S.1, S.2, S.4), every loss and ``grad_norm`` finite, the
+  peak under 80 GB; each cell's launch count is 3 a step and no other
+  kernel launches.  S.1's and S.2's last launch of each CSR and width is
+  launched twice more (the same bits), then timed.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
@@ -252,7 +283,12 @@ J's [65536, 39, 10], and
 launch, twice on the same inputs (the same bits), its plan and its sort
 timed apart and each of its kernels by profiler, beside both plain
 gradients and ``torch.autograd.grad`` of ``F.embedding_bag`` (mean, with
-a padding row).
+a padding row); ``csr_sum`` at S.1's and S.2's three launches a step,
+beside its bound (the distinct rows of x the terms name, the indices,
+indptr and the output, each moved once), ``ref.csr_sum``, the
+word-for-word route of the JAX package (``index_select`` into [E, D]
+messages, then ``index_add_``, where they fit the card) and
+``torch.sparse.mm`` of the CSR of ones.
 Phase B's last group also goes through ``probe_lines`` for contrast, with
 the ratio of the two kernels' times; the redesigned kernels' constants get a
 line each: ``probe_smem``'s cluster and bytes a block; ``fused_fm``'s tile,
@@ -295,7 +331,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import api  # noqa: E402
-from repro_torch.configs import (bst, deepfm, din, registry,  # noqa: E402
+from repro_torch.configs import (bst, deepfm, din,  # noqa: E402
+                                 graphsage_reddit, registry,
                                  two_tower_retrieval)
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import cluster_sim as cs  # noqa: E402
@@ -305,16 +342,18 @@ from repro_torch.core import hashcore as hc  # noqa: E402
 from repro_torch.core import lookup as lk  # noqa: E402
 from repro_torch.core import neighborhash as nh  # noqa: E402
 from repro_torch.core.batch_query import BatchQueryService  # noqa: E402
-from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data import graph_sampler, synthetic  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import embedding_bag as bagk  # noqa: E402
 from repro_torch.kernels import fused_fm as fm  # noqa: E402
 from repro_torch.kernels import neighbor_lookup as nl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import segment_sum as segk  # noqa: E402
 from repro_torch.launch import realtime  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import embedding_service as es  # noqa: E402
+from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
 from repro_torch.obs import exporter  # noqa: E402
@@ -402,8 +441,18 @@ R1 = {"rows": 200_000, "value_bytes": CONFIG.value_bytes,
       "health_period_s": 0.25, "wait_s": 120.0, "seed": 0}
 R3 = {"rows": 50_000, "value_bytes": 32, "hot_fraction": 0.2,
       "shards": (1, 4), "clients": 8, "queries": 25, "batch_keys": 1024}
-R2_ARGV = ["--smoke", "--chaos"]
+R2_ARGV = ["--n-keys", "8000", "--requests", "600", "--chaos"]  # the smoke's
+#                                keys; 4 clients x 600 batches of 512 keys
+#                                span several 1 s chaos and 0.2 s publish
+#                                ticks (--smoke's 15 a client end first)
 R_TIMEOUT_S = 600
+
+S_STEPS = 8                    # timed steps of each GNN cell
+S_CHECK_ROWS = 65_536          # fixed rows a csr_sum launch is held on,
+#                                where it has more
+S_SEED = 0
+S_LOSS_TOL = 1e-5              # first step's loss: kernel vs plain sums
+S_PEAK_BYTES = 80 * 10**9      # the card's 80 GB
 # phase J: DeepFM training, the train_batch cell
 J_ROWS = 65_536                # registry.REC_CELLS' train_batch
 J_STEPS = 8                    # timed steps of each train step
@@ -440,16 +489,19 @@ REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "fused_fm_backward": "src/repro/kernels/fused_fm.py:31",
             "embedding_bag_backward": "src/repro/kernels/embedding_bag.py:79",
             "probe_linear": "src/repro/core/lookup.py:152",
-            "probe_sequential": "src/repro/core/lookup.py:209"}
+            "probe_sequential": "src/repro/core/lookup.py:209",
+            "csr_sum": "src/repro/models/gnn.py:86"}
 LIBRARIES = {"probe": "src/repro_torch/csrc/probe.cu",
              "fused_fm": "src/repro_torch/csrc/fused_fm.cu",
-             "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu"}
+             "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
+             "segment_sum": "src/repro_torch/csrc/segment_sum.cu"}
 SOURCE = {"probe_lines": LIBRARIES["probe"],
           "probe_smem": LIBRARIES["probe"],
           "fused_fm": LIBRARIES["fused_fm"],
           "fused_fm_backward": LIBRARIES["fused_fm"],
           "embedding_bag": LIBRARIES["embedding_bag"],
-          "embedding_bag_backward": LIBRARIES["embedding_bag"]}
+          "embedding_bag_backward": LIBRARIES["embedding_bag"],
+          "csr_sum": LIBRARIES["segment_sum"]}
 
 
 def fail(msg: str) -> None:
@@ -3328,7 +3380,7 @@ def run_phase_r(r1=R1, r3=R3):
               flush=True)
         if proc.returncode != 0:
             fail(f"[R] {tag} exited {proc.returncode}")
-        return proc.stdout, seconds
+        return text, seconds
 
     try:
         out, seconds = run("R.1/R.3", [sys.executable, "-c", code,
@@ -3337,7 +3389,7 @@ def run_phase_r(r1=R1, r3=R3):
         result = json.loads([ln for ln in out.splitlines()
                              if ln.startswith(prefix)][-1][len(prefix):])
         record = os.path.join(repo, "build", "chip_smoke_fabric.json")
-        _, r2_seconds = run("R.2", [
+        r2_text, r2_seconds = run("R.2", [
             sys.executable, "-m", "repro_torch.launch.fabric", *R2_ARGV,
             "--snapshot-root", os.path.join(work, "r2"), "--record",
             record])
@@ -3357,9 +3409,14 @@ def run_phase_r(r1=R1, r3=R3):
     if not rec["metrics"].get("repro_fabric_queries_total", 0) > 0:
         fail("[R] the launcher's record counts no query")
     r2 = {"argv": R2_ARGV, "alias": rec["alias"], "seconds": r2_seconds,
+          "kills": r2_text.count("chaos: killing"),
           **{k.split("_total")[0].removeprefix("repro_fabric_"): v
              for k, v in rec["metrics"].items()
              if k.startswith("repro_fabric_")}}
+    if not (r2["kills"] >= 1 and r2.get("updates", 0) >= 1
+            and r2.get("respawns", 0) >= 1):
+        fail(f"[R] R.2 drove no chaos: {r2['kills']} kills, "
+             f"{r2.get('updates')} updates, {r2.get('respawns')} respawns")
     return {"phase": "R", "seconds_r1_r3": seconds, "r1": result["r1"],
             "r2": r2, "r3": result["r3"]}
 
@@ -4168,7 +4225,7 @@ def run_phase_l(device, cfg=bst.CONFIG, rows=J_ROWS, steps=J_STEPS,
 
 
 def kernel_counts() -> dict:
-    return {**nl.launches, **fm.launches, **bagk.launches}
+    return {**nl.launches, **fm.launches, **bagk.launches, **segk.launches}
 
 
 def run_phase_m(device, cfg=two_tower_retrieval.CONFIG, rows=J_ROWS,
@@ -4503,6 +4560,320 @@ def softmax_timing(device, flush, shapes=SOFTMAX_SHAPES, seed=63):
         del got, x
         out.append(row)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase S: GraphSAGE trained on the card in its three regimes
+# ---------------------------------------------------------------------------
+class CsrLog(OpLog):
+    """Every ``ops.csr_sum`` call (the neighbour mean's sums, forward and
+    backward) held against ``ref.csr_sum`` on the same inputs, element by
+    element within min(2 n 2^-24, 1e-4) S + 1e-30 (n the segment's terms,
+    S their magnitudes' sum: two orders' bound, as for the bag gradient),
+    on every row, or on ``S_CHECK_ROWS`` fixed rows (and the longest
+    segment's) where a launch has more.  Keeps the last call of each CSR
+    and width under ``kept`` (inputs and output) for the repeat check and
+    the timings."""
+
+    def __init__(self):
+        super().__init__("csr_sum", ref.csr_sum, 0.0, 0.0)
+        self.kept = {}
+        self.bitwise = 0          # launches equal to the plain version
+        self.max_rel = 0.0        # max |err| / (S + 1e-30)
+
+    def check(self, args, kw, out) -> None:
+        x, indptr, indices = args
+        self.kept[(x.shape[1], indptr.data_ptr())] = (
+            x.detach(), indptr, indices, out.detach())
+        n_rows = indptr.shape[0] - 1
+        if n_rows <= S_CHECK_ROWS:
+            rows = None
+            sub = (indptr, indices)
+        else:
+            g = torch.Generator(device=x.device).manual_seed(S_SEED)
+            pick = torch.randperm(n_rows, generator=g,
+                                  device=x.device)[:S_CHECK_ROWS]
+            longest = torch.argmax(indptr[1:] - indptr[:-1])[None]
+            rows = torch.unique(torch.cat([pick, longest]))
+            sub = sub_csr(indptr, indices, rows)
+        got = out if rows is None else out[rows]
+        want = ref.csr_sum(x, *sub)
+        s = ref.csr_sum(x.abs(), *sub)
+        n = (sub[0][1:] - sub[0][:-1]).to(s.dtype)[:, None]
+        tol = torch.clamp(2 * n * BAG_GRAD_U, max=BAG_GRAD_REL) * s + 1e-30
+        err = (got - want).abs()
+        self.max_err = max(self.max_err, float(err.max()) if err.numel()
+                           else 0.0)
+        self.max_rel = max(self.max_rel, float((err / (s + 1e-30)).max())
+                           if err.numel() else 0.0)
+        self.bitwise += int(torch.equal(got, want))
+        if not bool((err <= tol).all()):
+            fail(f"csr_sum differs from ref.csr_sum on {tuple(x.shape)} x "
+                 f"{n_rows} rows (max abs err {float(err.max())})")
+
+
+def sub_csr(indptr, indices, rows):
+    """(indptr, indices) of the CSR's ``rows`` alone, in that order."""
+    length = indptr[rows + 1] - indptr[rows]
+    sub_ptr = torch.zeros(rows.numel() + 1, dtype=torch.int64,
+                          device=indptr.device)
+    torch.cumsum(length, 0, out=sub_ptr[1:])
+    offset = torch.repeat_interleave(indptr[rows] - sub_ptr[:-1], length)
+    pos = torch.arange(int(sub_ptr[-1]), device=indptr.device) + offset
+    return sub_ptr, indices[pos]
+
+
+def csr_bound(x, indptr, indices):
+    """The least time of ``csr_sum`` on these inputs on this card: the
+    distinct rows of x the indices name, the indices, indptr read once and
+    [R, D] fp32 written once, against its adds (one a term and column)."""
+    dim = x.shape[1]
+    distinct = int(torch.unique(indices).numel()) if indices.numel() else 0
+    n_rows = indptr.shape[0] - 1
+    t_bytes = (distinct * dim * 4 + indices.numel() * 4 + indptr.numel() * 8
+               + n_rows * dim * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = indices.numel() * dim / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "distinct_rows": distinct}
+
+
+def csr_timing(x, indptr, indices, out, flush, *, plain_iters=3,
+               library=True):
+    """One kept ``csr_sum`` launch: the same inputs twice more through the
+    kernel (the same bits as the main path's output, or the run fails),
+    then timed by events and by profiler (cold L2), beside its bound, the
+    plain version (``ref.csr_sum``), the word-for-word route of the JAX
+    package (``index_select`` into [nnz, D], then ``index_add_`` by row,
+    where it fits the card) and ``torch.sparse.mm`` of the [R, N] CSR of
+    ones (held within 1e-4 x max |out|)."""
+    kernel = functools.partial(segk.csr_sum, x, indptr, indices)
+    for _ in range(2):
+        if not same_bits(kernel(), out):
+            fail(f"two csr_sum launches on the same inputs ({tuple(x.shape)}"
+                 f", {indptr.shape[0] - 1} rows) differ")
+    n_rows, nnz, dim = indptr.shape[0] - 1, indices.numel(), x.shape[1]
+    row = {"x": list(x.shape), "rows": n_rows, "nnz": nnz,
+           "max_segment": int((indptr[1:] - indptr[:-1]).max()),
+           "repeat_bitwise": True,
+           "ms": time_ms(kernel, 20, flush),
+           "kernel_ms": kernel_ms(kernel, "csr_sum_kernel", 20, flush),
+           "host_ms": host_ms(kernel, 20),
+           **csr_bound(x, indptr, indices),
+           "plain_ms": time_ms(functools.partial(ref.csr_sum, x, indptr,
+                                                 indices), plain_iters,
+                               flush)}
+    free = torch.cuda.mem_get_info(x.device)[0]
+    if nnz * (dim * 4 + 8) * 1.2 < free:
+        seg_rows = torch.repeat_interleave(
+            torch.arange(n_rows, device=x.device), indptr[1:] - indptr[:-1])
+
+        def gather_scatter():
+            return torch.zeros(n_rows, dim, device=x.device).index_add_(
+                0, seg_rows, x.index_select(0, indices))
+        row["gather_scatter_ms"] = time_ms(gather_scatter, 3, flush)
+        del seg_rows
+    else:
+        row["gather_scatter_ms"] = None
+        row["gather_scatter_note"] = (f"not measured: its [{nnz}, {dim}] "
+                                      f"messages do not fit beside the "
+                                      f"graph ({free} B free)")
+    if library:
+        adj = torch.sparse_csr_tensor(
+            indptr, indices.long(), torch.ones(nnz, device=x.device),
+            size=(n_rows, x.shape[0]))
+        lib = functools.partial(torch.sparse.mm, adj, x)
+        diff = float((lib() - out).abs().max())
+        if diff > 1e-4 * max(float(out.abs().max()), 1.0):
+            fail(f"torch.sparse.mm and csr_sum disagree by {diff}")
+        row["library_ms"] = time_ms(lib, 20, flush)
+        row["library_max_abs_diff"] = diff
+        del adj
+    else:
+        row["library_ms"] = None
+    return row
+
+
+def run_gnn_cell(tag, shape, device, log, seed=S_SEED, smoke=False):
+    """One GNN cell at published width (the docstring's phase S says what
+    it runs and holds; ``smoke``: SMOKE's at ``registry.reduce_cell``'s
+    size, for a rehearsal on the CPU), its host graph (or batches) built
+    once; returns its metrics."""
+    cuda = device.type == "cuda"
+    cell = registry.cell_by_name(shape, "gnn")
+    if smoke:
+        cell = registry.reduce_cell(cell)
+    cfg = gnn.cell_config(graphsage_reddit.SMOKE if smoke
+                          else graphsage_reddit.CONFIG, cell)
+    d = cell.dims
+    rng = np.random.default_rng(seed)
+    info = {}
+    t0 = time.perf_counter()
+    if cell.kind == "gnn_molecule":
+        host = [synthetic.molecule_batch(rng, d["n_graphs"], d["n_nodes"],
+                                         d["n_edges"], d["d_feat"],
+                                         d["n_classes"])
+                for _ in range(S_STEPS + 2)]
+    else:
+        host = synthetic.random_graph(rng, d["n_nodes"], d["n_edges"],
+                                      d["d_feat"], d["n_classes"])
+    info["graph_host_s"] = time.perf_counter() - t0
+    print(f"[{tag}] {cell.name}: host graph in {info['graph_host_s']:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    if cell.kind == "gnn_full":
+        batches = [gnn.gnn_batch(host, cell.kind, device)] * (S_STEPS + 2)
+        rows = d["n_nodes"]
+    elif cell.kind == "gnn_molecule":
+        batches = [gnn.gnn_batch(h, cell.kind, device) for h in host]
+        rows = d["n_graphs"]
+    else:
+        csr = graph_sampler.CSRGraph(host["feats"].shape[0], host["edges"])
+        info["csr_host_s"] = time.perf_counter() - t0
+        batches, sample_s, upload_s = [], [], []
+        for _ in range(S_STEPS + 2):
+            t1 = time.perf_counter()
+            seeds = rng.integers(0, host["feats"].shape[0], d["batch_nodes"])
+            blk = graph_sampler.sample_block(rng, csr, host["feats"],
+                                             host["labels"], seeds,
+                                             tuple(d["fanouts"]))
+            t2 = time.perf_counter()
+            batches.append(gnn.gnn_batch(blk, cell.kind, device))
+            if cuda:
+                torch.cuda.synchronize()
+            sample_s.append(t2 - t1)
+            upload_s.append(time.perf_counter() - t2)
+        info.update(sample_host_s=sample_s, upload_s=upload_s,
+                    block_bytes=sum(v.nbytes for v in blk.values()))
+        del csr, blk
+        rows = d["batch_nodes"]
+    if cuda:
+        torch.cuda.synchronize()
+    if cell.kind != "gnn_minibatch":
+        info["upload_and_csr_s"] = time.perf_counter() - t0
+    del host
+    print(f"[{tag}] batches on the card: " + json.dumps(info), flush=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    regime = gnn.REGIMES[cell.kind]
+    params = gnn.sage_init(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    ocfg = train_opt.OptConfig()
+    fn = train_step.make_train_step(train_step.gnn_loss_fn(cfg, regime),
+                                    ocfg)
+    if cell.kind != "gnn_minibatch":
+        with torch.no_grad(), log.plain():
+            plain_loss = float(gnn.gnn_loss(params, cfg, batches[0],
+                                            regime)[0])
+    state = train_opt.init_opt_state(params, ocfg)
+
+    def after(i, p, s, m):
+        log.check_pending()
+
+    p, s, st, _, host0, m0 = timed_steps(fn, params, state, 0, batches[:1],
+                                         after)
+    del params, state
+    if cell.kind != "gnn_minibatch":
+        info["first_loss"] = float(m0[0]["loss"])
+        info["first_loss_plain"] = plain_loss
+        if not abs(info["first_loss"] - plain_loss) <= S_LOSS_TOL:
+            fail(f"[{tag}] the first step's loss {info['first_loss']} is not "
+                 f"within {S_LOSS_TOL} of the plain version's {plain_loss}")
+    p, s, st, ev, host_ms_, ms = timed_steps(fn, p, s, st,
+                                             batches[1:S_STEPS + 1], after)
+    summary = step_summary(rows, ev, host_ms_, ms)
+    summary["warmup_host_ms"] = host0[0]
+    prof = request_profiler(device)
+    with prof:
+        t0 = time.perf_counter()
+        p, s, st, mt = fn(p, s, st, batches[S_STEPS + 1])
+        if cuda:
+            torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    log.check_pending()
+    losses = [float(m["loss"]) for m in m0 + ms + [mt]]
+    norms = [float(m["grad_norm"]) for m in m0 + ms + [mt]]
+    if not np.isfinite(losses + norms).all():
+        fail(f"[{tag}] losses {losses} or grad norms {norms} are not finite")
+    busy_ms, busy_events = device_busy_ms(prof)
+    peak = max_memory(device)
+    if peak is not None and peak >= S_PEAK_BYTES:
+        fail(f"[{tag}] peak memory {peak} B reaches the card's 80 GB")
+    unit = {"gnn_full": "nodes", "gnn_minibatch": "seeds",
+            "gnn_molecule": "graphs"}[cell.kind]
+    summary[f"{unit}_per_s"] = summary.pop("examples_per_s")
+    del p, s, batches
+    return {"cell": cell.name, "regime": regime, "dims": d,
+            "cfg": dataclasses.asdict(cfg), **info, "steps": summary,
+            "loss_all_steps": losses, "grad_norm_all_steps": norms,
+            "max_memory_allocated": peak,
+            "traced_step": {
+                "ms": traced_ms, "device_busy_ms": busy_ms,
+                "device_events": busy_events,
+                "busy_share": busy_ms / traced_ms,
+                "kernels_ms": kernels_by_device_ms(prof, top=8)}}
+
+
+def run_phase_s(device, flush):
+    """S.1-S.4 one after another, each cell's launches counted from 0 just
+    before it and read just after; S.1's and S.2's kept launches timed
+    after their counts are read (their repeat launches and timings count
+    nowhere).  Returns (metrics, the ``csr_sum`` row of the kernels
+    line)."""
+    out, launched, timings = {}, {}, []
+    max_err = max_rel = 0.0
+    bitwise = checked = 0
+    for tag, shape in (("S.1", "full_graph_sm"), ("S.2", "ogb_products"),
+                       ("S.3", "minibatch_lg"), ("S.4", "molecule")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero(nl.launches, fm.launches, bagk.launches, segk.launches,
+             segk.paths)
+        t0 = time.perf_counter()
+        with CsrLog() as log:
+            m = run_gnn_cell(tag, shape, device, log)
+        counts = {**kernel_counts(), **segk.launches}
+        m.update(launches=counts, paths=dict(segk.paths),
+                 seconds=time.perf_counter() - t0)
+        want = 0 if shape == "minibatch_lg" else 3 * (S_STEPS + 2)
+        if counts["csr_sum"] != want or log.checked != want:
+            fail(f"[{tag}] csr_sum launched {counts['csr_sum']} times and "
+                 f"{log.checked} were checked; {want} expected "
+                 f"(3 a step)")
+        if any(v for k, v in counts.items() if k != "csr_sum"):
+            fail(f"[{tag}] launched another kernel: {counts}")
+        launched[tag] = counts["csr_sum"]
+        max_err, max_rel = max(max_err, log.max_err), max(max_rel,
+                                                          log.max_rel)
+        bitwise, checked = bitwise + log.bitwise, checked + log.checked
+        m["csr_sum_bitwise_plain"] = f"{log.bitwise}/{log.checked}"
+        print(f"[{tag}] " + json.dumps(m), flush=True)
+        out[tag] = m
+        if tag in ("S.1", "S.2"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            for (dim, _), (x, indptr, indices, o) in log.kept.items():
+                row = csr_timing(x, indptr, indices, o, flush,
+                                 plain_iters=3 if tag == "S.2" else 10)
+                row["cell"] = tag
+                print(f"[{tag}] csr_sum timing: " + json.dumps(row),
+                      flush=True)
+                timings.append(row)
+        del log
+    main = next(r for r in timings if r["cell"] == "S.2"
+                and r["x"][1] == 100)
+    row = {"name": "csr_sum", "route": "cuda", "source": SOURCE["csr_sum"],
+           "replaces": REPLACES["csr_sum"],
+           "replaces_note": "no TPU kernel: the JAX package's neighbour "
+                            "mean is plain jnp (take + segment_sum / deg, "
+                            "src/repro/models/gnn.py:86-88, :132-133)",
+           "launches": sum(launched.values()), "launches_by_cell": launched,
+           "max_abs_err": max_err, "max_err_over_S": max_rel,
+           "launches_bitwise_plain": f"{bitwise}/{checked}",
+           **{k: main[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+           "shape": "S.2 layer 1 forward", "shapes": timings}
+    return out, row
 
 
 def build_kernels() -> None:
@@ -4894,6 +5265,18 @@ def main() -> int:
     print("[R] " + json.dumps(m_r), flush=True)
     if any(m_r["launches"].values()):
         fail(f"phase R launched a kernel: {m_r['launches']}")
+
+    # S: GraphSAGE trained in its three regimes, the neighbour mean on the
+    # csr_sum kernel forward and backward; no other kernel
+    m_s, csr_row = run_phase_s(device, flush)
+    kernels.append(csr_row)
+    print("[S] " + json.dumps({tag: {
+        "step_event_ms_median": m["steps"]["event_ms_median"],
+        "step_host_ms_median": m["steps"]["host_ms_median"],
+        "busy_share": m["traced_step"]["busy_share"],
+        "max_memory_allocated": m["max_memory_allocated"],
+        "launches": m["launches"]["csr_sum"]} for tag, m in m_s.items()}),
+        flush=True)
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

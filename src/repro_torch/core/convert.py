@@ -12,6 +12,9 @@ by the JAX pytree paths (``field_table``, ``mlp/0/w``, ``blocks/0/wq``), in
 tensor}}``: ``params_of`` maps a port model to that dict,
 ``model_from_params`` maps it back, and ``params_from_reference`` /
 ``opt_state_from_reference`` carry the JAX package's trees across.
+GraphSAGE has no model object: its parameters are that dict
+(``models/gnn.sage_init``), and ``gnn_from_reference`` carries the JAX
+package's ``sage_init`` tree over with every name and shape checked.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import neighborhash as nh
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 
 
 def table_from_reference(arrays: dict[str, np.ndarray], *, variant: str,
@@ -178,6 +181,25 @@ def bst_from_reference(params: dict, cfg, device):
         blocks=[{k: t[f"blocks.{i}.{k}"] for k in recsys.BST_BLOCK}
                 for i in range(cfg.n_blocks)],
         mlp=_layers(t, "mlp", len(head) - 1))
+
+
+def gnn_from_reference(params: dict, cfg, device) -> dict:
+    """The JAX package's unboxed GraphSAGE parameters (``layers`` as a list
+    of ``{"w_self", "w_neigh", "b"}``, ``cls``, every leaf a numpy array)
+    -> the port's path-keyed parameters of ``cfg`` (``layers/0/w_self``,
+    ..., ``cls``) as tensors of its dtype on ``device``.  Raises on any
+    name or shape that ``cfg`` does not give."""
+    want = gnn.param_shapes(cfg)
+    got = flatten_tree(params)
+    if set(got) != set(want):
+        raise ValueError(f"{cfg.name} needs parameters {sorted(want)}, got "
+                         f"{sorted(got)}")
+    for k, shape in want.items():
+        if tuple(np.shape(got[k])) != shape:
+            raise ValueError(f"{k} has shape {tuple(np.shape(got[k]))}, "
+                             f"{cfg.name} needs {shape}")
+    return {k: torch.from_numpy(np.array(got[k], dtype=np.float32)).to(
+        device=device, dtype=cfg.torch_dtype) for k in want}
 
 
 FROM_REFERENCE = {"deepfm": deepfm_from_reference,

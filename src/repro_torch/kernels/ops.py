@@ -1,14 +1,15 @@
 """Dispatch for the port's kernels: the probe (and the RA gather it is
 measured against, and its linear-probing and sequential baselines), the FM
-term and the bag lookup.
+term, the bag lookup and GraphSAGE's neighbour sum.
 
 A CPU tensor takes the plain version (``kernels/ref.py``); a CUDA tensor
 launches a kernel (``kernels/neighbor_lookup.py``, ``kernels/fused_fm.py``,
-``kernels/embedding_bag.py``) or raises — there is no fallback from one to
-the other.  On the card the probe's batch is padded to the block size and
-the outputs sliced back; the FM term and the bag lookup carry their
-gradient kernels (the bag's with respect to its table only: trained bag
-weights raise).
+``kernels/embedding_bag.py``, ``kernels/segment_sum.py``) or raises — there
+is no fallback from one to the other.  On the card the probe's batch is
+padded to the block size and the outputs sliced back; the FM term and the
+bag lookup carry their gradient kernels (the bag's with respect to its
+table only: trained bag weights raise); the neighbour mean runs the
+neighbour sum forward and, over the transposed CSR, backward.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import fused_fm as _fm
 from repro_torch.kernels import neighbor_lookup as _nl
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import segment_sum as _seg
 
 BLOCK_Q = 256
 BAG_NO_GRADIENT = ("embedding_bag has no gradient with respect to its "
@@ -228,3 +230,21 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     if table.requires_grad:
         return _bag.EmbeddingBag.apply(table, indices, weights, mode)
     return _bag.embedding_bag(table, indices, weights, mode=mode)
+
+
+def csr_sum(x: torch.Tensor, indptr: torch.Tensor,
+            indices: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum_{j in indptr[r]:indptr[r+1]} x[indices[j]]``, summed
+    in ``j`` order (``kernels/ref.csr_sum`` says what it computes): the
+    plain version for a CPU ``x``, the ``csr_sum`` kernel for a CUDA one."""
+    if x.device.type == "cpu":
+        return _ref.csr_sum(x, indptr, indices)
+    return _seg.csr_sum(x, indptr, indices)
+
+
+def neighbor_mean(h: torch.Tensor, adj: _seg.Adjacency) -> torch.Tensor:
+    """Each node's mean of ``h`` [n, D] over its in-neighbours in ``adj``
+    (``kernels/segment_sum.adjacency``), 0 for none, through
+    ``NeighborMean``: ``csr_sum`` forward and, where ``h`` needs a
+    gradient, backward over the transposed CSR."""
+    return _seg.NeighborMean.apply(h, adj)

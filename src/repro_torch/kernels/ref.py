@@ -22,6 +22,9 @@
   ``embedding_bag_backward_ordered``, the same gradient summed in exactly
   the kernel's order (the plan that the kernel's wrapper makes, from
   ``kernels/embedding_bag.py``).
+* ``csr_sum``, of the neighbour-sum kernel in ``segment_sum.py``: each
+  row's CSR segment of rows of x summed in order (the JAX package has no
+  kernel: GraphSAGE's ``segment_sum`` is plain jnp).
 
 ``kernels/ops.py`` runs them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
@@ -334,4 +337,29 @@ def embedding_bag_backward_ordered(g: torch.Tensor, indices: torch.Tensor,
                               device=g.device)
         partial[-1 - dest[~last]] = acc[~last]
         read = partial.__getitem__
+    return out
+
+
+def csr_sum(x: torch.Tensor, indptr: torch.Tensor,
+            indices: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``segment_sum.csr_sum``: ``out[r] = sum_{j in
+    indptr[r]:indptr[r+1]} x[indices[j]]`` -> [R, D] in x's dtype (fp32;
+    float64 stays float64 for the gradient checks), R = ``len(indptr) -
+    1``, each segment summed from +0.0 in ``j`` order (an empty one gives
+    0): the t-th term of every segment still that long is added at step t,
+    so the adds are the kernel's, in its order.  No [nnz, D]
+    intermediate."""
+    n_rows = indptr.shape[0] - 1
+    out = torch.zeros(n_rows, x.shape[1], dtype=x.dtype, device=x.device)
+    if n_rows == 0:
+        return out
+    start, length = indptr[:-1], indptr[1:] - indptr[:-1]
+    # rows by length, descending: the rows still live at step t are a
+    # prefix of this order
+    length, rows = torch.sort(length, descending=True, stable=True)
+    live = torch.searchsorted(-length, -torch.arange(
+        int(length[0]), device=x.device)).tolist()
+    for t, n in enumerate(live):
+        r = rows[:n]
+        out[r] = out[r] + x[indices[start[r] + t].long()]
     return out

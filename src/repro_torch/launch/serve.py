@@ -7,6 +7,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepfm \
         --feature-server [--clients 8] [--prefetch-clients 2] [--smoke] \
         [--requests 20] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch graphsage-reddit [--shape molecule|full_graph_sm|...] \
+        [--smoke] [--requests 20] [--device cuda|cpu]
 
 Builds the model at its published width (the arch's ``CONFIG`` in
 ``configs/``; ``--smoke`` takes ``SMOKE`` and the cell at
@@ -36,6 +39,16 @@ sequence, printing the request latency's p50 and p99.
   own history; DIN's and BST's forward runs on slices of 262,144 rows).
 * ``train_batch`` exits, pointing to the train launcher
   (``python -m repro_torch.launch.train``).
+* ``graphsage-reddit`` runs its cell's train step for each request, as
+  the JAX launcher does: the ``--shape`` cell's (default ``molecule``;
+  ``configs/registry.GNN_CELLS``) dense step, each request's from the same
+  base parameters (seed 0) and fresh optimizer state, on a batch drawn
+  from ``np.random.default_rng(i + 1)`` for request i as the train
+  launcher draws one (``launch/train.gnn_arrays``: at ``molecule`` a
+  ``synthetic.molecule_batch``; the JAX launcher draws random arrays of the
+  cell's shapes instead, through ``launch/materialize.py``, which the port
+  lacks), uploaded before the request is timed.  The latency is the step
+  and the wait for its loss on the host.
 
 ``--feature-server`` serves the feature lookups through the ported
 ``QueryServer``, as the JAX launcher's feature-server mode does: over the
@@ -70,10 +83,13 @@ from repro_torch.core.engine import (EmbeddingTable, MultiTableEngine,
                                      ScalarTable)
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops
+from repro_torch.launch import train as launch_train
+from repro_torch.models import gnn
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
 from repro_torch.serve.scheduler import BatchPolicy, ShedError
 from repro_torch.serve.server import QueryServer
+from repro_torch.train import optimizer as opt
 
 FEATURE_FIELDS = (("item_feats", "item_id"), ("item_pop", "item_id"))
 TOP_K = 100
@@ -270,11 +286,46 @@ def serve_with_feature_server(cfg, model, cell: registry.Cell, *, rows: int,
     return res
 
 
+def serve_gnn(arch: str, shape: str, *, smoke: bool, requests: int,
+              device) -> dict:
+    """``requests`` runs of the GNN cell ``shape``'s train step from the
+    same base parameters (the module docstring says how): p50 / p99 ms."""
+    cell, cfg, params, step = launch_train.gnn_setup(arch, shape, smoke,
+                                                     device)
+    state = opt.init_opt_state(params, opt.OptConfig())
+
+    def request(seed):
+        return gnn.gnn_batch(launch_train.gnn_arrays(
+            np.random.default_rng(seed), cell), cell.kind, device)
+
+    def answer(batch) -> float:
+        return float(step(params, state, 0, batch)[3]["loss"])
+
+    answer(request(0))                          # warm-up
+    lat, losses = [], []
+    for i in range(requests):
+        batch = request(i + 1)
+        t0 = time.perf_counter()
+        losses.append(answer(batch))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    res = {"arch": cfg.name, "shape": cell.name, "device": str(device),
+           "requests": requests, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "finite": bool(np.isfinite(losses).all())}
+    print(f"{cfg.name}/{cell.name}: {requests} requests (a train step "
+          f"each) on {device}, p50={res['p50_ms']:.2f}ms "
+          f"p99={res['p99_ms']:.2f}ms")
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", default="serve_p99",
-                    choices=[c.name for c in registry.REC_CELLS])
+    ap.add_argument("--shape", default=None,
+                    choices=[c.name for c in registry.REC_CELLS
+                             + registry.GNN_CELLS],
+                    help="serve_p99 for a recsys arch, molecule for "
+                         "graphsage-reddit")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--batch", type=int, default=None,
@@ -288,11 +339,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefetch-clients", type=int, default=2,
                     help="PREFETCH-lane lookup threads for --feature-server")
     args = ap.parse_args(argv)
-    if args.arch not in registry.ARCHS:
+    try:
+        family = registry.family(args.arch)
+    except KeyError:
         raise SystemExit(f"--arch {args.arch}: "
-                         + rec.NOT_PORTED.format(arch=args.arch))
+                         + rec.NOT_PORTED.format(arch=args.arch)) from None
+    shape = args.shape or {"recsys": "serve_p99", "gnn": "molecule"}[family]
+    if shape not in [c.name for c in registry.CELLS[family]]:
+        ap.error(f"{shape} is not a cell of {args.arch}")
+    if family == "gnn":
+        if args.feature_server or args.batch is not None:
+            ap.error("--feature-server and --batch take a recsys arch")
+        if args.requests < 1:
+            ap.error("--requests must be at least 1")
+        return serve_gnn(args.arch, shape, smoke=args.smoke,
+                         requests=args.requests,
+                         device=ops.resolve_device(args.device))
     configs = registry.ARCHS[args.arch]
-    cell = registry.cell_by_name(args.shape)
+    cell = registry.cell_by_name(shape)
     if args.smoke:
         cell = registry.reduce_cell(cell)
     if cell.kind == "rec_train":

@@ -59,9 +59,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import embedding_service as es
 
-NOT_PORTED = ("{arch} is not ported: the port serves the four recsys archs "
-              "(din, bst, two_tower, deepfm); the GNN and LM archs wait "
-              "for ROADMAP queue 1, items 14 and 15")
+NOT_PORTED = ("{arch} is not ported: the port runs the four recsys archs "
+              "(din, bst, two_tower, deepfm) and graphsage-reddit; the LM "
+              "archs wait for ROADMAP queue 1, item 15")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,9 +13,10 @@ under a per-request ``serve`` root span.  In the port's server, ``begin``
 is the engine's host staging plus the enqueue of its copies and probe
 launches on the card, ``device`` the wait until a finish worker picks the
 batch up, and ``finish`` the wait for the batch's event plus the inverse
-gather and the hybrid store.  A multi-process fabric (not ported yet) adds
-``route`` and per-shard ``shard_rpc`` spans and merges the shard-side span
-lists carried back in the wire response into one cross-process timeline.
+gather and the hybrid store.  The multi-process fabric (``serve/fabric.py``)
+adds ``route`` and per-shard ``shard_rpc`` spans and merges the shard-side
+span lists carried back in the wire response into one cross-process
+timeline.
 
 Timestamps are ``time.monotonic()``: CLOCK_MONOTONIC on Linux is a
 system-wide clock, so spans stamped in different processes on the same

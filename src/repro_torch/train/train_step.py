@@ -1,5 +1,5 @@
-"""Recsys train steps, from the JAX package's ``train/train_step.py``: loss
--> gradients -> clipped update.
+"""Recsys and GNN train steps, from the JAX package's
+``train/train_step.py``: loss -> gradients -> clipped update.
 
 A train step maps ``(params, opt_state, step, batch)`` to ``(params',
 opt_state', step + 1, metrics)``: ``params`` a path-keyed dict of tensors,
@@ -16,8 +16,10 @@ holds ``loss`` and ``grad_norm`` as 0-dim tensors (read them with
   place (``index_add_``), where JAX returns new arrays; so the caller's
   table tensors are the updated ones.
 
-The LM and GNN adapters wait for their models (ROADMAP queue 1, items 14
-and 15).
+``recsys_loss_fn`` and ``gnn_loss_fn`` are the family loss adapters that
+``make_train_step`` differentiates (GraphSAGE with ``OptConfig()``: Adam
+on every leaf, as the JAX cell builder picks for family ``gnn``).  The LM
+adapter waits for its models (ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.models import gnn
 from repro_torch.models import recsys as rec
 from repro_torch.train import optimizer as opt
 
@@ -151,4 +154,12 @@ def make_sparse_recsys_train_step(cfg, opt_cfg: opt.OptConfig,
 def recsys_loss_fn(cfg) -> Callable:
     def fn(params: dict, batch: dict):
         return rec.recsys_loss(params, cfg, batch)
+    return fn
+
+
+def gnn_loss_fn(cfg, regime: str) -> Callable:
+    """``gnn.gnn_loss`` of ``cfg`` in ``regime`` (full_graph | minibatch |
+    molecule) as ``loss_fn(params, batch)``."""
+    def fn(params: dict, batch: dict):
+        return gnn.gnn_loss(params, cfg, batch, regime)
     return fn

@@ -165,9 +165,9 @@ def test_bulk_rank_refuses_what_it_does_not_rank():
         serve_step.bulk_rank_fn(tt.SMOKE, tt_model)
     with pytest.raises(NotImplementedError, match="retrieval_scores"):
         rec.bulk_rank(tt_model, {})
-    with pytest.raises(NotImplementedError, match="graphsage is not ported"):
+    with pytest.raises(NotImplementedError, match="deepseek is not ported"):
         serve_step.bulk_rank_fn(
-            dataclasses.replace(din.SMOKE, arch="graphsage"), None)
+            dataclasses.replace(din.SMOKE, arch="deepseek"), None)
     _, model = _pair("din")
     with pytest.raises(ValueError, match="chunk_rows"):
         rec.bulk_rank(model, _batch("din", 8, 0), 5, chunk_rows=0)

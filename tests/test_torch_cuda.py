@@ -5,13 +5,16 @@ two-tower, DIN and BST serving and retrieval on the card against the same
 models on the CPU; the QueryServer over an engine on the card against the
 engine on the CPU; the FM term's and the bag's gradient kernels against
 their plain versions, the train steps of all four archs on the card
-against the CPU, and the realtime loop's smoke on the card.  No JAX
+against the CPU, the realtime loop's smoke on the card, and GraphSAGE's
+neighbour-sum kernel (``csr_sum``) against its plain version, its
+``NeighborMean`` gradient and the three regimes' steps against the CPU.
+No JAX
 here: the parity with the JAX package is pinned on the CPU by
 test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
 test_torch_embedding_bag.py, test_torch_recsys.py, test_torch_two_tower.py,
 test_torch_retrieval.py, test_torch_seq_recsys.py,
 test_torch_query_server.py, test_torch_train.py and
-test_torch_streaming.py.  Run on a CUDA machine with
+test_torch_streaming.py and test_torch_gnn.py.  Run on a CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -40,6 +43,7 @@ from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import fused_fm as fm
 from repro_torch.kernels import neighbor_lookup as nl
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import segment_sum as seg
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import recsys as rec
@@ -1974,3 +1978,150 @@ def test_cluster_sim_data_plane_on_card_matches_cpu():
         for name in d_a:
             for x, y in zip(d_a[name], d_b[name]):
                 np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# GraphSAGE's neighbour sum (csr_sum) and mean
+# ---------------------------------------------------------------------------
+def _graph_csr(n, e, seed, device="cuda"):
+    """A CSR over ``n`` nodes whose destinations skip every third node
+    (empty segments) and whose sources have a hub (node 1, a tenth of the
+    edges), with self-loops and duplicate edges."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e)
+    src[::10] = 1
+    dst = rng.integers(0, n, e)
+    dst = dst - dst % 3 + 1
+    dst = np.minimum(dst, n - 1)
+    src[:50], dst[:50] = np.arange(50) % n, np.arange(50) % n
+    src[50:100], dst[50:100] = src[100:150], dst[100:150]
+    return seg.adjacency(torch.as_tensor(src, device=device),
+                         torch.as_tensor(dst, device=device), n)
+
+
+@pytest.mark.parametrize("d", [16, 32, 100, 128, 1433])
+def test_csr_sum_matches_plain_bitwise(d):
+    """The kernel adds each segment's rows in j order from +0.0, as the
+    plain version does: the same bits, both over the CSR and over its
+    transpose; two launches the same bits; an empty segment 0."""
+    adj = _graph_csr(3000, 40_000, d)
+    x = torch.randn(3000, d, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(d))
+    for indptr, idx in ((adj.indptr_dst, adj.src_by_dst),
+                        (adj.indptr_src, adj.dst_by_src)):
+        before = seg.launches["csr_sum"]
+        got = seg.csr_sum(x, indptr, idx)
+        again = seg.csr_sum(x, indptr, idx)
+        torch.cuda.synchronize()
+        assert seg.launches["csr_sum"] == before + 2
+        want = ref.csr_sum(x, indptr, idx)
+        assert torch.equal(got, want)
+        assert torch.equal(got, again)
+    empty = (adj.indptr_dst[1:] == adj.indptr_dst[:-1])
+    assert bool(empty.any())
+    got = seg.csr_sum(x, adj.indptr_dst, adj.src_by_dst)
+    assert bool((got[empty] == 0).all())
+
+
+def test_csr_sum_branches_and_edges():
+    """A row offset off 16 B takes the scalar branch, the same bits; no
+    edges at all gives zeros; a single row."""
+    adj = _graph_csr(500, 4000, 1)
+    buf = torch.randn(500 * 128 + 1, device="cuda")
+    x = buf[1:].view(500, 128)                     # 4 B past 16 B
+    before = dict(seg.paths)
+    got = seg.csr_sum(x, adj.indptr_dst, adj.src_by_dst)
+    assert seg.paths["scalar"] == before["scalar"] + 1
+    assert torch.equal(got, ref.csr_sum(x, adj.indptr_dst, adj.src_by_dst))
+    got = seg.csr_sum(x.contiguous().clone(), adj.indptr_dst,
+                      adj.src_by_dst)
+    assert seg.paths["vec"] == before["vec"] + 1
+    none = seg.adjacency(torch.zeros(0, dtype=torch.long, device="cuda"),
+                         torch.zeros(0, dtype=torch.long, device="cuda"), 7)
+    assert torch.equal(seg.csr_sum(x, none.indptr_dst, none.src_by_dst),
+                       torch.zeros(7, 128, device="cuda"))
+    one = torch.tensor([0, 3], dtype=torch.int64, device="cuda")
+    ids = torch.tensor([4, 4, 2], dtype=torch.int32, device="cuda")
+    assert torch.equal(seg.csr_sum(x.clone(), one, ids)[0],
+                       (x[4] + x[4]) + x[2])
+
+
+def test_csr_sum_rejects_what_it_does_not_take():
+    adj = _graph_csr(100, 500, 2)
+    x = torch.randn(100, 8, device="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        seg.csr_sum(x.cpu(), adj.indptr_dst, adj.src_by_dst)
+    with pytest.raises(TypeError, match="float32"):
+        seg.csr_sum(x.double(), adj.indptr_dst, adj.src_by_dst)
+    with pytest.raises(TypeError, match="int64 indptr"):
+        seg.csr_sum(x, adj.indptr_dst.int(), adj.src_by_dst)
+    with pytest.raises(ValueError, match="contiguous"):
+        seg.csr_sum(x.t(), adj.indptr_dst, adj.src_by_dst)
+
+
+def test_neighbor_mean_gradient_on_card_is_the_plain_one():
+    """``NeighborMean`` on the card (the kernel forward and, over the
+    transposed CSR, backward) against the same Function on the CPU (the
+    plain version both ways): the same bits."""
+    adj = _graph_csr(2000, 30_000, 3)
+    adj_cpu = seg.Adjacency(adj.n_nodes, *(
+        t.cpu() for t in (adj.indptr_dst, adj.src_by_dst, adj.indptr_src,
+                          adj.dst_by_src, adj.deg)))
+    rng = np.random.default_rng(3)
+    h = rng.normal(size=(2000, 100)).astype(np.float32)
+    g = rng.normal(size=(2000, 100)).astype(np.float32)
+    out = {}
+    for device, a in (("cuda", adj), ("cpu", adj_cpu)):
+        x = torch.tensor(h, device=device, requires_grad=True)
+        before = seg.launches["csr_sum"]
+        y = ops.neighbor_mean(x, a)
+        y.backward(torch.as_tensor(g, device=device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert seg.launches["csr_sum"] == before + 2
+        out[device] = (y.detach().cpu(), x.grad.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("shape", ["full_graph_sm", "minibatch_lg",
+                                   "molecule"])
+def test_gnn_steps_on_card_match_cpu(shape):
+    """Two steps of the GNN cell at smoke size on the card and on the CPU
+    from the same parameters and batches: losses and parameters within
+    1e-5 (products and norms in other orders); three neighbour sums a
+    step where the regime has them."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import gnn
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cell, cfg, params, fn = launch_train.gnn_setup(
+            "graphsage-reddit", shape, True, "cpu")
+        params = {k: v.to(device) for k, v in params.items()}
+        state = opt.init_opt_state(params, opt.OptConfig())
+        rng = np.random.default_rng(0)
+        before = seg.launches["csr_sum"]
+        losses, step = [], 0
+        for _ in range(2):
+            batch = gnn.gnn_batch(launch_train.gnn_arrays(rng, cell),
+                                  cell.kind, device)
+            params, state, step, m = fn(params, state, step, batch)
+            losses.append(float(m["loss"]))
+        if device == "cuda":
+            want = 0 if cell.kind == "gnn_minibatch" else 6
+            assert seg.launches["csr_sum"] == before + want
+        runs[device] = (losses, {k: v.cpu() for k, v in params.items()})
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for k, v in runs["cpu"][1].items():
+        np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_graphsage_launchers_on_card(capsys):
+    out = launch_train.main(["--arch", "graphsage-reddit", "--smoke",
+                             "--steps", "2"])
+    assert out["device"].startswith("cuda") and out["step"] == 2
+    res = launch_serve.main(["--arch", "graphsage-reddit", "--smoke",
+                             "--requests", "2"])
+    assert res["device"].startswith("cuda") and res["finite"]

@@ -96,7 +96,19 @@ def test_string_scan_finds_the_reference_error_sources():
 
 # the library call a kernel of the port stands beside, and the compiler
 LIBRARY_CALLS = re.compile(r"\b(F|functional)\.embedding_bag\b|"
-                           r"\bnn\.EmbeddingBag\b|torch\.compile\b")
+                           r"\bnn\.EmbeddingBag\b|torch\.compile\b|"
+                           r"\bsparse\.mm\b|\bto_sparse_csr\b|"
+                           r"\bsegment_reduce\b")
+
+
+def test_scans_cover_the_gnn_slice():
+    """The scans above walk the whole package: GraphSAGE's modules and its
+    kernel's wrapper are among the files they read."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_files()[1:]}
+    assert {os.path.join(*p.split("/")) for p in (
+        "models/gnn.py", "data/graph_sampler.py", "data/synthetic.py",
+        "kernels/segment_sum.py", "configs/graphsage_reddit.py")} <= scanned
+    assert LIBRARY_CALLS.search("torch.sparse.mm(adj, h)")
 
 
 @pytest.mark.parametrize("path", _port_files()[1:],

@@ -525,11 +525,12 @@ def test_launcher_feature_server_needs_sparse_ids(arch):
                            "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "graphsage-reddit"])
+@pytest.mark.parametrize("arch", ["qwen3_14b", "deepseek-7b"])
 def test_launcher_refuses_unported_archs(arch):
-    """An arch the port does not serve (an LM, a GNN) exits naming ROADMAP
-    before any model is built, also for the retrieval_cand cell the
-    recsys archs all serve."""
+    """An arch the port does not serve (an LM) exits naming ROADMAP before
+    any model is built, also for the retrieval_cand cell the recsys archs
+    all serve.  (graphsage-reddit now serves:
+    ``tests/test_torch_gnn.py::test_serve_launcher_runs_graphsage``.)"""
     with pytest.raises(SystemExit, match="ROADMAP"):
         launch_serve.main(["--arch", arch, "--shape", "retrieval_cand",
                            "--device", "cpu"])

@@ -124,13 +124,23 @@ def test_registry_maps_the_ported_archs_to_their_configs(arch):
 
 
 def test_registry_refuses_unported_archs_and_unknown_cells():
-    assert "graphsage-reddit" not in registry.ARCHS
+    assert "deepseek-7b" not in registry.ARCHS
+    assert "graphsage-reddit" not in registry.ARCHS      # not a recsys arch
     with pytest.raises(SystemExit,
-                       match="graphsage-reddit is not ported.*ROADMAP"):
-        launch_serve.main(["--arch", "graphsage-reddit", "--smoke",
+                       match="deepseek-7b is not ported.*ROADMAP"):
+        launch_serve.main(["--arch", "deepseek-7b", "--smoke",
                            "--device", "cpu"])
     with pytest.raises(KeyError, match="no recsys cell"):
         registry.cell_by_name("decode_32k")
+
+
+def test_registry_serves_graphsage_as_a_gnn_arch():
+    """The arch this test once held as refused: the registry maps it to
+    its GNN family, and the serve launcher answers its smoke."""
+    assert registry.family("graphsage-reddit") == "gnn"
+    out = launch_serve.main(["--arch", "graphsage-reddit", "--smoke",
+                             "--device", "cpu", "--requests", "2"])
+    assert out["shape"] == "molecule" and out["finite"]
 
 
 # ---------------------------------------------------------------------------

@@ -947,12 +947,22 @@ def test_train_launcher_without_a_card(monkeypatch):
         launch_train.main(["--arch", "deepfm", "--smoke", "--steps", "1"])
 
 
+def test_train_launcher_trains_graphsage(capsys):
+    """The arch ``test_train_launcher_refusals`` once refused: three steps
+    of its default cell (``minibatch_lg``) at smoke size."""
+    out = launch_train.main(["--arch", "graphsage-reddit", "--smoke",
+                             "--device", "cpu", "--steps", "3"])
+    assert out["shape"] == "minibatch_lg" and out["step"] == 3
+    assert np.isfinite(out["losses"]).all()
+    assert "done" in capsys.readouterr().out
+
+
 def test_train_launcher_refusals():
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "deepfm", "--shape", "serve_p99",
                            "--smoke", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
-        launch_train.main(["--arch", "graphsage-reddit", "--smoke",
+    with pytest.raises(SystemExit, match="deepseek-7b is not ported"):
+        launch_train.main(["--arch", "deepseek-7b", "--smoke",
                            "--device", "cpu"])
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "deepfm", "--smoke", "--device", "cpu",
