@@ -33,7 +33,8 @@ batch against the version it reports.
   tables' at 1 and at 8 lanes a query too: ``probe_linear`` runs one
   thread a query), Mkeys/s, the host table's APCL, probe/RA (the
   ``random_access`` kernel), the lines read and the share of steps that
-  leave their line (host trace).  F9: NeighborHash at 2^14, 2^18 and
+  leave their line (host trace); then, a line a T1 size, linear
+  probing's time over NeighborHash's.  F9: NeighborHash at 2^14, 2^18 and
   2^20 keys, 256 queries through ``probe_sequential`` (one thread, one
   query after another) and 2^15 through ``probe_lines``, Mkeys/s each;
   the sequential probe's latency bound is its lines read times the
@@ -254,15 +255,26 @@ concatenation of the columns and the pageable copy to the card.
   upload, nodes (seeds, graphs) a second, each step's loss and
   ``grad_norm`` and ``max_memory_allocated``.  The neighbour mean of S.1,
   S.2 and S.4 runs on the ``csr_sum`` kernel, three launches a step
-  (both layers' forward, layer 2's backward over the transposed CSR;
-  the features need no gradient); S.3's dense masked means reach no
-  kernel.  Every launch is held against ``ref.csr_sum`` within min(2 n
-  2^-24, 1e-4) S + 1e-30 on every row (S.2: 65,536 fixed rows and the
-  longest segment), the first step's loss within 1e-5 of the plain
+  (both layers' forward, each dividing by deg in the launch and keeping
+  its hottest sources' rows in L2 by reading the rest evict-first, and
+  layer 2's backward over the transposed CSR; the features need no
+  gradient);
+  S.3's dense masked means reach no kernel.  Every launch is held
+  against ``ref.csr_sum`` (then ``/ deg``) within min(2 n 2^-24, 1e-4) S
+  + 1e-30 on every row (S.2: 65,536 fixed rows and the longest segment)
+  and counted where bitwise, the first step's loss within 1e-5 of the plain
   version's (S.1, S.2, S.4), every loss and ``grad_norm`` finite, the
   peak under 80 GB; each cell's launch count is 3 a step and no other
-  kernel launches.  S.1's and S.2's last launch of each CSR and width is
-  launched twice more (the same bits), then timed.
+  kernel launches.  The traced step's busy share takes the ``csr_sum``
+  launches' time from CUDA events around each, not from the trace, which
+  loses some of them (it counts those it holds).  S.1's and S.2's last
+  launch of each CSR and width is launched twice more (the same bits),
+  then timed; a ``csr_sum design`` line gives the card's L2 (the hot
+  rows' budget) and, a launch, its hot rows and their share
+  of the terms, its kernel ms with and without the marks (the same bits)
+  and over uniform sources (the control: what plain LRU kept), a
+  forward's ms with its ``/ deg`` as a second pass, beside its bound and
+  floors.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
@@ -285,7 +297,9 @@ timed apart and each of its kernels by profiler, beside both plain
 gradients and ``torch.autograd.grad`` of ``F.embedding_bag`` (mean, with
 a padding row); ``csr_sum`` at S.1's and S.2's three launches a step,
 beside its bound (the distinct rows of x the terms name, the indices,
-indptr and the output, each moved once), ``ref.csr_sum``, the
+indptr and the output, each moved once) and two floors of its design (a
+row read from memory a term; the same with each hot row read once),
+``ref.csr_sum``, the
 word-for-word route of the JAX package (``index_select`` into [E, D]
 messages, then ``index_add_``, where they fit the card) and
 ``torch.sparse.mm`` of the CSR of ones.
@@ -1226,6 +1240,17 @@ def time_phase_n(state, flush):
         (k for k in runs if k[0] == "t1"), key=lambda k: (k[1], k[2]))]
     for row in t1:
         print("[N] T1 " + json.dumps(row), flush=True)
+    by = {(r["variant"], r["keys"]): r for r in t1}
+    ratios = {n: {"linear_over_neighborhash_kernel_ms":
+                  by["linear", n]["kernel_ms"]
+                  / by["neighborhash", n]["kernel_ms"]
+                  if by["linear", n]["kernel_ms"]
+                  and by["neighborhash", n]["kernel_ms"] else None,
+                  "linear_over_neighborhash_ms": by["linear", n]["ms"]
+                  / by["neighborhash", n]["ms"]}
+              for n in N_T1_SIZES}
+    print("[N] T1 NeighborHash against linear probing: " + json.dumps(
+        ratios), flush=True)
     # phase A's own 4M NeighborHash table, past the L2, with the same mix
     build = state["eng_a"].window.get(None)[2]
     group, host = build.groups[0], build.shard_tables[0][0]
@@ -1322,7 +1347,8 @@ def time_phase_n(state, flush):
         "library_note": "none: no PyTorch call probes a hash table",
         "shape": f"F9 at {N_F9_SIZES[-1]} keys, {N_F9_SEQ} queries",
         "f9": f9}
-    return {"t1": t1, "t1_past_l2_beside": beside, "f9": f9,
+    return {"t1": t1, "t1_linear_over_neighborhash": ratios,
+            "t1_past_l2_beside": beside, "f9": f9,
             "load_latency_ns": latency}, [linear_row, seq_row]
 
 
@@ -1724,12 +1750,13 @@ def request_profiler(device):
     return torch.profiler.profile(activities=acts)
 
 
-def device_busy_ms(prof) -> tuple[float, int]:
+def device_busy_ms(prof, keep=lambda e: True) -> tuple[float, int]:
     """(ms, events): the union of the card's kernel, copy and memset
-    intervals in a profiler trace."""
+    intervals in a profiler trace (those ``keep`` keeps)."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and keep(e))
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
@@ -4569,7 +4596,8 @@ class CsrLog(OpLog):
     """Every ``ops.csr_sum`` call (the neighbour mean's sums, forward and
     backward) held against ``ref.csr_sum`` on the same inputs, element by
     element within min(2 n 2^-24, 1e-4) S + 1e-30 (n the segment's terms,
-    S their magnitudes' sum: two orders' bound, as for the bag gradient),
+    S their magnitudes' sum: two orders' bound, as for the bag gradient;
+    the forward's division by deg in the same call, so both sides divided),
     on every row, or on ``S_CHECK_ROWS`` fixed rows (and the longest
     segment's) where a launch has more.  Keeps the last call of each CSR
     and width under ``kept`` (inputs and output) for the repeat check and
@@ -4580,22 +4608,35 @@ class CsrLog(OpLog):
         self.kept = {}
         self.bitwise = 0          # launches equal to the plain version
         self.max_rel = 0.0        # max |err| / (S + 1e-30)
+        self.events = None        # a list: each call's CUDA events go there
+
+    def _record(self, *args, **kw):
+        if self.events is None:
+            return super()._record(*args, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = super()._record(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
 
     def check(self, args, kw, out) -> None:
-        x, indptr, indices = args
+        x, indptr, indices, deg, marked = (tuple(args) + (None, False))[:5]
         self.kept[(x.shape[1], indptr.data_ptr())] = (
-            x.detach(), indptr, indices, out.detach())
+            x.detach(), indptr, indices, deg, marked, out.detach())
         n_rows = indptr.shape[0] - 1
         if n_rows <= S_CHECK_ROWS:
             rows = None
-            sub = (indptr, indices)
+            sub = (indptr, indices, deg)
         else:
             g = torch.Generator(device=x.device).manual_seed(S_SEED)
             pick = torch.randperm(n_rows, generator=g,
                                   device=x.device)[:S_CHECK_ROWS]
             longest = torch.argmax(indptr[1:] - indptr[:-1])[None]
             rows = torch.unique(torch.cat([pick, longest]))
-            sub = sub_csr(indptr, indices, rows)
+            sub = (*sub_csr(indptr, indices, rows),
+                   None if deg is None else deg[rows])
         got = out if rows is None else out[rows]
         want = ref.csr_sum(x, *sub)
         s = ref.csr_sum(x.abs(), *sub)
@@ -4626,28 +4667,44 @@ def sub_csr(indptr, indices, rows):
 def csr_bound(x, indptr, indices):
     """The least time of ``csr_sum`` on these inputs on this card: the
     distinct rows of x the indices name, the indices, indptr read once and
-    [R, D] fp32 written once, against its adds (one a term and column)."""
+    [R, D] fp32 written once, against its adds (one a term and column).
+    Beside it two floors of this design on this graph, whose sources are
+    random: ``term_floor_ms`` reads a row from memory a term, and
+    ``hot_floor_ms`` the same but each hot (marked) row once."""
     dim = x.shape[1]
-    distinct = int(torch.unique(indices).numel()) if indices.numel() else 0
-    n_rows = indptr.shape[0] - 1
-    t_bytes = (distinct * dim * 4 + indices.numel() * 4 + indptr.numel() * 8
-               + n_rows * dim * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = indices.numel() * dim / FP32_OPS_PER_S * 1e3
+    ids = segk.decode(indices)
+    distinct = int(torch.unique(ids).numel()) if ids.numel() else 0
+    hot_terms = int((indices < 0).sum())
+    hot_rows = int(torch.unique(ids[indices < 0]).numel()) if hot_terms \
+        else 0
+    n_rows, nnz = indptr.shape[0] - 1, indices.numel()
+    fixed = nnz * 4 + indptr.numel() * 8 + n_rows * dim * 4
+    t_bytes = (distinct * dim * 4 + fixed) / HBM_BYTES_PER_S * 1e3
+    t_ops = nnz * dim / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "distinct_rows": distinct}
+            "distinct_rows": distinct,
+            "term_floor_ms": (nnz * dim * 4 + fixed) / HBM_BYTES_PER_S * 1e3,
+            "hot_floor_ms": ((nnz - hot_terms + hot_rows) * dim * 4 + fixed)
+            / HBM_BYTES_PER_S * 1e3,
+            "hot_rows": hot_rows, "hot_term_share": hot_terms / max(nnz, 1)}
 
 
-def csr_timing(x, indptr, indices, out, flush, *, plain_iters=3,
-               library=True):
+def csr_timing(x, indptr, indices, deg, marked, out, flush, *,
+               plain_iters=3, library=True):
     """One kept ``csr_sum`` launch: the same inputs twice more through the
     kernel (the same bits as the main path's output, or the run fails),
-    then timed by events and by profiler (cold L2), beside its bound, the
-    plain version (``ref.csr_sum``), the word-for-word route of the JAX
-    package (``index_select`` into [nnz, D], then ``index_add_`` by row,
-    where it fits the card) and ``torch.sparse.mm`` of the [R, N] CSR of
-    ones (held within 1e-4 x max |out|)."""
-    kernel = functools.partial(segk.csr_sum, x, indptr, indices)
+    then timed by events and by profiler (cold L2), beside its bound and
+    floors, the plain version (``ref.csr_sum``), the word-for-word route of
+    the JAX package (``index_select`` into [nnz, D], then ``index_add_`` by
+    row, where it fits the card) and ``torch.sparse.mm`` of the [R, N] CSR
+    of ones (held within 1e-4 x max |out|).  The design's controls by
+    profiler: the same launch with no row marked hot (the same bits), and
+    the same segments over sources drawn uniformly at random, unmarked (how
+    much of the term stream plain LRU keeps in L2 without the skew); by
+    events, a forward's sum and then its ``/ deg`` as a second pass (the
+    same bits)."""
+    kernel = functools.partial(segk.csr_sum, x, indptr, indices, deg, marked)
     for _ in range(2):
         if not same_bits(kernel(), out):
             fail(f"two csr_sum launches on the same inputs ({tuple(x.shape)}"
@@ -4655,14 +4712,37 @@ def csr_timing(x, indptr, indices, out, flush, *, plain_iters=3,
     n_rows, nnz, dim = indptr.shape[0] - 1, indices.numel(), x.shape[1]
     row = {"x": list(x.shape), "rows": n_rows, "nnz": nnz,
            "max_segment": int((indptr[1:] - indptr[:-1]).max()),
-           "repeat_bitwise": True,
+           "fused_deg": deg is not None, "repeat_bitwise": True,
            "ms": time_ms(kernel, 20, flush),
            "kernel_ms": kernel_ms(kernel, "csr_sum_kernel", 20, flush),
            "host_ms": host_ms(kernel, 20),
            **csr_bound(x, indptr, indices),
            "plain_ms": time_ms(functools.partial(ref.csr_sum, x, indptr,
-                                                 indices), plain_iters,
+                                                 indices, deg), plain_iters,
                                flush)}
+    ids = segk.decode(indices)
+    if marked:
+        cold = functools.partial(segk.csr_sum, x, indptr, ids, deg)
+        if not same_bits(cold(), out):
+            fail("csr_sum with no row marked hot differs from the marked "
+                 "launch")
+        row["kernel_ms_hot_off"] = kernel_ms(cold, "csr_sum_kernel", 20,
+                                             flush)
+    else:
+        row["kernel_ms_hot_off"] = row["kernel_ms"]
+    if deg is not None:
+        def unfused():
+            return segk.csr_sum(x, indptr, indices, None, marked) / deg
+        if not same_bits(unfused(), out):
+            fail("csr_sum then / deg differs from the fused division")
+        row["unfused_ms"] = time_ms(unfused, 20, flush)
+    g = torch.Generator(device=x.device).manual_seed(S_SEED)
+    uniform = torch.randint(0, x.shape[0], (nnz,), generator=g,
+                            device=x.device, dtype=torch.int32)
+    row["kernel_ms_uniform_sources"] = kernel_ms(
+        functools.partial(segk.csr_sum, x, indptr, uniform, deg),
+        "csr_sum_kernel", 20, flush)
+    del uniform
     free = torch.cuda.mem_get_info(x.device)[0]
     if nnz * (dim * 4 + 8) * 1.2 < free:
         seg_rows = torch.repeat_interleave(
@@ -4670,7 +4750,7 @@ def csr_timing(x, indptr, indices, out, flush, *, plain_iters=3,
 
         def gather_scatter():
             return torch.zeros(n_rows, dim, device=x.device).index_add_(
-                0, seg_rows, x.index_select(0, indices))
+                0, seg_rows, x.index_select(0, ids))
         row["gather_scatter_ms"] = time_ms(gather_scatter, 3, flush)
         del seg_rows
     else:
@@ -4680,14 +4760,17 @@ def csr_timing(x, indptr, indices, out, flush, *, plain_iters=3,
                                       f"graph ({free} B free)")
     if library:
         adj = torch.sparse_csr_tensor(
-            indptr, indices.long(), torch.ones(nnz, device=x.device),
+            indptr, ids.long(), torch.ones(nnz, device=x.device),
             size=(n_rows, x.shape[0]))
         lib = functools.partial(torch.sparse.mm, adj, x)
-        diff = float((lib() - out).abs().max())
-        if diff > 1e-4 * max(float(out.abs().max()), 1.0):
+        want = out if deg is None else out * deg.reshape(n_rows, 1)
+        diff = float((lib() - want).abs().max())
+        if diff > 1e-4 * max(float(want.abs().max()), 1.0):
             fail(f"torch.sparse.mm and csr_sum disagree by {diff}")
         row["library_ms"] = time_ms(lib, 20, flush)
         row["library_max_abs_diff"] = diff
+        row["library_note"] = ("the sum alone, without the division by "
+                               "deg" if deg is not None else "the sum")
         del adj
     else:
         row["library_ms"] = None
@@ -4784,18 +4867,24 @@ def run_gnn_cell(tag, shape, device, log, seed=S_SEED, smoke=False):
     summary = step_summary(rows, ev, host_ms_, ms)
     summary["warmup_host_ms"] = host0[0]
     prof = request_profiler(device)
+    log.events = [] if cuda else None
     with prof:
         t0 = time.perf_counter()
         p, s, st, mt = fn(p, s, st, batches[S_STEPS + 1])
         if cuda:
             torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
+    sums_ms = sum(a.elapsed_time(b) for a, b in log.events or [])
+    log.events = None
     log.check_pending()
     losses = [float(m["loss"]) for m in m0 + ms + [mt]]
     norms = [float(m["grad_norm"]) for m in m0 + ms + [mt]]
     if not np.isfinite(losses + norms).all():
         fail(f"[{tag}] losses {losses} or grad norms {norms} are not finite")
-    busy_ms, busy_events = device_busy_ms(prof)
+    # the trace loses some of the csr_sum launches (an H100's held 1 to 3
+    # of a step's 3): their time comes from events around each instead
+    busy_ms, busy_events = device_busy_ms(
+        prof, lambda e: "csr_sum_kernel" not in e.name)
     peak = max_memory(device)
     if peak is not None and peak >= S_PEAK_BYTES:
         fail(f"[{tag}] peak memory {peak} B reaches the card's 80 GB")
@@ -4808,9 +4897,14 @@ def run_gnn_cell(tag, shape, device, log, seed=S_SEED, smoke=False):
             "loss_all_steps": losses, "grad_norm_all_steps": norms,
             "max_memory_allocated": peak,
             "traced_step": {
-                "ms": traced_ms, "device_busy_ms": busy_ms,
+                "ms": traced_ms, "device_busy_ms": busy_ms + sums_ms,
+                "csr_sum_event_ms": sums_ms,
                 "device_events": busy_events,
-                "busy_share": busy_ms / traced_ms,
+                "busy_share": (busy_ms + sums_ms) / traced_ms,
+                "csr_sum_in_trace": sum(
+                    1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "csr_sum_kernel" in e.name),
                 "kernels_ms": kernels_by_device_ms(prof, top=8)}}
 
 
@@ -4818,8 +4912,8 @@ def run_phase_s(device, flush):
     """S.1-S.4 one after another, each cell's launches counted from 0 just
     before it and read just after; S.1's and S.2's kept launches timed
     after their counts are read (their repeat launches and timings count
-    nowhere).  Returns (metrics, the ``csr_sum`` row of the kernels
-    line)."""
+    nowhere), then the design line.  Returns (metrics, the ``csr_sum`` row
+    of the kernels line)."""
     out, launched, timings = {}, {}, []
     max_err = max_rel = 0.0
     bitwise = checked = 0
@@ -4828,12 +4922,13 @@ def run_phase_s(device, flush):
         gc.collect()
         torch.cuda.empty_cache()
         zero(nl.launches, fm.launches, bagk.launches, segk.launches,
-             segk.paths)
+             segk.paths, segk.hot_launches)
         t0 = time.perf_counter()
         with CsrLog() as log:
             m = run_gnn_cell(tag, shape, device, log)
         counts = {**kernel_counts(), **segk.launches}
         m.update(launches=counts, paths=dict(segk.paths),
+                 hot_launches=segk.hot_launches["csr_sum"],
                  seconds=time.perf_counter() - t0)
         want = 0 if shape == "minibatch_lg" else 3 * (S_STEPS + 2)
         if counts["csr_sum"] != want or log.checked != want:
@@ -4852,14 +4947,21 @@ def run_phase_s(device, flush):
         if tag in ("S.1", "S.2"):
             gc.collect()
             torch.cuda.empty_cache()
-            for (dim, _), (x, indptr, indices, o) in log.kept.items():
-                row = csr_timing(x, indptr, indices, o, flush,
+            for x, indptr, indices, deg, marked, o in log.kept.values():
+                row = csr_timing(x, indptr, indices, deg, marked, o, flush,
                                  plain_iters=3 if tag == "S.2" else 10)
                 row["cell"] = tag
                 print(f"[{tag}] csr_sum timing: " + json.dumps(row),
                       flush=True)
                 timings.append(row)
         del log
+    print("csr_sum design: " + json.dumps({
+        "l2_bytes": segk.l2_bytes(device),
+        "launches": [{k: r.get(k) for k in (
+            "cell", "x", "fused_deg", "hot_rows", "hot_term_share",
+            "kernel_ms", "kernel_ms_hot_off", "kernel_ms_uniform_sources",
+            "ms", "unfused_ms", "bound_ms", "term_floor_ms",
+            "hot_floor_ms")} for r in timings]}), flush=True)
     main = next(r for r in timings if r["cell"] == "S.2"
                 and r["x"][1] == 100)
     row = {"name": "csr_sum", "route": "cuda", "source": SOURCE["csr_sum"],

@@ -509,11 +509,21 @@ __global__ void __launch_bounds__(kRaThreads) random_access_kernel(
 // capacity, at most max_probes steps past home (a query still going at the
 // bound reports not found, as the reference's while_loop leaves it).
 //
-// One thread a query, its buckets read as probe_lines's one-thread form
-// reads them (GlobalTable).  Eight consecutive buckets share one 128 B
-// line, so most steps read the line the step left, from L1: that locality
-// is linear probing's whole case against chaining, and the run's length is
-// what it pays for it.
+// Bound: the bytes of the lines a query's run covers, 128 B a line; but
+// each line's read waits on the compare of the line before, so a query
+// waits on a chain of dependent loads.  The design makes that chain one
+// load a line, not one a bucket: a query reads its line's 8 key_hi and 8
+// key_lo words at once and resolves every step of its run that falls in
+// that line in registers (the first hit or empty bucket at or after its
+// slot, among the buckets its remaining steps reach), reads the value
+// words of the bucket it hit alone, and only then goes on to the next
+// line.  The run wraps at capacity, not at the end of the last line, where
+// capacity % 8 != 0: a line's buckets past capacity are never read.
+//
+// One thread a query: the line's 64 B of keys come by four independent
+// 16 B loads.  (A group of 8 lanes a query, one 16 B load a lane and a
+// ballot, ran slower at T1's 2^16 queries, the batch the port runs this
+// kernel at.)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kLinesThreads) probe_linear_kernel(
     const uint32_t* __restrict__ lines, uint32_t capacity, int64_t max_probes,
@@ -523,22 +533,48 @@ __global__ void __launch_bounds__(kLinesThreads) probe_linear_kernel(
                     threadIdx.x;
   if (i >= n) return;
   const uint32_t qh = q_hi[i], ql = q_lo[i];
-  const GlobalTable table{lines, nullptr};
-  uint32_t idx = hash64(qh, ql) % capacity;
-  Bucket k = table.bucket(idx);
-  bool empty = k.khi == kEmpty && k.klo == kEmpty;
-  bool hit = !empty && k.khi == qh && k.klo == ql;
-  bool active = !empty && !hit;
-  for (int64_t step = 0; active && step < max_probes; ++step) {
-    idx = idx + 1 == capacity ? 0u : idx + 1;       // (idx + 1) % capacity
-    k = table.bucket(idx);
-    empty = k.khi == kEmpty && k.klo == kEmpty;
-    hit = !empty && k.khi == qh && k.klo == ql;
-    active = !empty && !hit;
+  int64_t idx = hash64(qh, ql) % capacity;
+  int64_t left = max_probes + 1;     // buckets the run may still read
+  Answer a{0u, 0u, 0u};
+  for (;;) {
+    const int64_t line = idx / kBpl;
+    const int c = static_cast<int>(idx % kBpl);
+    const int64_t line_end = line * kBpl + kBpl < capacity
+                                 ? line * kBpl + kBpl
+                                 : static_cast<int64_t>(capacity);
+    const int take = static_cast<int>(line_end - idx < left ? line_end - idx
+                                                             : left);
+    const uint32_t* w = lines + line * kLineWords;
+    const uint4* v = reinterpret_cast<const uint4*>(w);
+    const uint4 h0 = __ldg(v), h1 = __ldg(v + 1);      // key_hi
+    const uint4 l0 = __ldg(v + 2), l1 = __ldg(v + 3);  // key_lo
+    const uint32_t kh[kBpl] = {h0.x, h0.y, h0.z, h0.w,
+                               h1.x, h1.y, h1.z, h1.w};
+    const uint32_t kl[kBpl] = {l0.x, l0.y, l0.z, l0.w,
+                               l1.x, l1.y, l1.z, l1.w};
+    unsigned eq = 0u, em = 0u;         // one bit a bucket of the line
+#pragma unroll
+    for (int b = 0; b < kBpl; ++b) {
+      eq |= static_cast<unsigned>(kh[b] == qh && kl[b] == ql) << b;
+      em |= static_cast<unsigned>(kh[b] == kEmpty && kl[b] == kEmpty) << b;
+    }
+    const unsigned hit = eq & ~em;
+    // the buckets in [c, c + take): the steps this line holds
+    const unsigned stop = (hit | em) & (((1u << take) - 1u) << c);
+    if (stop != 0u) {                  // the run ends in this line
+      const int b = __ffs(stop) - 1;
+      if ((hit >> b) & 1u)
+        a = {1u, __ldg(w + 2 * kBpl + b) & kPayloadHiMask,
+             __ldg(w + 3 * kBpl + b)};
+      break;
+    }
+    left -= take;
+    if (left == 0) break;              // max_probes steps taken: not found
+    idx = line_end == capacity ? 0 : line_end;
   }
-  out[i] = hit ? 1u : 0u;
-  out[n + i] = hit ? (k.vhi & kPayloadHiMask) : 0u;
-  out[2 * n + i] = hit ? k.vlo : 0u;
+  out[i] = a.found;
+  out[n + i] = a.p_hi;
+  out[2 * n + i] = a.p_lo;
 }
 
 // ---------------------------------------------------------------------------
@@ -699,13 +735,14 @@ extern "C" int repro_random_access(const void* lines, long long capacity,
 }
 
 // lines: uint32 [n_lines, 4, kBpl] holding at least `capacity` buckets,
-// capacity in [1, 2^32); out: uint32 [3, n] (found, payload_hi, payload_lo);
-// n >= 1.
+// 16 B aligned, capacity in [1, 2^32); out: uint32 [3, n] (found,
+// payload_hi, payload_lo); n >= 1.
 extern "C" int repro_probe_linear(const void* lines, long long capacity,
                                   long long max_probes, const void* q_hi,
                                   const void* q_lo, void* out, long long n,
                                   void* stream) {
-  if (capacity < 1 || capacity > 0xFFFFFFFFll || max_probes < 0 || n < 1)
+  if (capacity < 1 || capacity > 0xFFFFFFFFll || max_probes < 0 || n < 1 ||
+      max_probes > (1LL << 62))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto blocks = static_cast<unsigned>((n + kLinesThreads - 1) /
                                             kLinesThreads);

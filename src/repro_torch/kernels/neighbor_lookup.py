@@ -21,7 +21,7 @@ Beside them, three kernels that are not TPU kernels read the same
 line-packed table: ``random_access``, the paper's RA yardstick (each key
 hashed to its home bucket and both value words gathered there, one thread
 a key); ``probe_linear``, the linear-probing lookup of the T1 baseline
-(``core/lookup.lookup_linear``, one thread a query); and
+(``core/lookup.lookup_linear``: one thread a query, a line a load); and
 ``probe_sequential``, the no-parallelism baseline of Fig. 9
 (``core/lookup.lookup_sequential``: one thread resolves the queries one
 after another).  ``load_chain``, a yardstick for the last, follows a chain
@@ -410,9 +410,9 @@ def probe_linear(table: DeviceTable, q_hi: torch.Tensor, q_lo: torch.Tensor
     (found, payload_hi, payload_lo), the function of
     ``core/lookup.lookup_linear``: home ``hash64 % capacity``, then
     ``(idx + 1) % capacity`` until a hit, an empty bucket or
-    ``table.max_probes`` steps past home.  The table's ``next_idx``,
-    ``home_capacity`` and ``host_check`` are not read.  Raises on CPU
-    tensors."""
+    ``table.max_probes`` steps past home, each line's steps resolved from
+    one read of its keys.  The table's ``next_idx``, ``home_capacity`` and
+    ``host_check`` are not read.  Raises on CPU tensors."""
     return _one_table_launch(
         "probe_linear", table, q_hi, q_lo, 3,
         lambda lib, out, n, stream: lib.repro_probe_linear(

@@ -232,14 +232,17 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     return _bag.embedding_bag(table, indices, weights, mode=mode)
 
 
-def csr_sum(x: torch.Tensor, indptr: torch.Tensor,
-            indices: torch.Tensor) -> torch.Tensor:
+def csr_sum(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
+            deg: Optional[torch.Tensor] = None,
+            marked: bool = False) -> torch.Tensor:
     """``out[r] = sum_{j in indptr[r]:indptr[r+1]} x[indices[j]]``, summed
-    in ``j`` order (``kernels/ref.csr_sum`` says what it computes): the
+    in ``j`` order, then ``/ deg[r]`` where ``deg`` is given
+    (``kernels/ref.csr_sum`` says what it computes; the indices' hot marks
+    and ``marked`` only tell the kernel which rows to keep in L2): the
     plain version for a CPU ``x``, the ``csr_sum`` kernel for a CUDA one."""
     if x.device.type == "cpu":
-        return _ref.csr_sum(x, indptr, indices)
-    return _seg.csr_sum(x, indptr, indices)
+        return _ref.csr_sum(x, indptr, indices, deg, marked)
+    return _seg.csr_sum(x, indptr, indices, deg, marked)
 
 
 def neighbor_mean(h: torch.Tensor, adj: _seg.Adjacency) -> torch.Tensor:

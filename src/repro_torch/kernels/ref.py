@@ -36,6 +36,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import hashcore as hc
+from repro_torch.kernels import segment_sum as seg
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -340,26 +341,31 @@ def embedding_bag_backward_ordered(g: torch.Tensor, indices: torch.Tensor,
     return out
 
 
-def csr_sum(x: torch.Tensor, indptr: torch.Tensor,
-            indices: torch.Tensor) -> torch.Tensor:
+def csr_sum(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
+            deg: Optional[torch.Tensor] = None,
+            marked: bool = False) -> torch.Tensor:
     """Plain version of ``segment_sum.csr_sum``: ``out[r] = sum_{j in
     indptr[r]:indptr[r+1]} x[indices[j]]`` -> [R, D] in x's dtype (fp32;
     float64 stays float64 for the gradient checks), R = ``len(indptr) -
     1``, each segment summed from +0.0 in ``j`` order (an empty one gives
     0): the t-th term of every segment still that long is added at step t,
-    so the adds are the kernel's, in its order.  No [nnz, D]
+    so the adds are the kernel's, in its order.  Then ``out / deg`` where
+    ``deg`` ([R, 1] or [R]) is given, as the kernel divides.  An index's
+    sign bit (the kernel's hot mark) is ignored and so is ``marked``: they
+    tell the kernel which rows to keep in L2, not what to sum.  No [nnz, D]
     intermediate."""
     n_rows = indptr.shape[0] - 1
     out = torch.zeros(n_rows, x.shape[1], dtype=x.dtype, device=x.device)
-    if n_rows == 0:
-        return out
-    start, length = indptr[:-1], indptr[1:] - indptr[:-1]
-    # rows by length, descending: the rows still live at step t are a
-    # prefix of this order
-    length, rows = torch.sort(length, descending=True, stable=True)
-    live = torch.searchsorted(-length, -torch.arange(
-        int(length[0]), device=x.device)).tolist()
-    for t, n in enumerate(live):
-        r = rows[:n]
-        out[r] = out[r] + x[indices[start[r] + t].long()]
+    if n_rows > 0:
+        start, length = indptr[:-1], indptr[1:] - indptr[:-1]
+        # rows by length, descending: the rows still live at step t are a
+        # prefix of this order
+        length, rows = torch.sort(length, descending=True, stable=True)
+        live = torch.searchsorted(-length, -torch.arange(
+            int(length[0]), device=x.device)).tolist()
+        for t, n in enumerate(live):
+            r = rows[:n]
+            out[r] = out[r] + x[seg.decode(indices[start[r] + t]).long()]
+    if deg is not None:
+        out = out / deg.reshape(n_rows, 1)
     return out

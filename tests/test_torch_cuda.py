@@ -1820,6 +1820,39 @@ def test_probe_linear_max_probes_cut_off(max_probes):
     assert 0 < int(got[0].sum()) < len(keys)
 
 
+@pytest.mark.parametrize("lf", [0.5, 0.8, 0.95])
+def test_probe_linear_line_walk_matches_plain(lf):
+    """The line walk across load factors (runs of many lines at 0.95):
+    bitwise the plain version and the host table."""
+    keys, t = _table("linear", 6000, seed=int(lf * 100), lf=lf)
+    q = _queries(keys, 5000, 0.9, seed=1)
+    got = _baseline_both(nl.probe_linear, _plain_linear, _linear_table, t, q)
+    hf, _ = t.lookup_host_batch(q)
+    np.testing.assert_array_equal(got[0].numpy().astype(bool), hf)
+
+
+@pytest.mark.parametrize("capacity", [61, 64, 203])
+def test_probe_linear_line_walk_wraps_at_capacity(capacity):
+    """Runs past the last bucket wrap to bucket 0 at ``capacity``, also
+    where the last line is part-filled (61, 203)."""
+    keys, misses, t = _wrapping_linear(capacity=capacity)
+    q = np.concatenate([keys, misses])
+    got = _baseline_both(nl.probe_linear, _plain_linear, _linear_table, t, q)
+    assert got[0, :len(keys)].bool().all() and not got[0, len(keys):].any()
+
+
+@pytest.mark.parametrize("max_probes", [0, 1, 3, 7, 8, 9])
+def test_probe_linear_line_walk_cut_at_max_probes(max_probes):
+    """The ``max_probes`` cut inside a line, on its last bucket and past
+    it, over a part-filled last line."""
+    keys, misses, t = _wrapping_linear(n_tail=14, capacity=61)
+    q = np.concatenate([keys, misses])
+    got = _baseline_both(
+        nl.probe_linear, _plain_linear,
+        lambda d, t: _linear_table(d, t, max_probes=max_probes), t, q)
+    assert 0 < int(got[0].sum()) <= len(keys)
+
+
 @pytest.mark.parametrize("variant", nh.VARIANTS)
 @pytest.mark.parametrize("n_q", [0, 1, 255, 257, 600])
 def test_probe_sequential_matches_plain(variant, n_q):
@@ -2021,6 +2054,64 @@ def test_csr_sum_matches_plain_bitwise(d):
     assert bool(empty.any())
     got = seg.csr_sum(x, adj.indptr_dst, adj.src_by_dst)
     assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("with_deg", [False, True])
+@pytest.mark.parametrize("share", ["none", "some", "all"])
+@pytest.mark.parametrize("d", [32, 100, 128, 1433, 30])
+def test_csr_sum_hot_rows_bitwise(d, share, with_deg):
+    """Hot marks change where a row is read from, never the adds: with
+    none, some or all sources marked, and with the division by deg in the
+    launch, the kernel is bitwise ``ref.csr_sum`` (then ``/ deg``), and
+    two launches the same bits."""
+    adj = _graph_csr(3000, 40_000, d)
+    x = torch.randn(3000, d, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(d))
+    rows = {"none": 0, "some": 400, "all": 2999}[share]
+    hot = seg.hot_sources(adj.indptr_src, d, rows * seg.row_bytes(d))
+    if share == "all":
+        hot = torch.arange(3000, dtype=torch.int32, device="cuda")
+    marked = seg.mark_hot(adj.src_by_dst, hot, 3000)
+    assert (hot.numel() > 0) == (share != "none")
+    deg = adj.deg if with_deg else None
+    before = dict(seg.hot_launches)
+    got = seg.csr_sum(x, adj.indptr_dst, marked, deg, share != "none")
+    again = seg.csr_sum(x, adj.indptr_dst, marked, deg, share != "none")
+    torch.cuda.synchronize()
+    assert seg.hot_launches["csr_sum"] == before["csr_sum"] + 2 * int(
+        share != "none")
+    want = ref.csr_sum(x, adj.indptr_dst, adj.src_by_dst)
+    if with_deg:
+        want = want / adj.deg
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref.csr_sum(x, adj.indptr_dst, marked, deg))
+
+
+def test_neighbor_mean_marks_the_forward_once_a_width(monkeypatch):
+    """On the card the forward takes ``Adjacency.hot_marked``'s copy for
+    the card's L2 (kept on the adjacency), the backward the plain
+    transposed CSR; the mean is the CPU's bitwise."""
+    n = 120_000                       # 48 MB of rows: close to the L2
+    adj = _graph_csr(n, 1_000_000, 9)
+    budget = seg.l2_bytes(torch.device("cuda")) // 4
+    x = torch.randn(n, 100, device="cuda", requires_grad=True)
+    calls = []
+    real = ops.csr_sum
+    monkeypatch.setattr(seg, "l2_bytes", lambda device: budget)
+    monkeypatch.setattr(ops, "csr_sum",
+                        lambda *a: calls.append(a) or real(*a))
+    y = ops.neighbor_mean(x, adj)
+    y.sum().backward()
+    monkeypatch.undo()
+    marked, any_hot = adj.hot_marked(100, budget)
+    assert any_hot and bool((marked < 0).any())
+    assert calls[0][2] is marked and calls[0][4] is True
+    assert calls[0][3] is adj.deg and len(calls) == 2
+    assert calls[1][2] is adj.dst_by_src and len(calls[1]) == 3
+    want = ref.csr_sum(x.detach().cpu(), adj.indptr_dst.cpu(),
+                       adj.src_by_dst.cpu(), adj.deg.cpu())
+    assert torch.equal(y.detach().cpu(), want)
 
 
 def test_csr_sum_branches_and_edges():
