@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu``,
 ``embedding_bag.cu`` and ``segment_sum.cu``) with nvcc, one per library,
-all started together, then runs nineteen phases.  Two send batch queries
+all started together, then runs twenty phases.  Two send batch queries
 through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
@@ -50,8 +50,9 @@ batch against the version it reports.
   5 ms, naming propagation 2 s, reload 3 s; a rollout every 20 s) with
   its data plane an engine on the card over phase A's deployment cut to
   2^20 scalar keys and 200k 1 KB rows, each rollout a delta generation of
-  64 keys: 1000 batch queries of 4096 zipf keys over both tables in 200
-  s of sim time, under ``paper``, under ``naming``, and under ``paper``
+  64 keys: 300 batch queries of 4096 zipf keys over both tables in 60
+  s of sim time (cut from 1000 in 200 s to keep the script inside its
+  time limit), under ``paper``, under ``naming``, and under ``paper``
   behind the ``QueryServer``; then a latest and a pinned read through
   ``FeatureClient(ClusterBackend(sim))``, and a ``BatchQueryService``
   (4 MB shards) over the same keys, 64 batches against the engine and the
@@ -276,6 +277,37 @@ concatenation of the columns and the pageable copy to the card.
   forward's ms with its ``/ deg`` as a second pass, beside its bound and
   floors.
 
+* **T** — the sharded batch query (``core/distributed.py``) over
+  ``torch.distributed``, after S, every process group destroyed before the
+  next sub-phase.  Its host tables (phase A's 4M keys in 1 and in 4
+  NeighborHash shards, ``build_sharded``) are built by two spawned
+  processes started once phase N's tables are built.  **T.1**: NCCL, world 1, in
+  this process: ``make_distributed_lookup`` under ``replicated`` and
+  ``a2a``, 64 batches of 4096 keys with phase A's hit mix each; every
+  answer bitwise ``lookup_host_batch``'s and every probe launch its plain
+  version's, the last batch also the single-table ``ops.neighbor_lookup``'s,
+  a2a dropping nothing.  **T.2**: gloo, four rank processes (spawned) on
+  the one card, one shard each (NCCL refuses two ranks on one device, so
+  every collective is staged through the host): ``replicated``, ``a2a``
+  at capacity factor 2.0 and at 0.5 (which drops); every kept answer
+  bitwise the host tables', every dropped one not found with a zero
+  payload, the summed ``n_dropped`` a numpy recount of the overflow,
+  replicated equal to a2a at 2.0; per rank the probe's ms by CUDA events
+  beside the exchange's by the host clock.  **T.3**: two-tower's user tower
+  at published width (``configs/two_tower_retrieval.CONFIG``, 30.8 GB of
+  tables drawn once here and shared with four gloo ranks by IPC handle,
+  each rank serving views of its row blocks, ``convert.two_tower_row_blocks``)
+  through ``serve_step.recsys_score_fn`` under ``a2a`` and ``psum16``, D's
+  traffic (64 requests of 512 rows after a warm-up, one more traced for its
+  host split); held to the world-1 ``xla`` tower on the same weights and
+  requests (the plain bag) within 1e-5 (a2a, with the routing's drops at
+  the reference's capacity factor 1.5 applied to it) and 2e-2 (psum16,
+  whose history means are held within the bf16 bound (S + 1) 2^-8 sum_s
+  |partial_s|), norms 1 +- 1e-5, every ``embedding_bag`` launch against
+  its plain version, 64 launches a rank under psum16 and none under a2a,
+  the card's peak across all processes under 80 GB.  A rank that fails or
+  passes ``T_TIMEOUT_S`` fails the run.
+
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (for the
@@ -325,8 +357,10 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import functools
 import gc
+import hashlib
 import io
 import json
 import multiprocessing
@@ -351,6 +385,7 @@ from repro_torch.configs import (bst, deepfm, din,  # noqa: E402
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import cluster_sim as cs  # noqa: E402
 from repro_torch.core import convert  # noqa: E402
+from repro_torch.core import distributed as tdist  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import hashcore as hc  # noqa: E402
 from repro_torch.core import lookup as lk  # noqa: E402
@@ -401,7 +436,7 @@ N_ITERS = 20
 N_BUILD_WORKERS = 6            # processes building N's host tables at once
 # phase O: the consistency protocol's replica fleet (SimConfig's defaults)
 O_KEYS, O_EMB_ROWS = 1 << 20, 200_000
-O_QUERIES, O_QPS = 1000, 5     # 200 s of sim time
+O_QUERIES, O_QPS = 300, 5      # 60 s of sim time, 3 versions
 O_UPDATE_US = 20_000_000       # a naming rollout (3 x 5 s) ends first
 O_SEED = 0
 O_BQS_BATCHES = 64
@@ -496,6 +531,19 @@ BAG_GRAD_REL = 1e-4            # ... at most this share of S (hot rows)
 SOFTMAX_SHAPES = ((8, 32), (4096, 256), (32_768, 256), (65_536, 256))
 #   (B, D) of the in-batch softmax: SMOKE's, one chunk, train_batch's
 SOFTMAX_GRAD_TAIL = 5          # x sqrt(D) 2^-24 / T: see softmax_timing
+T_KEYS, T_SEED = 4_000_000, 2    # phase A's keys, seed and hit mix
+T_BATCHES = 64                 # T.1, T.2: batches of BATCH_KEYS a run
+T_WORLD = 4                    # T.2, T.3: gloo ranks on the one card
+T2_RUNS = (("replicated", 2.0), ("a2a", 2.0), ("a2a", 0.5))  # 0.5 drops
+T2_RUN_TAGS = tuple((f"{s}{cf}", s) for s, cf in T2_RUNS)
+T3_IMPLS = ("a2a", "psum16")
+T3_REQUESTS = D_REQUESTS       # D's traffic: 64 requests of D_ROWS
+T3_PSUM_TOWER_TOL = 2e-2       # psum16's vectors: the JAX package's own
+                               # psum16 tolerance (tests/test_perf_paths.py)
+T_PEAK_BYTES = 80 * 10**9      # the card's 80 GB, across all processes
+T_TIMEOUT_S = 300              # a set of ranks, and each gloo collective
+T_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_t")
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
@@ -2187,14 +2235,14 @@ def check_user_vectors(vecs, batch, uploads, model, bag_log, what):
     return err, norm_err
 
 
-def two_tower_model(device, cfg=two_tower_retrieval.CONFIG):
-    """The two-tower model of phases D and F (by default at full published
-    width), random weights from seed 0."""
+def two_tower_model(device, cfg=two_tower_retrieval.CONFIG, tag="D"):
+    """The two-tower model of phases D, F and T.3 (by default at full
+    published width), random weights from seed 0."""
     t0 = time.perf_counter()
     model = rec.recsys_init(cfg, seed=0, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    print(f"[D] {cfg.name}: {model.param_bytes()} parameter bytes on the "
+    print(f"[{tag}] {cfg.name}: {model.param_bytes()} parameter bytes on the "
           f"card (users {cfg.user_vocab}, items {cfg.item_vocab}, cats "
           f"{cfg.cat_vocab} x {cfg.embed_dim}; towers {cfg.tower_mlp}), "
           f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4978,6 +5026,617 @@ def run_phase_s(device, flush):
     return out, row
 
 
+# ---------------------------------------------------------------------------
+# phase T: the sharded batch query and two-tower's sharded user tower
+# ---------------------------------------------------------------------------
+def t_build(n_shards, n_keys):
+    """Phase A's keys (``random_kv(n_keys, seed=T_SEED)``) in ``n_shards``
+    NeighborHash shards (a job of ``start_t_builds``' pool) -> (the
+    ``ShardedTables``, build seconds)."""
+    keys, payloads = nh.random_kv(n_keys, seed=T_SEED)
+    t0 = time.perf_counter()
+    st = tdist.build_sharded(keys, payloads, n_shards)
+    return st, time.perf_counter() - t0
+
+
+def start_t_builds():
+    """Starts T.1's one-shard and T.2's four-shard host builds in two
+    processes (the host builder inserts one key at a time: 60-130 s at 4M
+    keys); main() starts them once phase N's tables are built, so they run
+    beside N's kernel timings and phase O.  Returns (the pool, {n_shards:
+    future})."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {s: pool.submit(t_build, s, T_KEYS) for s in (1, T_WORLD)}
+
+
+def t_queries(keys, seed):
+    """``T_BATCHES`` batches of ``BATCH_KEYS`` keys with phase A's hit mix:
+    zipf-skewed over the keys, ``ABSENT`` of them absent."""
+    rng = np.random.default_rng(seed)
+    return np.stack([zipf_keys(rng, keys, BATCH_KEYS)
+                     for _ in range(T_BATCHES)])
+
+
+def t_rdv(name):
+    """A fresh ``file://`` rendezvous under ``T_DIR``."""
+    os.makedirs(T_DIR, exist_ok=True)
+    path = os.path.join(T_DIR, f"rendezvous-{name}-{os.getpid()}")
+    if os.path.exists(path):
+        os.remove(path)
+    return "file://" + path
+
+
+class TSpans:
+    """Per-batch time in the sharded lookup's layers, while the block runs:
+    each rank-local probe by CUDA events (``distributed._probe``; the host
+    clock in a rehearsal on the CPU) and each collective by the host clock
+    (``all_to_all``, ``all_reduce_sum``: with gloo, the copies to the host
+    and back included).  ``take()`` returns (probe ms, exchange ms) since
+    the last call."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.events, self.exchange_s, self.probe_s = [], 0.0, 0.0
+        self.orig = {k: getattr(tdist, k)
+                     for k in ("_probe", "all_to_all", "all_reduce_sum")}
+
+    def __enter__(self):
+        tdist._probe = self._probe
+        tdist.all_to_all = self._timed(self.orig["all_to_all"])
+        tdist.all_reduce_sum = self._timed(self.orig["all_reduce_sum"])
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(tdist, k, fn)
+
+    def _probe(self, *args):
+        if not self.cuda:
+            t0 = time.perf_counter()
+            out = self.orig["_probe"](*args)
+            self.probe_s += time.perf_counter() - t0
+            return out
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = self.orig["_probe"](*args)
+        e.record()
+        self.events.append((s, e))
+        return out
+
+    def _timed(self, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.exchange_s += time.perf_counter() - t0
+        return timed
+
+    def take(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+        probe = sum(s.elapsed_time(e) for s, e in self.events) \
+            + self.probe_s * 1e3
+        out = (probe, self.exchange_s * 1e3)
+        self.events, self.exchange_s, self.probe_s = [], 0.0, 0.0
+        return out
+
+
+def launched(counts) -> dict:
+    """The kernels a count names with a launch."""
+    return {str(k): v for k, v in counts.items() if v}
+
+
+def t_answers(res):
+    """(found, p_hi, p_lo[, n_dropped]) on the card -> host numpy."""
+    return [r.view(torch.int32).cpu().numpy() if r.dtype == torch.uint32
+            else r.cpu().numpy() for r in res]
+
+
+def t_payload(p_hi, p_lo):
+    return (p_hi.view(np.uint32).astype(np.uint64) << np.uint64(32)) \
+        | p_lo.view(np.uint32).astype(np.uint64)
+
+
+def run_phase_t1(st, device, log):
+    """T.1: NCCL world 1 in this process: ``make_distributed_lookup`` over
+    one shard of phase A's keys, both schemes, T_BATCHES batches each;
+    every answer bitwise the host table's and every probe launch its plain
+    version's; a2a drops nothing."""
+    keys = nh.random_kv(T_KEYS, seed=T_SEED)[0]
+    host = st.host_table(0)
+    qs = t_queries(keys, seed=11)
+    torch.distributed.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo", init_method=t_rdv("t1"),
+        world_size=1, rank=0)
+    out = {}
+    try:
+        route = tdist.exchange_route(None, device)
+        for scheme in tdist.SCHEMES:
+            fn = tdist.make_distributed_lookup(None, st, scheme=scheme,
+                                               device=device)
+            t_answers(fn(*hc.key_split_np(qs[0])))       # warm-up
+            log.check_pending()
+            zero(nl.launches, nl.lanes_launches)
+            lat = []
+            for b, q in enumerate(qs):
+                qh, ql = hc.key_split_np(q)
+                t0 = time.perf_counter()
+                res = t_answers(fn(qh, ql))
+                lat.append(time.perf_counter() - t0)
+                log.check_pending()
+                f, p = host.lookup_host_batch(q)
+                if not (np.array_equal(res[0], f)
+                        and np.array_equal(t_payload(res[1], res[2]), p)):
+                    fail(f"[T.1] {scheme} batch {b} differs from "
+                         f"lookup_host_batch")
+                if scheme == "a2a" and res[3].sum():
+                    fail(f"[T.1] a2a dropped {res[3].sum()} keys at world 1")
+            counts = dict(nl.launches)
+            if device.type == "cuda" and \
+                    counts["probe_lines"] + counts["probe_smem"] != len(qs):
+                fail(f"[T.1] {scheme}: {counts} probe launches for "
+                     f"{len(qs)} batches")
+            # the last batch through the single-table probe (not counted)
+            want = ops.neighbor_lookup(
+                *(st.arrays[k][0] for k in tdist.WORDS), qh, ql,
+                max_probes=st.max_probes, home_capacity=st.capacity,
+                device=device)
+            if not all(np.array_equal(a, w.view(torch.int32).cpu().numpy())
+                       for a, w in zip(res, want)):
+                fail(f"[T.1] {scheme} differs from ops.neighbor_lookup")
+            lat_ms = np.array(lat) * 1e3
+            out[scheme] = {
+                "exchange": route, "batches": len(qs),
+                "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+                "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+                "launches": launched(counts),
+                "lanes": launched(nl.lanes_launches)}
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def t_rank(rank, subs, rdvs, world, device_type):
+    """One rank, spawned: T.2, then T.3, each in its own process group over
+    gloo on card 0 (the CPU in a rehearsal), destroyed before the next.
+    Rank 0 writes its arrays under ``T_DIR``; every rank writes its metrics
+    and the digests of its arrays."""
+    t_start = time.perf_counter()
+    device = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    for sub in list(subs):
+        payload = subs.pop(sub)          # T.3's: views of the parent's
+        t0 = time.perf_counter()
+        torch.distributed.init_process_group(
+            "gloo", init_method=rdvs[sub], world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=T_TIMEOUT_S))
+        try:
+            arrays, metrics = T_RANKS[sub](rank, device, *payload)
+        finally:
+            torch.distributed.destroy_process_group()
+        metrics["digests"] = {k: digest(v) for k, v in arrays.items()}
+        metrics["seconds"] = time.perf_counter() - t0
+        if sub == "T.2":
+            metrics["start_seconds"] = t0 - t_start
+        if rank == 0 or sub == "T.2":      # T.2's a2a answers are slices
+            np.savez(os.path.join(T_DIR, f"{sub}-rank{rank}.npz"), **arrays)
+        with open(os.path.join(T_DIR, f"{sub}-rank{rank}.json"), "w") as f:
+            json.dump(metrics, f)
+        del payload, arrays              # give the shared tables back
+        gc.collect()
+
+
+def digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def t_inputs(name, **arrays) -> str:
+    """Arrays a rank reads, in a file under ``T_DIR``: a spawned process
+    reads its arguments only once it has imported this script, so large
+    ones passed by pickle would start the ranks one after another."""
+    path = os.path.join(T_DIR, f"{name}-inputs.npz")
+    np.savez(path, **arrays)
+    return path
+
+
+def t2_rank(rank, device, path):
+    """T.2's rank: its shard line-packed once on the card, each run's
+    batches (the whole batch under ``replicated``, its slice under
+    ``a2a``) answered, every probe launch held against its plain
+    version."""
+    with np.load(path) as f:
+        qs, meta = f["qs"], f["meta"]
+        st = tdist.ShardedTables(
+            n_shards=int(meta[0]), capacity=int(meta[1]),
+            max_probes=int(meta[2]), arrays={k: f[k] for k in tdist.WORDS})
+    n_loc = qs.shape[1] // T_WORLD
+    arrays, metrics = {}, {"exchange": tdist.exchange_route(None, device)}
+    with LaunchLog() as log, TSpans(device) as spans:
+        for scheme, cf in T2_RUNS:
+            tag = f"{scheme}{cf}"
+            fn = tdist.make_distributed_lookup(
+                None, st, scheme=scheme, capacity_factor=cf, device=device)
+            local = qs if scheme == "replicated" else \
+                qs[:, rank * n_loc:(rank + 1) * n_loc]
+            t_answers(fn(*hc.key_split_np(local[0])))    # warm-up
+            log.check_pending()
+            spans.take()
+            zero(nl.launches, nl.lanes_launches)
+            lat, probe, exch, res = [], [], [], []
+            for q in local:
+                qh, ql = hc.key_split_np(q)
+                t0 = time.perf_counter()
+                res.append(t_answers(fn(qh, ql)))
+                lat.append(time.perf_counter() - t0)
+                log.check_pending()
+                p, e = spans.take()
+                probe.append(p)
+                exch.append(e)
+            for i, name in enumerate(("found", "p_hi", "p_lo", "n_dropped")
+                                     [:len(res[0])]):
+                arrays[f"{tag}_{name}"] = np.stack([r[i] for r in res])
+            lat_ms = np.array(lat) * 1e3
+            metrics[tag] = {
+                "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+                "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+                "probe_ms_median": float(np.median(probe)),
+                "exchange_ms_median": float(np.median(exch)),
+                "launches": launched(nl.launches)}
+    metrics["max_abs_err"] = log.max_err
+    return arrays, metrics
+
+
+def t3_rank(rank, device, params, cfg, path):
+    """T.3's rank: its row blocks of the two-tower tables (views of the
+    parent's, shared by IPC handle), the requests through
+    ``recsys_score_fn`` under ``a2a`` and ``psum16``: a warm-up, the timed
+    requests, one traced for the layers' split; every bag launch against
+    its plain version, ``psum16``'s history means kept."""
+    with np.load(path) as f:
+        requests = [{k: f[f"{k}{i}"] for k in rec.TwoTower.inputs}
+                    for i in range(int(f["n"]))]
+    model = convert.two_tower_row_blocks(params, cfg, rank, T_WORLD)
+    arrays, metrics = {}, {"exchange": tdist.exchange_route(None, device)}
+    for impl in T3_IMPLS:
+        step = serve_step.recsys_score_fn(cfg, model, lookup_impl=impl)
+        with BagLog() as bag_log, Calls(es, "embed_bag_psum") as hists:
+            step(requests[0]).cpu()
+            bag_log.check_pending()
+            hists.calls.clear()
+            zero(nl.launches, fm.launches, bagk.launches)
+            lat, vecs = [], []
+            for req in requests:
+                t0 = time.perf_counter()
+                vecs.append(step(req).cpu().numpy())
+                lat.append(time.perf_counter() - t0)
+                bag_log.check_pending()
+            counts = kernel_counts()
+            arrays[f"{impl}_vecs"] = np.stack(vecs)
+            if hists.calls:
+                arrays[f"{impl}_hist"] = np.stack(
+                    [h.cpu().numpy() for _, h in hists.calls])
+        clock = LayerClock((
+            (serve_step, "_upload", "upload"),
+            (tdist, "all_to_all", "exchange"),
+            (tdist, "all_reduce_sum", "exchange"),
+            (ops, "embedding_bag", "bag"),
+            (rec, "_mlp_apply", "mlp")))
+        with clock:
+            t0 = time.perf_counter()
+            step(requests[0]).cpu()
+            traced = time.perf_counter() - t0
+        lat_ms = np.array(lat) * 1e3
+        metrics[impl] = {
+            "requests": len(requests),
+            "request_p50_ms": float(np.percentile(lat_ms, 50)),
+            "request_p99_ms": float(np.percentile(lat_ms, 99)),
+            "launches": launched(counts), "bag_max_abs_err": bag_log.max_err,
+            "bag_checked": bag_log.checked,
+            "traced_request_ms": traced * 1e3,
+            "traced_host_ms": {k: v * 1e3 for k, v in clock.seconds.items()}}
+    return arrays, metrics
+
+
+T_RANKS = {"T.2": t2_rank, "T.3": t3_rank}
+
+
+def spawn_ranks(subs, device):
+    """``T_WORLD`` ranks in spawned processes, each running the
+    sub-phases of ``subs`` ({name: payload}) in turn; fails the run if one
+    exits non-zero or the set passes ``T_TIMEOUT_S`` (every rank is then
+    killed).  Returns {name: each rank's (arrays, metrics)} (only rank 0
+    writes T.3's arrays; every rank the digests of its own) and the card's
+    peak use across all processes (``torch.cuda.mem_get_info``, polled;
+    None on the CPU)."""
+    cuda = device.type == "cuda"
+    total = torch.cuda.mem_get_info()[1] if cuda else 0
+    low, stop = [total], threading.Event()
+
+    def poll():
+        while cuda and not stop.is_set():
+            low[0] = min(low[0], torch.cuda.mem_get_info()[0])
+            stop.wait(0.05)
+    watcher = threading.Thread(target=poll, daemon=True)
+    watcher.start()
+    rdvs = {sub: t_rdv(sub) for sub in subs}
+    ctx = torch.multiprocessing.start_processes(
+        t_rank, args=(subs, rdvs, T_WORLD, device.type), nprocs=T_WORLD,
+        join=False, start_method="spawn")
+    deadline = time.perf_counter() + T_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"[T] ranks passed {T_TIMEOUT_S} s")
+    except torch.multiprocessing.ProcessRaisedException as e:
+        fail(f"[T] a rank failed:\n{e}")
+    except torch.multiprocessing.ProcessExitedException as e:
+        fail(f"[T] a rank exited with code {e.exit_code}")
+    finally:
+        stop.set()
+        watcher.join()
+    outs = {}
+    for sub in subs:
+        outs[sub] = []
+        for r in range(T_WORLD):
+            path = os.path.join(T_DIR, f"{sub}-rank{r}.npz")
+            arrays = {}
+            if os.path.exists(path):
+                with np.load(path) as f:
+                    arrays = dict(f)
+            with open(os.path.join(T_DIR, f"{sub}-rank{r}.json")) as f:
+                outs[sub].append((arrays, json.load(f)))
+    return outs, (total - low[0] if cuda else None)
+
+
+def same_digests(outs, names, what):
+    """Every rank's digest of each of ``names`` equals rank 0's array."""
+    for n in names:
+        want = digest(outs[0][0][n])
+        if any(mt["digests"][n] != want for _, mt in outs[1:]):
+            fail(f"{what}: the ranks' {n} differ")
+
+
+def t2_dropped(qs, cf):
+    """The queries a2a drops at ``cf``: a numpy recount, per rank slice and
+    destination, of the queries past its capacity in slice order."""
+    hi, lo = hc.key_split_np(qs.reshape(-1))
+    owner = (hc.hash64_np(hi, lo) % np.uint32(T_WORLD)).reshape(qs.shape)
+    n_loc = qs.shape[1] // T_WORLD
+    cap = tdist.a2a_capacity(n_loc, T_WORLD, cf)
+    dropped = np.zeros(qs.shape, bool)
+    for b in range(qs.shape[0]):
+        for r in range(T_WORLD):
+            o = owner[b, r * n_loc:(r + 1) * n_loc]
+            for d in range(T_WORLD):
+                dropped[b, r * n_loc + np.flatnonzero(o == d)[cap:]] = True
+    return dropped
+
+
+def check_t2(st, qs, outs):
+    """T.2's answers: kept ones bitwise the host tables', dropped ones not
+    found with zero payload, the summed n_dropped the numpy recount's,
+    replicated equal to a2a at 2.0 (and dropping none), a2a at 0.5
+    dropping some."""
+    hi, lo = hc.key_split_np(qs.reshape(-1))
+    owner = hc.hash64_np(hi, lo) % np.uint32(T_WORLD)
+    want_f = np.zeros(qs.size, bool)
+    want_p = np.zeros(qs.size, np.uint64)
+    for s in range(T_WORLD):
+        m = owner == s
+        want_f[m], want_p[m] = st.host_table(s).lookup_host_batch(
+            qs.reshape(-1)[m])
+    want_f, want_p = want_f.reshape(qs.shape), want_p.reshape(qs.shape)
+    got = {}
+    for scheme, cf in T2_RUNS:
+        tag = f"{scheme}{cf}"
+        names = [f"{tag}_{n}" for n in ("found", "p_hi", "p_lo")]
+        if scheme == "replicated":
+            same_digests(outs, names, f"[T.2] {tag}")
+            f, ph, pl = (outs[0][0][n] for n in names)
+            dropped = np.zeros(qs.shape, bool)
+        else:
+            f, ph, pl = (np.concatenate([a[n] for a, _ in outs], axis=1)
+                         for n in names)
+            dropped = t2_dropped(qs, cf)
+            n_drop = sum(int(a[f"{tag}_n_dropped"].sum()) for a, _ in outs)
+            if n_drop != int(dropped.sum()):
+                fail(f"[T.2] {tag}: n_dropped {n_drop}, the recount "
+                     f"{int(dropped.sum())}")
+        p = t_payload(ph, pl)
+        if not (np.array_equal(f[~dropped], want_f[~dropped])
+                and np.array_equal(p[~dropped], want_p[~dropped])):
+            fail(f"[T.2] {tag}: a kept answer differs from the host tables")
+        if f[dropped].any() or p[dropped].any():
+            fail(f"[T.2] {tag}: a dropped query has an answer")
+        got[tag] = (f, p, int(dropped.sum()))
+    if got["a2a2.0"][2] or not (np.array_equal(got["a2a2.0"][0],
+                                               got["replicated2.0"][0])
+                                and np.array_equal(got["a2a2.0"][1],
+                                                   got["replicated2.0"][1])):
+        fail("[T.2] a2a at 2.0 differs from replicated or dropped keys")
+    if not got["a2a0.5"][2]:
+        fail("[T.2] a2a at 0.5 dropped nothing")
+    return {"ranks": [{k: v for k, v in mt.items() if k != "digests"}
+                      for _, mt in outs],
+            "dropped": {tag: v[2] for tag, v in got.items()},
+            "queries": int(qs.size)}
+
+
+def t3_expected(model, req, device):
+    """What ``a2a`` and ``psum16`` should give on one request, from the
+    whole model on the card with the plain bag: the routing's drops (a
+    numpy recount at the user tower's capacity factor) zero their rows;
+    a2a's history mean divides by every valid id, dropped or not.  ->
+    (a2a vectors, psum16 vectors, the plain history mean, the bf16 bound
+    on psum16's history, rows with a dropped lookup, dropped lookups)."""
+    cfg = model.cfg
+
+    def kept(ids, vocab):
+        flat = ids.reshape(-1)
+        owner = np.maximum(flat, 0) // (vocab // T_WORLD)
+        cap = tdist.a2a_capacity(flat.size, T_WORLD, 1.5)
+        keep = np.ones(flat.size, bool)
+        for d in range(T_WORLD):
+            keep[np.flatnonzero(owner == d)[cap:]] = False
+        return keep.reshape(ids.shape)
+
+    uid, hist = req["user_id"], req["hist_items"]
+    keep_u, keep_h = kept(uid, cfg.user_vocab), kept(hist, cfg.item_vocab)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    u = es.embed_lookup(model.user_table, t(uid)) * t(keep_u)[:, None]
+    ids = t(hist)
+    valid = (ids >= 0)
+    rows = es.embed_lookup(model.item_table, ids) * \
+        (valid & t(keep_h))[..., None]
+    mean_a2a = rows.sum(1) / valid.sum(1, keepdim=True).clamp(min=1)
+    mean = ref.embedding_bag(model.item_table, ids.to(torch.int32), None,
+                             "mean")
+    rows_per = cfg.item_vocab // T_WORLD
+    mag = torch.zeros_like(mean)
+    for s in range(T_WORLD):
+        mine = (ids >= s * rows_per) & (ids < (s + 1) * rows_per)
+        mag += ref.embedding_bag(model.item_table, torch.where(
+            mine, ids, -1).to(torch.int32), None, "sum").abs()
+    bound = (T_WORLD + 1) * 2.0 ** -8 * mag / \
+        valid.sum(1, keepdim=True).clamp(min=1)
+    dense = t(req["dense"])
+    mlp = list(zip(model.user_mlp_w, model.user_mlp_b))
+    tower = lambda h: rec._l2_normalise(rec._mlp_apply(
+        mlp, torch.cat([u, h, dense], dim=-1)))
+    touched = ~keep_u | ~(keep_h | (hist < 0)).all(axis=1)
+    return (tower(mean_a2a), tower(mean), mean, bound, touched,
+            int((~keep_u).sum() + (~keep_h & (hist >= 0)).sum()))
+
+
+def t3_inputs(device, cfg):
+    """T.3's model (whole tables, drawn once), D's traffic and what each
+    request should give."""
+    model = two_tower_model(device, cfg, tag="T.3")
+    rng = np.random.default_rng(4)
+    requests = [synthetic.recsys_batch(rng, cfg, D_ROWS)
+                for _ in range(T3_REQUESTS)]
+    requests = [{k: r[k] for k in model.inputs} for r in requests]
+    with torch.inference_mode():
+        expected = [t3_expected(model, r, device) for r in requests]
+    return model, requests, expected
+
+
+def check_t3(outs, expected, device):
+    """T.3's vectors against the world-1 ``xla`` tower with a2a's drops
+    applied (1e-5; psum16 2e-2 and its history means within the bf16
+    bound), norms, every rank's vectors the same, the bag's launches."""
+    m = {"ranks": [{k: v for k, v in mt.items() if k != "digests"}
+                   for _, mt in outs]}
+    for impl, tol in (("a2a", BAG_TOL), ("psum16", T3_PSUM_TOWER_TOL)):
+        vecs = outs[0][0][f"{impl}_vecs"]
+        same_digests(outs, [f"{impl}_vecs"], f"[T.3] {impl}")
+        err = norm_err = hist_ratio = 0.0
+        for i, e in enumerate(expected):
+            want = (e[0] if impl == "a2a" else e[1]).cpu().numpy()
+            err = max(err, float(np.abs(vecs[i] - want).max()))
+            norm_err = max(norm_err, float(np.abs(
+                np.linalg.norm(vecs[i], axis=-1) - 1).max()))
+            if impl == "psum16":
+                h = torch.from_numpy(outs[0][0]["psum16_hist"][i]).to(device)
+                d = (h - e[2]).abs()
+                if not bool((d <= e[3]).all()):
+                    fail(f"[T.3] psum16 request {i}: the history mean is "
+                         f"off the bf16 bound")
+                hist_ratio = max(hist_ratio, float(
+                    (d / e[3].clamp(min=1e-30)).max()))
+        if not (err <= tol and norm_err <= BAG_TOL):
+            fail(f"[T.3] {impl}: max abs err {err} (tolerance {tol}), norm "
+                 f"err {norm_err}")
+        launches = [mt[impl]["launches"].get("embedding_bag", 0)
+                    for _, mt in outs]
+        others = [k for _, mt in outs for k in mt[impl]["launches"]
+                  if k != "embedding_bag"]
+        if others:
+            fail(f"[T.3] {impl} launched {others}")
+        on_card = T3_REQUESTS if impl == "psum16" and device.type == "cuda" \
+            else 0
+        if launches != [on_card] * T_WORLD:
+            fail(f"[T.3] {impl}: embedding_bag launches {launches}")
+        m[impl] = {"max_abs_err": err, "max_norm_err": norm_err,
+                   "embedding_bag_launches": launches}
+        if impl == "psum16":
+            m[impl]["hist_err_over_bound_max"] = hist_ratio
+    m["rows_with_a_drop"] = int(sum(e[4].sum() for e in expected))
+    m["dropped_lookups"] = sum(e[5] for e in expected)
+    return m
+
+
+def run_phase_t(device, builds, log, t3_cfg=two_tower_retrieval.CONFIG):
+    """T.1 here, then T.2 and T.3 in four spawned ranks, each process group
+    destroyed before the next; returns the metrics and the kernels'
+    launches and max errors."""
+    pool, futures = builds
+    built = {s: f.result() for s, f in futures.items()}
+    pool.shutdown()
+    for s, (st, secs) in built.items():
+        print(f"[T] built {T_KEYS} keys into {s} shard(s) of {st.capacity} "
+              f"buckets (max_probes {st.max_probes}) in {secs:.1f} s",
+              flush=True)
+    shutil.rmtree(T_DIR, ignore_errors=True)
+    st4 = built[T_WORLD][0]
+    try:
+        t0 = time.perf_counter()
+        t1 = run_phase_t1(built.pop(1)[0], device, log)
+        t1["seconds"] = time.perf_counter() - t0
+        print("[T.1] " + json.dumps(t1), flush=True)
+        t0 = time.perf_counter()
+        qs = t_queries(nh.random_kv(T_KEYS, seed=T_SEED)[0], seed=12)
+        model, requests, expected = t3_inputs(device, t3_cfg)
+        params = convert.params_of(model)
+        prep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.makedirs(T_DIR, exist_ok=True)
+        t2_in = t_inputs("T.2", qs=qs, meta=np.array(
+            [st4.n_shards, st4.capacity, st4.max_probes]), **st4.arrays)
+        t3_in = t_inputs("T.3", n=len(requests), **{
+            f"{k}{i}": r[k] for i, r in enumerate(requests) for k in r})
+        outs, peak = spawn_ranks({"T.2": (t2_in,),
+                                  "T.3": (params, t3_cfg, t3_in)}, device)
+        ranks_s = time.perf_counter() - t0
+        m_bytes = model.param_bytes()
+        del params, model
+        if device.type == "cuda":
+            torch.cuda.ipc_collect()     # the ranks' views of the tables
+        if peak is not None and peak >= T_PEAK_BYTES:
+            fail(f"[T] the card's peak {peak} B is over {T_PEAK_BYTES}")
+        t0 = time.perf_counter()
+        t2 = check_t2(st4, qs, outs["T.2"])
+        t2["check_seconds"] = time.perf_counter() - t0
+        print("[T.2] " + json.dumps(t2), flush=True)
+        t0 = time.perf_counter()
+        t3 = check_t3(outs["T.3"], expected, device)
+        t3.update(check_seconds=time.perf_counter() - t0,
+                  param_bytes=m_bytes)
+        print("[T.3] " + json.dumps(t3), flush=True)
+        timing = {"prepare_s": prep_s, "ranks_s": ranks_s,
+                  "peak_bytes": peak}
+        print("[T] " + json.dumps(timing), flush=True)
+    finally:
+        shutil.rmtree(T_DIR, ignore_errors=True)
+    probes = {k: sum(t1[s]["launches"].get(k, 0) for s in tdist.SCHEMES)
+              + sum(r[tag]["launches"].get(k, 0) for r in t2["ranks"]
+                    for tag, _ in T2_RUN_TAGS)
+              for k in ("probe_lines", "probe_smem")}
+    probe_err = max([log.max_err.get(k, 0) for k in probes]
+                    + [max(r["max_abs_err"].values()) for r in t2["ranks"]])
+    bag = sum(r["psum16"]["launches"].get("embedding_bag", 0)
+              for r in t3["ranks"])
+    bag_err = max(r["psum16"]["bag_max_abs_err"] for r in t3["ranks"])
+    return ({"T.1": t1, "T.2": t2, "T.3": t3, "T": timing}, probes,
+            probe_err, bag, bag_err)
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -5012,7 +5671,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     build_kernels()
 
-    n_a, emb_a = 4_000_000, 200_000
+    n_a, emb_a = T_KEYS, 200_000
     print(f"reduced: n_items {CONFIG.n_items}->{n_a} (the host builder "
           f"inserts one key at a time, ~28 us a key)")
     print(f"reduced: emb rows {CONFIG.n_items}->{emb_a} (the embedding "
@@ -5062,6 +5721,7 @@ def main() -> int:
     zero(nl.launches, nl.lanes_launches)
     t_n = time.perf_counter()
     state_n = drive_phase_n(device, eng_a, builds_n)
+    builds_t = start_t_builds()        # phase T's, once N's are in
     n_counts = dict(nl.launches)
     print("[N] launches: " + json.dumps(n_counts), flush=True)
     for k in ("probe_linear", "probe_sequential", "probe_lines"):
@@ -5077,6 +5737,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # O: the consistency protocol's fleet, its data plane on the card
+    print(f"reduced: phase O queries 1000->{O_QUERIES} a run (the script's "
+          f"time limit; phase T came after it)")
     print(f"reduced: phase O keys {CONFIG.n_items}->{O_KEYS}, embedding rows "
           f"{CONFIG.n_items}->{O_EMB_ROWS}: each ClusterSim builds its own "
           f"engine, and the host builder took 60.3 s at 4M keys")
@@ -5379,6 +6041,28 @@ def main() -> int:
         "max_memory_allocated": m["max_memory_allocated"],
         "launches": m["launches"]["csr_sum"]} for tag, m in m_s.items()}),
         flush=True)
+
+    # T: the sharded batch query over torch.distributed (T.1 NCCL world 1
+    # here; T.2, T.3 four gloo ranks on the card), then two-tower's user
+    # tower from four ranks' row blocks; counts zeroed in each process just
+    # before its run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_s = time.perf_counter()
+    with LaunchLog() as log_t:
+        m_t, t_probes, t_probe_err, t_bag, t_bag_err = run_phase_t(
+            device, builds_t, log_t)
+    print(f"[T] took {time.perf_counter() - t_s:.1f} s; launches "
+          + json.dumps({**t_probes, "embedding_bag": t_bag}), flush=True)
+    if not t_probes["probe_lines"] + t_probes["probe_smem"]:
+        fail("no probe kernel was launched in phase T")
+    for row in kernels[:2]:
+        row["launches"] += t_probes[row["name"]]
+        row["sharded"] = {"launches": t_probes[row["name"]]}
+        row["max_abs_err"] = max(row["max_abs_err"], t_probe_err)
+    bag_row["launches"] += t_bag
+    bag_row["sharded"] = {"launches": t_bag, "max_abs_err": t_bag_err}
+    bag_row["max_abs_err"] = max(bag_row["max_abs_err"], t_bag_err)
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -15,6 +15,8 @@ tensor}}``: ``params_of`` maps a port model to that dict,
 GraphSAGE has no model object: its parameters are that dict
 (``models/gnn.sage_init``), and ``gnn_from_reference`` carries the JAX
 package's ``sage_init`` tree over with every name and shape checked.
+``two_tower_row_blocks`` cuts a whole two-tower model into one rank's row
+blocks of its user and item tables, for the sharded user tower.
 """
 from __future__ import annotations
 
@@ -135,6 +137,52 @@ def two_tower_from_reference(params: dict, cfg, device):
         cat_table=t["cat_table"],
         user_mlp=_layers(t, "user_mlp", len(tower)),
         item_mlp=_layers(t, "item_mlp", len(tower)))
+
+
+def two_tower_row_blocks(params, cfg, rank: int, world: int):
+    """A whole two-tower parameter set (a ``TwoTower``, from
+    ``two_tower_from_reference`` or ``recsys.two_tower_init``, or its
+    path-keyed dict from ``params_of``) -> rank ``rank`` of ``world``'s
+    ``TwoTower``: ``user_table`` and ``item_table`` cut to the rank's row
+    blocks ``[rank V/world, (rank+1) V/world)``, every other parameter
+    whole, all of them views of the given tensors (nothing is copied), its
+    user tower served ``a2a`` over the default group
+    (``TwoTower.with_lookup`` picks another).  Every name and shape is
+    checked; raises when ``world`` does not divide a vocabulary."""
+    if cfg.arch != "two_tower":
+        raise ValueError(f"{cfg.name} is a {cfg.arch} config, not two_tower")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a world of {world}")
+    if isinstance(params, torch.nn.Module):
+        params = params_of(params)
+    d, tower = cfg.embed_dim, tuple(cfg.tower_mlp)
+    want = {"user_table": (cfg.user_vocab, d),
+            "item_table": (cfg.item_vocab, d),
+            "cat_table": (cfg.cat_vocab, d),
+            **_mlp_shapes("user_mlp", (2 * d + cfg.n_dense,) + tower),
+            **_mlp_shapes("item_mlp", (2 * d,) + tower)}
+    got = {k.replace("/", "."): v for k, v in params.items()}
+    if set(got) != set(want):
+        raise ValueError(f"{cfg.name} needs parameters {sorted(want)}, got "
+                         f"{sorted(got)}")
+    for k, shape in want.items():
+        if tuple(got[k].shape) != shape:
+            raise ValueError(f"{k} has shape {tuple(got[k].shape)}, "
+                             f"{cfg.name} needs {shape}")
+
+    def block(name: str) -> torch.Tensor:
+        rows = got[name].shape[0]
+        if rows % world:
+            raise ValueError(f"{name}'s {rows} rows do not split over "
+                             f"{world} ranks")
+        n = rows // world
+        return got[name][rank * n:(rank + 1) * n]
+
+    return recsys.TwoTower(
+        cfg, user_table=block("user_table"), item_table=block("item_table"),
+        cat_table=got["cat_table"],
+        user_mlp=_layers(got, "user_mlp", len(tower)),
+        item_mlp=_layers(got, "item_mlp", len(tower)), lookup_impl="a2a")
 
 
 def din_from_reference(params: dict, cfg, device):

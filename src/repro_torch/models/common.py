@@ -4,10 +4,14 @@
 ``bce_with_logits``.
 
 The JAX package boxes every parameter with a ``PartitionSpec`` and shards it
-over a mesh (``Boxed``, ``MeshInfo``).  The port runs on one card and has
-neither: a parameter is a plain tensor.  Sharding is ROADMAP queue 1,
-item 13.  The two packages draw different numbers from the same seed, so
-parity tests carry the JAX parameters over (``core/convert.py``).
+over a mesh (``Boxed``, ``MeshInfo``).  The port has neither: a parameter
+is a plain tensor, and the one sharded layout it serves, two-tower's user
+and item tables in row blocks over a ``torch.distributed`` group, is cut
+by ``core/convert.two_tower_row_blocks`` and looked up by
+``models/embedding_service.py``'s ``embed_lookup_a2a`` and
+``embed_bag_psum`` (``core/distributed.py``'s routing).  The two packages
+draw different numbers from the same seed, so parity tests carry the JAX
+parameters over (``core/convert.py``).
 """
 from __future__ import annotations
 

@@ -44,10 +44,14 @@ differentiates, ``recsys_loss_rows`` over gathered rows what the sparse
 step does.  It leaves the serving models above alone: they keep frozen
 parameters and score under ``inference_mode``.
 
-The port runs one card: every table lives whole on it.
+A model runs on one card with every table whole on it, but for
+two-tower's user tower, which ``TwoTower.lookup_impl`` also serves from
+row blocks over the ranks of a process group (the JAX package's ``a2a``
+and ``psum16`` lookups).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Sequence
@@ -190,14 +194,25 @@ class TwoTower(_Recsys):
     ``item_table`` [item_vocab, D], ``cat_table`` [cat_vocab, D], and the
     ``(w [in, out], b [out])`` layers of ``user_mlp`` (2·D + n_dense ->
     tower_mlp) and ``item_mlp`` (2·D -> tower_mlp).  ``forward`` is the
-    user tower, ``item_tower`` the item tower."""
+    user tower, ``item_tower`` the item tower.
+
+    ``lookup_impl`` picks the user tower's lookups as the JAX package's
+    ``user_tower`` does: ``xla`` (whole tables: a gather and the bag
+    kernel), or, over the ranks of ``group`` (None: the default group),
+    ``a2a`` (both tables through ``embed_lookup_a2a``, the history's mean
+    taken here) or ``psum16`` (the user row through ``embed_lookup_a2a``,
+    the history through ``embed_bag_psum``).  Then ``user_table`` and
+    ``item_table`` may be this rank's row blocks
+    (``core/convert.two_tower_row_blocks``); a model of row blocks serves
+    the user tower only."""
 
     inputs = ("user_id", "hist_items", "dense")
 
     def __init__(self, cfg: RecsysConfig, *, user_table: torch.Tensor,
                  item_table: torch.Tensor, cat_table: torch.Tensor,
                  user_mlp: Sequence[tuple[torch.Tensor, torch.Tensor]],
-                 item_mlp: Sequence[tuple[torch.Tensor, torch.Tensor]]):
+                 item_mlp: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 lookup_impl: str = "xla", group=None):
         super().__init__()
         self.cfg = cfg
         self.user_table = self._param(user_table)
@@ -205,16 +220,47 @@ class TwoTower(_Recsys):
         self.cat_table = self._param(cat_table)
         self.user_mlp_w, self.user_mlp_b = self._mlp(user_mlp)
         self.item_mlp_w, self.item_mlp_b = self._mlp(item_mlp)
+        self.lookup_impl, self.group = _lookup_impl(lookup_impl), group
+
+    @property
+    def row_blocks(self) -> bool:
+        """True when the user and item tables are one rank's row blocks."""
+        return (self.user_table.shape[0], self.item_table.shape[0]) != \
+            (self.cfg.user_vocab, self.cfg.item_vocab)
+
+    def with_lookup(self, lookup_impl: str, group=None) -> "TwoTower":
+        """The same parameters (shared, not copied) under another
+        ``lookup_impl`` and ``group``."""
+        other = copy.copy(self)
+        other.lookup_impl, other.group = _lookup_impl(lookup_impl), group
+        return other
 
     def forward(self, user_id: torch.Tensor, hist_items: torch.Tensor,
                 dense: torch.Tensor) -> torch.Tensor:
         """user_id [B], hist_items [B, L] (-1 pad; int32 on the card),
         dense [B, n_dense] -> the L2-normalised user vector
-        [B, tower_mlp[-1]]: the JAX package's ``user_tower`` ('xla'
-        lookups)."""
-        u = es.embed_lookup(self.user_table, user_id)               # [B, D]
-        hist = es.embed_bag(self.item_table, hist_items.to(torch.int32),
-                            None, "mean")                            # [B, D]
+        [B, tower_mlp[-1]]: the JAX package's ``user_tower`` with this
+        model's ``lookup_impl``."""
+        cfg, group = self.cfg, self.group
+        if self.lookup_impl == "a2a":
+            u = es.embed_lookup_a2a(self.user_table, user_id,
+                                    cfg.user_vocab, group)
+            rows = es.embed_lookup_a2a(self.item_table, hist_items,
+                                       cfg.item_vocab, group)
+            valid = (hist_items >= 0).to(rows.dtype)
+            hist = (rows * valid[..., None]).sum(1) / \
+                valid.sum(1)[:, None].clamp(min=1.0)
+        elif self.lookup_impl == "psum16":
+            u = es.embed_lookup_a2a(self.user_table, user_id,
+                                    cfg.user_vocab, group)
+            hist = es.embed_bag_psum(self.item_table,
+                                     hist_items.to(torch.int32),
+                                     cfg.item_vocab, "mean", group)
+        else:
+            self._whole("the xla lookups")
+            u = es.embed_lookup(self.user_table, user_id)           # [B, D]
+            hist = es.embed_bag(self.item_table, hist_items.to(torch.int32),
+                                None, "mean")                        # [B, D]
         x = torch.cat([u, hist.to(u.dtype), dense], dim=-1)
         return _l2_normalise(
             _mlp_apply(list(zip(self.user_mlp_w, self.user_mlp_b)), x))
@@ -224,10 +270,27 @@ class TwoTower(_Recsys):
         """item_id [N], item_cat [N] -> the L2-normalised item vector
         [N, tower_mlp[-1]]: the JAX package's ``item_tower`` ('xla'
         lookups)."""
+        self._whole("the item tower")
         e = torch.cat([es.embed_lookup(self.item_table, item_id),
                        es.embed_lookup(self.cat_table, item_cat)], dim=-1)
         return _l2_normalise(
             _mlp_apply(list(zip(self.item_mlp_w, self.item_mlp_b)), e))
+
+    def _whole(self, what: str) -> None:
+        if self.row_blocks:
+            raise ValueError(f"{what} needs whole tables; this model holds "
+                             f"row blocks of {self.user_table.shape[0]} "
+                             f"users and {self.item_table.shape[0]} items")
+
+
+LOOKUP_IMPLS = ("xla", "a2a", "psum16")
+
+
+def _lookup_impl(name: str) -> str:
+    if name not in LOOKUP_IMPLS:
+        raise ValueError(f"unknown lookup_impl {name!r}; one of "
+                         f"{LOOKUP_IMPLS}")
+    return name
 
 
 def _l2_normalise(v: torch.Tensor) -> torch.Tensor:

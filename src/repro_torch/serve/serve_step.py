@@ -77,7 +77,8 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
                     feature_server=None,
                     feature_fields: Optional[Sequence[tuple]] = None,
                     feature_qos="RANKING",
-                    feature_budget_s: Optional[float] = None):
+                    feature_budget_s: Optional[float] = None,
+                    lookup_impl: str = "xla", group=None):
     """Scoring step ``step(batch)`` on the model's device: ``recsys_score``
     of the batch's ``model.inputs`` columns, uploaded in one copy (the CTR
     probabilities [B] of DIN, BST and DeepFM, two-tower's user vectors
@@ -94,9 +95,19 @@ def recsys_score_fn(cfg, model, *, feature_client=None, feature_engine=None,
     ``MultiTableEngine``) or a ``feature_server`` (a
     ``serve.server.QueryServer``), the last two each wrapped in a client
     here; at most one may be given.  Lookups ride the ``feature_qos`` lane
-    with ``feature_budget_s`` as their budget."""
+    with ``feature_budget_s`` as their budget.
+
+    ``lookup_impl`` and ``group`` pick two-tower's user-tower lookups
+    (``TwoTower.with_lookup``: ``xla``, or ``a2a`` / ``psum16`` over the
+    ranks of ``group``, each rank scoring its own slice of the batch); the
+    pointwise archs take ``xla`` only."""
     if cfg.arch not in rec.INIT:
         raise NotImplementedError(rec.NOT_PORTED.format(arch=cfg.arch))
+    if isinstance(model, rec.TwoTower):
+        model = model.with_lookup(lookup_impl, group)
+    elif lookup_impl != "xla" or group is not None:
+        raise ValueError(f"{cfg.name} serves its whole tables: lookup_impl "
+                         f"{lookup_impl!r} and a group are two-tower's")
     device = model.device
 
     def step(batch):

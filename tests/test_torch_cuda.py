@@ -22,7 +22,9 @@ import contextlib
 import dataclasses
 import importlib.util
 import os
+import subprocess
 import sys
+import textwrap
 import threading
 import time
 
@@ -2216,3 +2218,61 @@ def test_graphsage_launchers_on_card(capsys):
     res = launch_serve.main(["--arch", "graphsage-reddit", "--smoke",
                              "--requests", "2"])
     assert res["device"].startswith("cuda") and res["finite"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded batch query: NCCL world 1 on the card (phase T.1's path), in a
+# child interpreter, so no process group lives in the pytest process
+# ---------------------------------------------------------------------------
+NCCL_WORLD1 = textwrap.dedent("""
+    import sys
+    import numpy as np, torch
+    from repro_torch.core import distributed as dist, hashcore as hc
+    from repro_torch.core import neighborhash as nh
+    from repro_torch.kernels import neighbor_lookup as nl
+    rdv, n_keys, kernel = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "nccl", init_method="file://" + rdv, world_size=1, rank=0)
+    keys, payloads = nh.random_kv(n_keys, seed=7)
+    st = dist.build_sharded(keys, payloads, 1)
+    host = st.host_table(0)
+    rng = np.random.default_rng(3)
+    q = np.concatenate([keys[rng.choice(n_keys, 3600)],
+                        rng.integers(2**62, 2**63, 496).astype(np.uint64)])
+    rng.shuffle(q)
+    want_f, want_p = host.lookup_host_batch(q)
+    qh, ql = hc.key_split_np(q)
+    for scheme in dist.SCHEMES:
+        before = nl.launches[kernel]
+        fn = dist.make_distributed_lookup(None, st, scheme=scheme,
+                                          device="cuda")
+        res = fn(qh, ql)
+        assert nl.launches[kernel] == before + 1, (scheme, nl.launches)
+        f = res[0].cpu().numpy()
+        p = (res[1].view(torch.int32).cpu().numpy().view(np.uint32)
+             .astype(np.uint64) << np.uint64(32)) | \\
+            res[2].view(torch.int32).cpu().numpy().view(np.uint32)
+        assert (f == want_f).all() and (p == want_p).all(), scheme
+        if scheme == "a2a":
+            assert int(res[3].sum()) == 0
+    assert dist.exchange_route(None, "cuda") == "nccl"
+    torch.distributed.destroy_process_group()
+    print("NCCL_WORLD1_OK")
+""")
+
+
+@pytest.mark.parametrize("n_keys,kernel", [(5_000, "probe_smem"),
+                                          (50_000, "probe_lines")])
+def test_sharded_lookup_nccl_world1_matches_the_host_table(tmp_path, n_keys,
+                                                            kernel):
+    """Both schemes over one shard on an NCCL group of one (a child
+    process): every answer bitwise ``lookup_host_batch``'s, one probe
+    launch a batch, a2a drops nothing."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    r = subprocess.run([sys.executable, "-c", NCCL_WORLD1,
+                        str(tmp_path / "rendezvous"), str(n_keys), kernel],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert "NCCL_WORLD1_OK" in r.stdout, r.stderr[-3000:]

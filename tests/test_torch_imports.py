@@ -2,8 +2,9 @@
 ``chip_smoke.py``) imports JAX or the JAX package, or names a module of the
 JAX package in a string literal (an ``importlib`` target, such as ``wire``'s
 error sources, would import it at run time), and the whole package
-imports in a process where ``jax`` cannot be imported; the fabric's two
-modules import no torch either, at any scope.  And no module of
+imports in a process where ``jax`` cannot be imported (the sharded batch
+query of ``core/distributed.py`` among them); the fabric's two modules
+import no torch either, at any scope.  And no module of
 the package hands a kernel's work to a library call or to ``torch.compile``
 (``chip_smoke.py`` may time such a call beside a kernel)."""
 import ast
@@ -109,6 +110,20 @@ def test_scans_cover_the_gnn_slice():
         "models/gnn.py", "data/graph_sampler.py", "data/synthetic.py",
         "kernels/segment_sum.py", "configs/graphsage_reddit.py")} <= scanned
     assert LIBRARY_CALLS.search("torch.sparse.mm(adj, h)")
+
+
+def test_scans_cover_the_sharded_slice():
+    """The scans above read the sharded batch query and its users, and
+    the sharded module reaches the collectives through
+    ``torch.distributed`` only."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_files()[1:]}
+    assert {os.path.join(*p.split("/")) for p in (
+        "core/distributed.py", "models/embedding_service.py",
+        "core/convert.py", "serve/serve_step.py")} <= scanned
+    roots = {mod for _, mod in _imported_roots(
+        os.path.join(PORT, "core", "distributed.py"))}
+    assert roots <= {"__future__", "dataclasses", "math", "typing", "numpy",
+                     "torch", "repro_torch"}, roots
 
 
 @pytest.mark.parametrize("path", _port_files()[1:],
