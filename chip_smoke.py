@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu``,
 ``embedding_bag.cu`` and ``segment_sum.cu``) with nvcc, one per library,
-all started together, then runs twenty phases.  Two send batch queries
+all started together, then runs twenty-one phases.  Two send batch queries
 through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
@@ -308,6 +308,36 @@ concatenation of the columns and the pageable copy to the card.
   the card's peak across all processes under 80 GB.  A rank that fails or
   passes ``T_TIMEOUT_S`` fails the run.
 
+* **U** — LM serving, after T, through ``serve_step.lm_prefill_fn`` and
+  ``lm_decode_fn`` with random weights (``lm.lm_init``, seed 0) and bf16
+  products accumulating in fp32.  **U.1**: qwen3-14b whole
+  (``configs/qwen3_14b.CONFIG``, 40 layers, 29.5 GB): ``prefill_32k`` at
+  batch 1 (one warm-up, 2 timed requests of random tokens), ``decode_32k``
+  at batch 8 (4 if the peak passes ``U_DECODE_PEAK``): the serve
+  launcher's request (``launch_serve.lm_request``: its caches, 42.9 GB,
+  drawn on the card), then one warm-up and 16 timed chained steps, one
+  more traced; ``long_500k`` is not run (85.9 GB of cache).  **U.2**:
+  deepseek-v3-671b at published width cut to 4 layers (3 dense, 1 MoE of
+  256 experts, the MTP block; 31.6 GB): ``prefill_32k`` at 1 (the warm-up
+  through ``lm_backbone`` with the MoE layer tapped), ``decode_32k`` at 128,
+  ``long_500k`` at 1.  Each holds: every logit finite; 8 decode steps
+  after a 512-token prefill whose caches come from the layers'
+  ``return_cache`` (``lm.lm_prefill``) against the longer prefills' last
+  logits within ``U_AGREE_TOL`` of max |logit| (U.2 at a capacity factor
+  of E / k, so that no slot drops); the same config cut to 2 dense layers
+  in float32 against a plain float64 recompute on the card (512 tokens and
+  4 decode steps) within ``U_F64_TOL``; U.2's MoE: its dropped share
+  equal to a numpy recount of ``route_by_owner`` from the card's own
+  top-k experts, and 256 fixed tokens within ``U_MOE_TOL`` (normwise) of a
+  float64 recompute of their kept slots; the peak under 80 GB.  **U.3**:
+  the five SMOKE configs on the card and on the CPU from the same
+  parameters and request (``u3_compare``): prefill logits, 4 decode
+  steps' logits and the caches, within 1e-5 in float32 and ``U3_BF16_TOL``
+  in bf16.  It prints prefill ms a request (events and host) and
+  tokens/s, decode ms a step and tokens/s, peaks, and the busy share and
+  top kernels of one traced decode step.  U launches none of the
+  kernels.
+
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
 version, a library call where one computes the same function (for the
@@ -363,6 +393,7 @@ import gc
 import hashlib
 import io
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -379,8 +410,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import api  # noqa: E402
-from repro_torch.configs import (bst, deepfm, din,  # noqa: E402
-                                 graphsage_reddit, registry,
+from repro_torch.configs import (bst, deepfm, deepseek_v3_671b,  # noqa
+                                 din, graphsage_reddit, qwen3_14b, registry,
                                  two_tower_retrieval)
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import cluster_sim as cs  # noqa: E402
@@ -403,7 +434,10 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import embedding_service as es  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
 from repro_torch.obs import exporter  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
@@ -544,6 +578,25 @@ T_PEAK_BYTES = 80 * 10**9      # the card's 80 GB, across all processes
 T_TIMEOUT_S = 300              # a set of ranks, and each gloo collective
 T_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                      "chip_smoke_t")
+U_PREFILL_BATCH = 1            # U: prefill_32k's 32 sequences cut to 1
+U_PREFILL_REQUESTS = 2         # timed, after one warm-up
+U_DECODE_STEPS = 16            # timed decode steps, after one warm-up
+U1_DECODE_BATCHES = (8, 4)     # U.1 decode_32k: 128 cut to 8, else 4
+U_DECODE_PEAK = 76 * 10**9     # ... when batch 8's peak passes this
+U2_LAYERS = 4                  # U.2: 3 dense layers, 1 MoE layer (+ MTP)
+U_AGREE_PROMPT = 512           # decode after a prefill of this many tokens
+U_AGREE_STEPS = 8
+U_AGREE_TOL = 0.1              # bf16, of max |logit|: 2.3x the largest
+                               # seen (4.4e-2, U.2's MLA; PERF.md)
+U_F64_STEPS = 4
+U_F64_TOL = 1e-4               # float32 against float64, of max |logit|
+                               # (seen: 6.0e-6)
+U_MOE_CHECK_TOKENS = 256
+U_MOE_TOL = 2.0 ** -5          # bf16 MoE output, normwise, against float64
+                               # (seen: 4.9e-3)
+U3_F32_TOL = 1e-5              # SMOKE on the card against the CPU
+U3_BF16_TOL = 3e-2             # the CPU parity's (seen: 5.9e-3)
+U_PEAK_BYTES = 80 * 10**9      # the card's 80 GB
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
@@ -5637,6 +5690,458 @@ def run_phase_t(device, builds, log, t3_cfg=two_tower_retrieval.CONFIG):
             probe_err, bag, bag_err)
 
 
+# ---------------------------------------------------------------------------
+# phase U: LM serving
+# ---------------------------------------------------------------------------
+def u_sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def u_reset_peak(device):
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def u_tokens(cfg, shape, seed, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randint(0, cfg.vocab, shape, generator=gen, device=device)
+
+
+def u_timed(fn, device):
+    """-> (fn's result, host ms, event ms or None): one call, the card
+    drained before and after."""
+    u_sync(device)
+    ev = None
+    if device.type == "cuda":
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+    t0 = time.perf_counter()
+    out = fn()
+    if ev is not None:
+        ev[1].record()
+    u_sync(device)
+    host = (time.perf_counter() - t0) * 1e3
+    return out, host, (ev[0].elapsed_time(ev[1]) if ev else None)
+
+
+def u_median(xs):
+    xs = [x for x in xs if x is not None]
+    return float(np.median(xs)) if xs else None
+
+
+def moe_recount(topi: np.ndarray, n_experts: int, cap: int):
+    """``route_by_owner``'s kept flags over the flattened top-k experts,
+    recounted in numpy: a slot is kept when fewer than ``cap`` earlier
+    slots (in token order) went to its expert -> (kept [t, k], dropped)."""
+    owner = topi.reshape(-1)
+    order = np.argsort(owner, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(
+        np.bincount(owner, minlength=n_experts))[:-1]])
+    rank = np.empty(owner.shape, np.int64)
+    rank[order] = np.arange(len(owner)) - starts[owner[order]]
+    kept = rank < cap
+    return kept.reshape(topi.shape), int((~kept).sum())
+
+
+def moe_check(params, cfg, tap, device, n_check=U_MOE_CHECK_TOKENS):
+    """U.2's MoE layer on one prefill: its dropped share against a numpy
+    recount of ``route_by_owner`` from the card's own top-k experts, and
+    ``n_check`` fixed tokens of its output against a per-token float64
+    recompute of their kept slots (and the shared expert)."""
+    h, y, dropped = tap
+    p = lm.layer_view(params, "moe_layers", 0)
+    mp = cm.sub(p, "moe")
+    mcfg = cfg.moe
+    x = h.reshape(-1, h.shape[-1])
+    t, k = x.shape[0], mcfg.top_k
+    with torch.no_grad():
+        _, topv, topi = moe.route(mp, mcfg, x)
+    cap = moe.capacity(mcfg, t)
+    kept, n_dropped = moe_recount(topi.cpu().numpy(), mcfg.n_experts, cap)
+    share = float(np.float32(n_dropped) / np.float32(t * k))
+    if share != float(dropped):
+        fail(f"[U.2] the MoE dropped {float(dropped)} of its slots; a numpy "
+             f"recount of route_by_owner gives {share}")
+    toks = np.linspace(0, t - 1, n_check).astype(np.int64)
+    x64 = x[toks].double()
+    want = torch.zeros_like(x64)
+    ti = topi[toks].cpu().numpy()
+    w = topv[toks].to(y.dtype).double()
+    for e in np.unique(ti):
+        rows, slots = np.nonzero((ti == e) & kept[toks])
+        if not len(rows):
+            continue
+        wg, wu, wd = (mp[n][int(e)].double() for n in
+                      ("w_gate", "w_up", "w_down"))
+        v = x64[rows]
+        out = (torch.nn.functional.silu(v @ wg) * (v @ wu)) @ wd
+        want.index_add_(0, torch.from_numpy(rows).to(device),
+                        out * w[rows, slots][:, None])
+    if mcfg.n_shared:
+        s = cm.sub(mp, "shared")
+        want += (torch.nn.functional.silu(x64 @ s["w_gate"].double())
+                 * (x64 @ s["w_up"].double())) @ s["w_down"].double()
+    got = y.reshape(-1, y.shape[-1])[toks].double()
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    if not rel <= U_MOE_TOL:
+        fail(f"[U.2] the MoE output of {n_check} fixed tokens is {rel} "
+             f"(normwise) from its float64 recompute (limit {U_MOE_TOL})")
+    return {"capacity": cap, "dropped_share": share,
+            "dropped_slots": n_dropped, "checked_tokens": n_check,
+            "max_normwise_err_f64": rel}
+
+
+def u_prefill(tag, cfg, params, batch, seq, device, requests,
+              taps=None):
+    """The prefill_32k cell at ``batch`` x ``seq``: one warm-up request
+    (through ``lm_backbone`` with the MoE layers tapped when ``taps`` is
+    a list), then ``requests`` timed through ``serve_step.lm_prefill_fn``
+    -> metrics."""
+    step = serve_step.lm_prefill_fn(cfg)
+    u_reset_peak(device)
+    tokens = u_tokens(cfg, (batch, seq), 1, device)
+    with torch.no_grad():
+        _, warm_ms, warm_ev = u_timed(lambda: lm.lm_logits(
+            params, cfg, lm.lm_backbone(params, cfg, tokens,
+                                        taps=taps)[0][:, -1:]), device)
+    host, ev, finite = [], [], True
+    for i in range(requests):
+        tokens = u_tokens(cfg, (batch, seq), i + 2, device)
+        logits, h_ms, e_ms = u_timed(lambda: step(params, tokens), device)
+        host.append(h_ms)
+        ev.append(e_ms)
+        finite = finite and bool(logits.isfinite().all())
+        if tuple(logits.shape) != (batch, cfg.vocab):
+            fail(f"[{tag}] prefill logits {tuple(logits.shape)}")
+    if not finite:
+        fail(f"[{tag}] a prefill logit is not finite")
+    ms = u_median(ev) or u_median(host)
+    return {"batch": batch, "seq": seq, "requests": requests,
+            "warmup_host_ms": warm_ms, "request_host_ms": host,
+            "request_event_ms": ev, "request_ms_median": ms,
+            "tokens_per_s": batch * seq / (ms / 1e3),
+            "peak_bytes": max_memory(device)}
+
+
+def u_decode(tag, cfg, params, cell, batch, device, steps, trace=True):
+    """The decode ``cell`` (decode_32k or long_500k) at ``batch``
+    sequences: the serve launcher's request 1 (``launch_serve.lm_request``:
+    its token, positions and caches), then 1 + ``steps`` chained decode
+    steps through ``serve_step.lm_decode_fn`` (each step's token the last
+    one's argmax, its positions one on), the first a warm-up, one more
+    traced."""
+    step = serve_step.lm_decode_fn(cfg)
+    u_reset_peak(device)
+    t0 = time.perf_counter()
+    token, pos, caches = launch_serve.lm_request(cfg, cell, batch, 1, device)
+    u_sync(device)
+    draw_s = time.perf_counter() - t0
+    host, ev, finite = [], [], True
+    for i in range(steps + 1):
+        (logits, caches), h_ms, e_ms = u_timed(
+            lambda: step(params, token, pos, caches), device)
+        if i:
+            host.append(h_ms)
+            ev.append(e_ms)
+        finite = finite and bool(logits.isfinite().all())
+        token, pos = logits.float().argmax(-1).to(token.dtype), pos + 1
+    if not finite:
+        fail(f"[{tag}] a decode logit is not finite")
+    out = {"batch": batch, "seq": cell.dims["seq"], "steps": steps,
+           "cache_bytes": lm.cache_bytes(cfg, batch, cell.dims["seq"]),
+           "request_draw_s": draw_s, "step_host_ms": host,
+           "step_event_ms": ev}
+    ms = u_median(ev) or u_median(host)
+    out.update(step_ms_median=ms, tokens_per_s=batch / (ms / 1e3),
+               peak_bytes=max_memory(device),
+               f32_route=attn.F32_ROUTE["route"])
+    if trace:
+        with request_profiler(device) as prof:
+            _, wall, _ = u_timed(lambda: step(params, token, pos, caches),
+                                 device)
+        busy, _ = device_busy_ms(prof)
+        out["traced_step"] = {"host_ms": wall, "device_busy_ms": busy,
+                              "busy_share": busy / wall if wall else None,
+                              "top_kernels_ms": kernels_by_device_ms(prof)}
+    return out
+
+
+def u_agree(tag, cfg, params, device, prompt=U_AGREE_PROMPT,
+            steps=U_AGREE_STEPS, tol=U_AGREE_TOL):
+    """A prefill of ``prompt`` tokens whose caches come from the attention
+    layers' ``return_cache`` (``lm.lm_prefill``), then ``steps`` decode
+    steps; each step's logits against the last-position logits of the
+    prefill of the longer prompt, within ``tol`` of their max |logit|
+    (the JAX package's ``test_gqa_prefill_decode_agree`` and
+    ``test_mla_prefill_decode_agree`` at published width)."""
+    tokens = u_tokens(cfg, (1, prompt + steps), 3, device)
+    prefill = serve_step.lm_prefill_fn(cfg)
+    decode = serve_step.lm_decode_fn(cfg)
+    errs = []
+    with torch.no_grad():
+        _, caches = lm.lm_prefill(params, cfg, tokens[:, :prompt],
+                                  prompt + steps)
+        pos = torch.full((1,), prompt, dtype=torch.int32, device=device)
+        for j in range(steps):
+            got, caches = decode(params, tokens[:, prompt + j], pos, caches)
+            want = prefill(params, tokens[:, :prompt + j + 1]).float()
+            err = (got.float() - want).abs().max().item()
+            errs.append(err / want.abs().max().item())
+            pos = pos + 1
+    del caches
+    if not max(errs) <= tol:
+        fail(f"[{tag}] decode after a {prompt}-token prefill is "
+             f"{max(errs)} of max |logit| from the longer prefill "
+             f"(limit {tol})")
+    return {"prompt": prompt, "steps": steps, "rel_err": errs}
+
+
+# float64 recompute: plain causal attention over the whole prompt
+def _rms64(x, g, eps=1e-6):
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * g
+
+
+def _rope64(x, pos, base):
+    half = x.shape[-1] // 2
+    inv = base ** (-torch.arange(0, 2 * half, 2, dtype=torch.float64,
+                                 device=x.device) / (2 * half))
+    ang = pos.double()[:, None] * inv
+    c, s = ang.cos()[:, None], ang.sin()[:, None]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1)
+
+
+def _attn64(q, k, v):
+    """q [S, H, d], k [S, H, d], v [S, H, dv]: causal softmax attention."""
+    s = torch.einsum("qhd,khd->hqk", q, k) / math.sqrt(q.shape[-1])
+    n = q.shape[0]
+    s.masked_fill_(torch.ones(n, n, dtype=torch.bool, device=q.device)
+                   .triu(1), float("-inf"))
+    return torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), v)
+
+
+def lm_logits64(params, cfg, tokens, last):
+    """Float64 logits of the ``last`` positions of one sequence ``tokens``
+    [S] through a dense-only LM's layers (GQA or MLA, SwiGLU), computed
+    plainly: the whole causal score matrix, MLA's keys expanded."""
+    p64 = {k: v.double() for k, v in params.items()
+           if not k.startswith("mtp/")}
+    x = p64["embed"][tokens.long()]
+    pos = torch.arange(len(tokens), device=tokens.device)
+    n = len(tokens)
+    for i in range(cfg.n_layers):
+        p = {k: v[i] for k, v in cm.sub(p64, "dense_layers").items()}
+        a = _rms64(x, p["ln1"])
+        if cfg.attn_type == "mla":
+            m = cfg.mla_cfg()
+            q = (_rms64(a @ p["attn/w_dq"], p["attn/q_gamma"])
+                 @ p["attn/w_uq"]).view(n, m.n_heads, -1)
+            q = torch.cat([q[..., :m.dh_nope],
+                           _rope64(q[..., m.dh_nope:], pos, m.rope_base)], -1)
+            ckv = _rms64(a @ p["attn/w_dkv"], p["attn/kv_gamma"])
+            kr = _rope64((a @ p["attn/w_kr"])[:, None], pos, m.rope_base)
+            k = torch.cat([(ckv @ p["attn/w_uk"]).view(n, m.n_heads, -1),
+                           kr.expand(n, m.n_heads, m.dh_rope)], -1)
+            v = (ckv @ p["attn/w_uv"]).view(n, m.n_heads, m.dv)
+            o = _attn64(q, k, v)
+        else:
+            h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            q = (a @ p["attn/wq"]).view(n, h, dh)
+            k = (a @ p["attn/wk"]).view(n, kv, dh)
+            v = (a @ p["attn/wv"]).view(n, kv, dh)
+            if cfg.qk_norm:
+                q, k = _rms64(q, p["attn/q_gamma"]), _rms64(k, p["attn/k_gamma"])
+            q, k = _rope64(q, pos, cfg.rope_base), _rope64(k, pos, cfg.rope_base)
+            g = h // kv
+            o = _attn64(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))
+        x = x + o.reshape(n, -1) @ p["attn/wo"]
+        f = _rms64(x, p["ln2"])
+        x = x + (torch.nn.functional.silu(f @ p["ffn/w_gate"])
+                 * (f @ p["ffn/w_up"])) @ p["ffn/w_down"]
+    return _rms64(x[-last:], p64["final_ln"]) @ p64["unembed"]
+
+
+def u_fp64(tag, cfg, device, prompt=U_AGREE_PROMPT, steps=U_F64_STEPS,
+           tol=U_F64_TOL):
+    """``cfg`` (a dense-only cut) in float32 from seed 1: a prefill of
+    ``prompt`` tokens and ``steps`` decode steps against ``lm_logits64``
+    of the whole sequence, within ``tol`` of the max |logit|."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.n_moe_layers:
+        raise ValueError("the float64 recompute takes dense layers only")
+    params = lm.lm_init(cfg, seed=1, device=device)
+    tokens = u_tokens(cfg, (1, prompt + steps), 4, device)
+    decode = serve_step.lm_decode_fn(cfg)
+    with torch.no_grad():
+        want = lm_logits64(params, cfg, tokens[0], steps + 1)
+        got, caches = lm.lm_prefill(params, cfg, tokens[:, :prompt],
+                                    prompt + steps)
+        rows = [got[0]]
+        pos = torch.full((1,), prompt, dtype=torch.int32, device=device)
+        for j in range(steps):
+            got, caches = decode(params, tokens[:, prompt + j], pos, caches)
+            rows.append(got[0])
+            pos = pos + 1
+    scale = want.abs().max().item()
+    errs = [(r.double() - w).abs().max().item() / scale
+            for r, w in zip(rows, want)]
+    del params, caches
+    if not max(errs) <= tol:
+        fail(f"[{tag}] float32 prefill / decode is {max(errs)} of max "
+             f"|logit| from float64 (limit {tol})")
+    return {"layers": cfg.n_layers, "prompt": prompt, "steps": steps,
+            "rel_err": errs}
+
+
+def u3_compare(arch, dtype, device, steps=4, seed=7):
+    """An LM arch's SMOKE at ``dtype`` on ``device`` and on the CPU with the
+    same parameters and request (the serve launcher's ``decode_32k`` smoke
+    request ``seed``, its positions held ``steps`` short of the cache's
+    end): prefill logits, ``steps`` chained decode steps' logits (each
+    step's token the CPU's argmax of the last) and the caches after them
+    -> max |difference| / max |CPU value| of each."""
+    cfg = dataclasses.replace(registry.LM_ARCHS[arch].SMOKE, dtype=dtype)
+    cpu = torch.device("cpu")
+    params = lm.lm_init(cfg, seed=seed, device=cpu)
+    cell = registry.reduce_cell(registry.cell_by_name("decode_32k", "lm"))
+    b, s = cell.dims["batch"], cell.dims["seq"]
+    tokens = u_tokens(cfg, (b, s), seed, cpu)
+    token, pos, caches = launch_serve.lm_request(cfg, cell, b, seed, cpu)
+    pos = pos.clamp(max=s - steps)
+    prefill, decode = (serve_step.lm_prefill_fn(cfg),
+                       serve_step.lm_decode_fn(cfg))
+    runs, chosen = [], []
+    for i, dev in enumerate((cpu, device)):
+        p = {k: v.to(dev) for k, v in params.items()}
+        c = {kind: {n: t.to(dev).clone() for n, t in e.items()}
+             for kind, e in caches.items()}
+        logits = [prefill(p, tokens.to(dev)).float().cpu()]
+        tok, ps = token.to(dev), pos.to(dev)
+        for j in range(steps):
+            lg, c = decode(p, tok, ps, c)
+            logits.append(lg.float().cpu())
+            if i == 0:
+                chosen.append(lg.float().argmax(-1).to(token.dtype))
+            tok, ps = chosen[j].to(dev), ps + 1
+        runs.append((logits, {f"{k}/{n}": t.float().cpu()
+                              for k, e in c.items() for n, t in e.items()}))
+    (lc, cc), (lg, cg) = runs
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    return {"prefill": rel(lg[0], lc[0]),
+            "decode": max(rel(g, w) for g, w in zip(lg[1:], lc[1:])),
+            "caches": max(rel(cg[k], cc[k]) for k in cc),
+            "finite": all(bool(t.isfinite().all()) for t in lg)}
+
+
+def u_check_peak(tag, m):
+    if m.get("peak_bytes") is not None and m["peak_bytes"] >= U_PEAK_BYTES:
+        fail(f"[{tag}] the card's peak {m['peak_bytes']} B is over "
+             f"{U_PEAK_BYTES}")
+
+
+def u_free(device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_phase_u(device, u1=None, u2=None, smoke=False):
+    """U.1 qwen3-14b whole, U.2 deepseek-v3-671b at published width cut to
+    ``U2_LAYERS`` layers, U.3 the five SMOKE configs on the card against
+    the CPU -> metrics.  ``u1`` / ``u2`` replace the configs (and
+    ``smoke`` the cells' sizes) to rehearse on the CPU."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    out = {}
+    cell = {c.name: registry.reduce_cell(c) if smoke else c
+            for c in registry.LM_CELLS}
+    cells = [("U.1", u1 or qwen3_14b.CONFIG, U1_DECODE_BATCHES, False),
+             ("U.2", u2 or dataclasses.replace(
+                 deepseek_v3_671b.CONFIG, n_layers=U2_LAYERS),
+              (registry.cell_by_name("decode_32k", "lm").dims["batch"],),
+              True)]
+    for tag, cfg, batches, long_ctx in cells:
+        t_cell = time.perf_counter()
+        u_free(device)
+        t0 = time.perf_counter()
+        params = lm.lm_init(cfg, seed=0, device=device)
+        u_sync(device)
+        m = {"config": cfg.name, "layers": cfg.n_layers,
+             "param_bytes": lm.param_bytes(cfg),
+             "init_s": time.perf_counter() - t0}
+        print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, "
+              f"{m['param_bytes']} parameter bytes on the card in "
+              f"{m['init_s']:.1f} s", flush=True)
+        taps = [] if cfg.moe is not None else None
+        m["prefill_32k"] = u_prefill(tag, cfg, params, U_PREFILL_BATCH,
+                                     cell["prefill_32k"].dims["seq"], device,
+                                     U_PREFILL_REQUESTS, taps=taps)
+        u_check_peak(tag, m["prefill_32k"])
+        if taps is not None:
+            m["moe"] = moe_check(params, cfg, taps[0], device)
+        del taps
+        print(f"[{tag}] prefill_32k " + json.dumps(m["prefill_32k"]),
+              flush=True)
+        u_free(device)
+        for b in batches:
+            d = u_decode(tag, cfg, params, cell["decode_32k"], b, device,
+                         U_DECODE_STEPS)
+            u_check_peak(tag, d)
+            if d["peak_bytes"] is None or d["peak_bytes"] <= U_DECODE_PEAK \
+                    or b == batches[-1]:
+                break
+            print(f"reduced: {tag} decode_32k batch {b}->{batches[-1]}: "
+                  f"the peak {d['peak_bytes']} B passed {U_DECODE_PEAK} B",
+                  flush=True)
+            u_free(device)
+        m["decode_32k"] = d
+        print(f"[{tag}] decode_32k " + json.dumps(d), flush=True)
+        u_free(device)
+        if long_ctx:
+            m["long_500k"] = u_decode(tag, cfg, params, cell["long_500k"],
+                                      1, device, U_DECODE_STEPS, trace=False)
+            u_check_peak(tag, m["long_500k"])
+            print(f"[{tag}] long_500k " + json.dumps(m["long_500k"]),
+                  flush=True)
+            u_free(device)
+        agree_cfg = cfg
+        if cfg.moe is not None:        # room for every token: no drops
+            agree_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        m["decode_agrees"] = u_agree(tag, agree_cfg, params, device)
+        del params
+        u_free(device)
+        dense = dataclasses.replace(cfg, n_layers=2,
+                                    n_dense_layers=2 if cfg.moe else 0)
+        m["float64"] = u_fp64(tag, dense, device)
+        m["seconds"] = time.perf_counter() - t_cell
+        print(f"[{tag}] checks " + json.dumps(
+            {k: m[k] for k in ("decode_agrees", "float64", "moe")
+             if k in m}), flush=True)
+        out[tag] = m
+    t0 = time.perf_counter()
+    u3 = {}
+    for arch in registry.LM_ARCHS:
+        for dtype, tol in (("float32", U3_F32_TOL),
+                           ("bfloat16", U3_BF16_TOL)):
+            r = u3_compare(arch, dtype, device)
+            u3[f"{arch}/{dtype}"] = r
+            worst = max(r["prefill"], r["decode"], r["caches"])
+            if not r["finite"] or not worst <= tol:
+                fail(f"[U.3] {arch} {dtype} on the card is {worst} from the "
+                     f"CPU (limit {tol}): {r}")
+    u3["seconds"] = time.perf_counter() - t0
+    print("[U.3] " + json.dumps(u3), flush=True)
+    out["U.3"] = u3
+    return out
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -6063,6 +6568,30 @@ def main() -> int:
     bag_row["launches"] += t_bag
     bag_row["sharded"] = {"launches": t_bag, "max_abs_err": t_bag_err}
     bag_row["max_abs_err"] = max(bag_row["max_abs_err"], t_bag_err)
+
+    # U: LM serving, qwen3-14b whole and deepseek-v3-671b at published
+    # width; no kernel of the four
+    print(f"reduced: U.1 prefill_32k batch 32->{U_PREFILL_BATCH}, "
+          f"{U_PREFILL_REQUESTS} timed requests (fp32 scores of one query "
+          f"chunk are 2.7 GB a sequence; the script's time limit)")
+    print(f"reduced: U.1 decode_32k batch 128->{U1_DECODE_BATCHES[0]} (the "
+          f"cache at 128 is {lm.cache_bytes(qwen3_14b.CONFIG, 128, 32768)} "
+          f"B)")
+    print(f"reduced: U.1 long_500k not run: its cache alone is "
+          f"{lm.cache_bytes(qwen3_14b.CONFIG, 1, 524288)} B")
+    print(f"reduced: U.2 deepseek-v3-671b layers 61->{U2_LAYERS} (3 dense, "
+          f"1 MoE, the MTP block), prefill_32k batch 32->"
+          f"{U_PREFILL_BATCH}, {U_PREFILL_REQUESTS} timed requests")
+    u_free(device)
+    zero(nl.launches, fm.launches, bagk.launches, segk.launches)
+    t_u = time.perf_counter()
+    m_u = run_phase_u(device)
+    u_counts = kernel_counts()
+    print(f"[U] took {time.perf_counter() - t_u:.1f} s; launches "
+          + json.dumps(u_counts), flush=True)
+    if any(u_counts.values()):
+        fail(f"phase U launched a kernel: {u_counts}")
+    del m_u
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

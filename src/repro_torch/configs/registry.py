@@ -1,26 +1,38 @@
 """The cells the port runs, from the JAX package's ``configs/registry.py``:
-``Cell``, ``REC_CELLS`` and ``GNN_CELLS`` with their dims, and
-``cell_by_name``; ``reduce_cell`` is the recsys and GNN branches of the
-JAX launcher's ``launch/cells.py::_reduce_cell`` (the ``--smoke`` sizes).
+``Cell``, ``REC_CELLS``, ``GNN_CELLS`` and ``LM_CELLS`` with their dims,
+and ``cell_by_name``; ``reduce_cell`` is the JAX launcher's
+``launch/cells.py::_reduce_cell`` (the ``--smoke`` sizes).
 
 ``ARCHS`` maps the JAX launcher's four recsys archs to their config
-modules, ``GNN_ARCHS`` its GNN arch; ``family`` names an arch's family
-(``recsys`` or ``gnn``), as the JAX registry's ``ArchSpec.family`` does.
+modules, ``GNN_ARCHS`` its GNN arch, ``LM_ARCHS`` its five LM archs;
+``family`` names an arch's family (``recsys``, ``gnn`` or ``lm``), as the
+JAX registry's ``ArchSpec.family`` does.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (bst, deepfm, din, graphsage_reddit,
+from repro_torch.configs import (bst, deepfm, deepseek_7b,
+                                 deepseek_v3_671b, din, graphsage_reddit,
+                                 nemotron_4_340b, qwen3_14b, qwen3_moe_235b,
                                  two_tower_retrieval)
 
 
 @dataclasses.dataclass(frozen=True)
 class Cell:
     name: str
-    kind: str          # rec_train | rec_serve | rec_retrieval |
-    #                    gnn_full | gnn_minibatch | gnn_molecule
+    kind: str          # train | prefill | decode | rec_train | rec_serve |
+    #                    rec_retrieval | gnn_full | gnn_minibatch |
+    #                    gnn_molecule
     dims: dict
+
+
+LM_CELLS = (
+    Cell("train_4k", "train", {"seq": 4096, "batch": 256}),
+    Cell("prefill_32k", "prefill", {"seq": 32768, "batch": 32}),
+    Cell("decode_32k", "decode", {"seq": 32768, "batch": 128}),
+    Cell("long_500k", "decode", {"seq": 524288, "batch": 1}),
+)
 
 
 GNN_CELLS = (
@@ -49,16 +61,22 @@ REC_CELLS = (
 ARCHS = {"din": din, "bst": bst, "two-tower-retrieval": two_tower_retrieval,
          "deepfm": deepfm}
 GNN_ARCHS = {"graphsage-reddit": graphsage_reddit}
-CELLS = {"recsys": REC_CELLS, "gnn": GNN_CELLS}
+LM_ARCHS = {"deepseek-7b": deepseek_7b, "qwen3-14b": qwen3_14b,
+            "nemotron-4-340b": nemotron_4_340b,
+            "deepseek-v3-671b": deepseek_v3_671b,
+            "qwen3-moe-235b-a22b": qwen3_moe_235b}
+CELLS = {"recsys": REC_CELLS, "gnn": GNN_CELLS, "lm": LM_CELLS}
 
 
 def family(arch_id: str) -> str:
-    """``recsys`` or ``gnn``; raises ``KeyError`` for an arch the port does
-    not run."""
+    """``recsys``, ``gnn`` or ``lm``; raises ``KeyError`` for an arch the
+    port does not run."""
     if arch_id in ARCHS:
         return "recsys"
     if arch_id in GNN_ARCHS:
         return "gnn"
+    if arch_id in LM_ARCHS:
+        return "lm"
     raise KeyError(arch_id)
 
 
@@ -70,11 +88,14 @@ def cell_by_name(name: str, family: str = "recsys") -> Cell:
 
 
 def reduce_cell(cell: Cell) -> Cell:
-    """The cell at CPU smoke size, the same kind: a recsys cell at batch 8
-    and (where it has candidates) 64 candidates; a GNN cell at the JAX
-    launcher's tiny graphs."""
+    """The cell at CPU smoke size, the same kind: an LM cell at batch 2 and
+    32 positions (16 to train); a recsys cell at batch 8 and (where it has
+    candidates) 64 candidates; a GNN cell at the JAX launcher's tiny
+    graphs."""
     d = dict(cell.dims)
-    if cell.kind == "gnn_full":
+    if cell.kind in ("train", "prefill", "decode"):
+        d.update(batch=2, seq=32 if cell.kind != "train" else 16)
+    elif cell.kind == "gnn_full":
         d.update(n_nodes=200, n_edges=800, d_feat=24, n_classes=5)
     elif cell.kind == "gnn_minibatch":
         d.update(batch_nodes=8, fanouts=(4, 3), d_feat=24, n_classes=5,

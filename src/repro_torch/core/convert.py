@@ -17,6 +17,9 @@ GraphSAGE has no model object: its parameters are that dict
 package's ``sage_init`` tree over with every name and shape checked.
 ``two_tower_row_blocks`` cuts a whole two-tower model into one rank's row
 blocks of its user and item tables, for the sharded user tower.
+An LM's parameters are such a dict too (``models/lm.py``), and
+``lm_from_reference`` carries the JAX package's ``lm_init`` tree over with
+every name, shape and dtype checked, bf16 bit for bit.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import neighborhash as nh
-from repro_torch.models import gnn, recsys
+from repro_torch.models import gnn, lm, recsys
 
 
 def table_from_reference(arrays: dict[str, np.ndarray], *, variant: str,
@@ -248,6 +251,32 @@ def gnn_from_reference(params: dict, cfg, device) -> dict:
                              f"{cfg.name} needs {shape}")
     return {k: torch.from_numpy(np.array(got[k], dtype=np.float32)).to(
         device=device, dtype=cfg.torch_dtype) for k in want}
+
+
+def lm_from_reference(params: dict, cfg, device) -> dict:
+    """The JAX package's unboxed ``lm_init`` tree (nested dicts, stacked
+    layers, every leaf a numpy array; bf16 as ml_dtypes' ``bfloat16``) ->
+    the port's path-keyed LM parameters of ``cfg`` on ``device``
+    (``models/lm.param_specs``' paths and order), each leaf's bytes as
+    they are.  Raises on any path, shape or dtype that ``cfg`` does not
+    give."""
+    want = lm.param_specs(cfg)
+    got = flatten_tree(params)
+    if set(got) != set(want):
+        raise ValueError(f"{cfg.name} needs parameters {sorted(want)}, got "
+                         f"{sorted(got)}")
+    out = {}
+    for k, spec in want.items():
+        leaf = got[k]
+        if tuple(np.shape(leaf)) != tuple(spec.shape):
+            raise ValueError(f"{k} has shape {tuple(np.shape(leaf))}, "
+                             f"{cfg.name} needs {tuple(spec.shape)}")
+        dtype = spec.dtype or cfg.torch_dtype
+        if str(np.asarray(leaf).dtype) != str(dtype).removeprefix("torch."):
+            raise ValueError(f"{k} is {np.asarray(leaf).dtype}, {cfg.name} "
+                             f"needs {dtype}")
+        out[k] = _from_numpy(leaf, device)
+    return out
 
 
 FROM_REFERENCE = {"deepfm": deepfm_from_reference,

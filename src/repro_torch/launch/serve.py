@@ -10,6 +10,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch graphsage-reddit [--shape molecule|full_graph_sm|...] \
         [--smoke] [--requests 20] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-14b|deepseek-7b|nemotron-4-340b|deepseek-v3-671b|\
+qwen3-moe-235b-a22b [--shape decode_32k|prefill_32k|long_500k] [--smoke] \
+        [--requests 20] [--batch SEQUENCES] [--device cuda|cpu]
 
 Builds the model at its published width (the arch's ``CONFIG`` in
 ``configs/``; ``--smoke`` takes ``SMOKE`` and the cell at
@@ -50,6 +54,27 @@ sequence, printing the request latency's p50 and p99.
   lacks), uploaded before the request is timed.  The latency is the step
   and the wait for its loss on the host.
 
+An LM arch (``configs/registry.LM_ARCHS``) serves its ``--shape`` cell
+(``configs/registry.LM_CELLS``, default ``decode_32k``) as the JAX
+launcher does, with weights from ``lm.lm_init`` (seed 0) and each request
+drawn by ``launch/materialize.py`` with seed ``i + 1`` for request i (the
+warm-up's with seed 0): ``prefill_32k`` a [B, S] prompt of random tokens
+through ``serve_step.lm_prefill_fn`` (its last position's logits);
+``decode_32k`` and ``long_500k`` one decode step of ``lm_decode_fn``
+over random tokens, positions and caches [L, B, S, ...].  ``--batch``
+sets B, the sequences a request.  The caches are ``materialize``'s, the
+JAX package's draws bit for bit, up to ``HOST_DRAW_ELEMENTS`` values; a
+larger cache (42.9 GB at qwen3-14b's ``decode_32k`` at B = 8) is drawn
+on the device instead, N(0, 0.02) from a generator seeded ``i + 1``
+there, since numpy would take minutes a request.  Before it allocates
+anything the launcher reckons the weights, the caches and the attention's
+working set in bytes (``lm_bytes``); on the card it exits if they pass
+the free memory, naming them and the largest ``--batch`` that fits.  On
+the card bf16 products accumulate in fp32
+(``allow_bf16_reduced_precision_reduction`` off), as XLA's do.
+``train_4k`` exits: LM training is not ported yet.  It prints the request
+p50 and p99 and tokens a second.
+
 ``--feature-server`` serves the feature lookups through the ported
 ``QueryServer``, as the JAX launcher's feature-server mode does: over the
 same feature engine, ``--clients`` threads each score ``--requests``
@@ -70,10 +95,12 @@ no fallback to the CPU).
 from __future__ import annotations
 
 import argparse
+import math
 import threading
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.api.backends import EngineBackend
 from repro_torch.api.client import FeatureClient
@@ -84,7 +111,10 @@ from repro_torch.core.engine import (EmbeddingTable, MultiTableEngine,
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.materialize import materialize
+from repro_torch.models import common as cm
 from repro_torch.models import gnn
+from repro_torch.models import lm
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
 from repro_torch.serve.scheduler import BatchPolicy, ShedError
@@ -97,6 +127,7 @@ SERVER_BATCH_KEYS = 4096       # the feature server's micro-batch key budget
 SCORING_BUDGET_S = 2.0         # a scoring request's lookup budget
 PREFETCH_IDS, PREFETCH_BUDGET_S = 256, 0.5
 DELTA_KEYS = 64
+HOST_DRAW_ELEMENTS = 1 << 26    # a larger LM cache is drawn on the device
 
 
 def feature_engine(n_items: int, max_shard_bytes: int, *, device):
@@ -318,18 +349,137 @@ def serve_gnn(arch: str, shape: str, *, smoke: bool, requests: int,
     return res
 
 
+def lm_request_specs(cfg, cell: registry.Cell, batch: int) -> tuple:
+    """The request of an LM cell as the JAX cell builder shapes it:
+    ``(tokens [B, S],)`` to prefill, ``(token [B], pos [B], caches)`` to
+    decode."""
+    s = cell.dims["seq"]
+    if cell.kind == "prefill":
+        return (cm.ShapeDtype((batch, s), torch.int32),)
+    tok = cm.ShapeDtype((batch,), torch.int32)
+    return (tok, tok, lm.decode_cache_specs(cfg, batch, s))
+
+
+def lm_bytes(cfg, cell: registry.Cell, batch: int) -> dict:
+    """What serving ``cell`` at ``batch`` sequences holds on the device, in
+    bytes: the weights, the decode caches, and the largest working set of
+    one step (an estimate): for prefill one query chunk's fp32 scores, its
+    softmax and their cast, with the fp32 keys and ten activations of the
+    whole prompt; for decode one layer's fp32 scores and softmax."""
+    s = cell.dims["seq"]
+    h = cfg.n_heads
+    dh = (cfg.mla_cfg().dh_nope + cfg.mla_cfg().dh_rope
+          if cfg.attn_type == "mla" else cfg.head_dim)
+    kv = h if cfg.attn_type == "mla" else cfg.n_kv_heads
+    caches = lm.cache_bytes(cfg, batch, s) if cell.kind == "decode" else 0
+    if cell.kind == "prefill":
+        qc = min(cfg.q_chunk, s)
+        work = batch * (h * qc * s * 10 + s * kv * dh * 4
+                        + 10 * s * max(cfg.d_model, cfg.d_ff) * 2)
+    else:
+        work = batch * h * s * 8
+    return {"weights": lm.param_bytes(cfg), "caches": caches, "work": work}
+
+
+def _device_caches(specs: dict, seed: int, device) -> dict:
+    """Decode caches of ``specs`` drawn N(0, 0.02) on ``device`` from a
+    generator seeded ``seed`` there."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    for kind, entry in specs.items():
+        out[kind] = {}
+        for name, sd in entry.items():
+            t = torch.empty(sd.shape, dtype=sd.dtype, device=device)
+            for part in t.view(sd.shape[0] * sd.shape[1], -1):
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=device).mul_(0.02))
+            out[kind][name] = t
+    return out
+
+
+def lm_request(cfg, cell: registry.Cell, batch: int, seed: int, device):
+    """Request ``seed`` of an LM cell, on ``device`` (module docstring)."""
+    specs = lm_request_specs(cfg, cell, batch)
+    if cell.kind == "prefill" or sum(
+            math.prod(sd.shape) for e in specs[2].values()
+            for sd in e.values()) <= HOST_DRAW_ELEMENTS:
+        return materialize(specs, seed=seed, device=device)
+    # token and pos are the first leaves: the same draws as the whole tree's
+    return (*materialize(specs[:2], seed=seed, device=device),
+            _device_caches(specs[2], seed, device))
+
+
+def serve_lm(arch: str, shape: str, *, smoke: bool, requests: int,
+             batch, device) -> dict:
+    """``requests`` requests of the LM cell ``shape`` (module docstring):
+    p50 / p99 ms and tokens a second."""
+    configs = registry.LM_ARCHS[arch]
+    cfg = configs.SMOKE if smoke else configs.CONFIG
+    cell = registry.cell_by_name(shape, "lm")
+    if smoke:
+        cell = registry.reduce_cell(cell)
+    if cell.kind == "train":
+        raise SystemExit(f"--shape {cell.name}: " + rec.NOT_PORTED.format(
+            arch=f"{arch}/{cell.name}"))
+    b = cell.dims["batch"] if batch is None else batch
+    if device.type == "cuda":
+        need = lm_bytes(cfg, cell, b)
+        free = torch.cuda.mem_get_info(device)[0]
+        if sum(need.values()) > free:
+            per_seq = (need["caches"] + need["work"]) / b
+            fits = int((free - need["weights"]) // per_seq) if per_seq else 0
+            raise SystemExit(
+                f"{cfg.name}/{cell.name} at --batch {b} needs "
+                f"{sum(need.values())} B ({need}) and the card has {free} B "
+                f"free; the largest --batch that fits is {max(fits, 0)}")
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    params = lm.lm_init(cfg, seed=0, device=device)
+    step = (serve_step.lm_prefill_fn(cfg) if cell.kind == "prefill"
+            else serve_step.lm_decode_fn(cfg))
+
+    def answer(req):
+        out = step(params, *req)
+        return (out if cell.kind == "prefill" else out[0]).cpu()
+
+    answer(lm_request(cfg, cell, b, 0, device))              # warm-up
+    lat, finite = [], True
+    for i in range(requests):
+        req = lm_request(cfg, cell, b, i + 1, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits = answer(req)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(logits.isfinite().all())
+        del req
+    tokens = b * (cell.dims["seq"] if cell.kind == "prefill" else 1)
+    res = {"arch": cfg.name, "shape": cell.name, "device": str(device),
+           "batch": b, "seq": cell.dims["seq"], "requests": requests,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "tokens_per_s": tokens * len(lat) / (sum(lat) / 1e3),
+           "finite": finite}
+    print(f"{cfg.name}/{cell.name}: {requests} requests of {b} x "
+          f"{cell.dims['seq']} on {device}, p50={res['p50_ms']:.2f}ms "
+          f"p99={res['p99_ms']:.2f}ms tokens/s={res['tokens_per_s']:.0f}")
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default=None,
                     choices=[c.name for c in registry.REC_CELLS
-                             + registry.GNN_CELLS],
+                             + registry.GNN_CELLS + registry.LM_CELLS],
                     help="serve_p99 for a recsys arch, molecule for "
-                         "graphsage-reddit")
+                         "graphsage-reddit, decode_32k for an LM")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--batch", type=int, default=None,
-                    help="rows a scoring request (default: the cell's)")
+                    help="rows a scoring request, sequences an LM request "
+                         "(default: the cell's)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--feature-server", action="store_true",
                     help="serve the feature lookups through the QueryServer "
@@ -344,9 +494,18 @@ def main(argv=None) -> dict:
     except KeyError:
         raise SystemExit(f"--arch {args.arch}: "
                          + rec.NOT_PORTED.format(arch=args.arch)) from None
-    shape = args.shape or {"recsys": "serve_p99", "gnn": "molecule"}[family]
+    shape = args.shape or {"recsys": "serve_p99", "gnn": "molecule",
+                           "lm": "decode_32k"}[family]
     if shape not in [c.name for c in registry.CELLS[family]]:
         ap.error(f"{shape} is not a cell of {args.arch}")
+    if family == "lm":
+        if args.feature_server:
+            ap.error("--feature-server takes a recsys arch")
+        if args.requests < 1 or (args.batch is not None and args.batch < 1):
+            ap.error("--requests and --batch must be at least 1")
+        return serve_lm(args.arch, shape, smoke=args.smoke,
+                        requests=args.requests, batch=args.batch,
+                        device=ops.resolve_device(args.device))
     if family == "gnn":
         if args.feature_server or args.batch is not None:
             ap.error("--feature-server and --batch take a recsys arch")

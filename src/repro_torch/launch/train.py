@@ -30,6 +30,9 @@ It prints ``step N loss=... (s/step)`` after the first step and every
 tenth, then ``done``.  With ``--ckpt-dir`` it resumes from a checkpoint
 there and saves one every ``--ckpt-every`` steps (async).
 
+An LM arch exits: the port serves the LM archs
+(``python -m repro_torch.launch.serve``) but does not train them yet.
+
 It runs on ``--device`` (default ``cuda``; there is no fallback to the
 CPU).
 """
@@ -117,6 +120,9 @@ def main(argv=None) -> dict:
     except KeyError:
         raise SystemExit(f"--arch {args.arch}: "
                          + rec.NOT_PORTED.format(arch=args.arch)) from None
+    if family == "lm":
+        raise SystemExit(f"--arch {args.arch}: "
+                         + rec.NOT_PORTED.format(arch=args.arch))
     shape = args.shape or {"recsys": "train_batch",
                            "gnn": "minibatch_lg"}[family]
     if shape not in [c.name for c in registry.CELLS[family]]:

@@ -1,7 +1,11 @@
 """What the port's models share: the JAX package's initializers
 (``models/common.py``), on an explicit ``torch.Generator`` and device, its
-``layer_norm`` and its two losses, ``softmax_xent`` and
-``bce_with_logits``.
+``layer_norm``, ``rms_norm``, ``squared_relu``, the rotary embedding
+(``rope_angles``, ``apply_rope``) and its two losses, ``softmax_xent`` and
+``bce_with_logits``.  ``ParamSpec`` and ``draw_params`` build a path-keyed
+parameter dict from its shapes (the LM's, ``models/lm.py``), and
+``ShapeDtype`` stands where the JAX package passes a
+``jax.ShapeDtypeStruct`` (``launch/materialize.py``).
 
 The JAX package boxes every parameter with a ``PartitionSpec`` and shards it
 over a mesh (``Boxed``, ``MeshInfo``).  The port has neither: a parameter
@@ -15,8 +19,9 @@ parameters over (``core/convert.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -80,3 +85,102 @@ def bce_with_logits(logits: torch.Tensor,
     return (torch.maximum(logits, torch.zeros_like(logits))
             - logits * labels
             + torch.log1p(torch.exp(-magnitude))).mean()
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """The JAX package's ``rms_norm`` over the last axis: in fp32, ``x *
+    rsqrt(mean(x^2) + eps) * gamma``, and a cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * gamma.float()).to(dt)
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    r = torch.relu(x)
+    return r * r
+
+
+def rope_angles(positions: torch.Tensor, dim: int,
+                base: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [*, S] int -> (cos, sin) [*, S, dim/2] fp32, the JAX
+    package's angles: ``position * base ** (-2i / dim)``.  The inverse
+    frequencies are fp32's ``1 / base ** (2i / dim)``; at ``base`` 1e4 they
+    are the JAX package's bit for bit, at 1e6 one may lie an ulp away, which
+    moves an angle by at most ``position`` times that ulp
+    (``tests/test_torch_lm.py`` holds that bound up to position 524,287)."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    inv = 1.0 / torch.pow(base, exps)     # a host scalar: no copy to the card
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, n_head, dim]; cos / sin broadcastable [..., S, 1, dim/2].
+    Rotate-half, as the JAX package's ``apply_rope``: the two halves of the
+    last axis (not interleaved pairs), in fp32, then ``x``'s dtype."""
+    x1, x2 = x.chunk(2, dim=-1)
+    x1f, x2f = x1.float(), x2.float()
+    return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
+                     dim=-1).to(x.dtype)
+
+
+class ShapeDtype(NamedTuple):
+    """A tensor's shape and dtype, without its data (the JAX package's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One parameter: its shape, the scale of its truncated normal (``None``
+    for a norm's gain, all ones) and its dtype (``None``: the model's)."""
+    shape: tuple
+    scale: Optional[float]
+    dtype: Optional[torch.dtype] = None
+
+    def stacked(self, n: int) -> "ParamSpec":
+        return dataclasses.replace(self, shape=(n,) + tuple(self.shape))
+
+
+# the fp32 draws of one parameter are made this many elements at a time, so
+# that drawing a [256, 7168, 2048] expert stack needs no fp32 copy of it
+DRAW_CHUNK = 1 << 26
+
+
+def draw_params(specs: dict, *, generator: torch.Generator, device,
+                dtype: torch.dtype) -> dict:
+    """``{path: ParamSpec}`` -> ``{path: tensor}`` on ``device``, in
+    ``specs``' order: each tensor allocated once in its dtype and filled in
+    place, ``DRAW_CHUNK`` elements of fp32 draws at a time (whole rows of
+    its last axis)."""
+    out = {}
+    for path, spec in specs.items():
+        t = torch.empty(spec.shape, dtype=spec.dtype or dtype, device=device)
+        if spec.scale is None:
+            t.fill_(1)
+        else:
+            rows = t.view(-1, spec.shape[-1])
+            step = max(1, DRAW_CHUNK // spec.shape[-1])
+            for i in range(0, rows.shape[0], step):
+                part = rows[i:i + step]
+                part.copy_(normal_init(part.shape, spec.scale,
+                                       generator=generator, device=device))
+        out[path] = t
+    return out
+
+
+def sub(params: dict, prefix: str) -> dict:
+    """The entries of a path-keyed dict under ``prefix/``, the prefix
+    dropped (``sub(p, "attn")["wq"]`` is ``p["attn/wq"]``)."""
+    head = prefix + "/"
+    return {k[len(head):]: v for k, v in params.items()
+            if k.startswith(head)}

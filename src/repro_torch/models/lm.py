@@ -1,0 +1,315 @@
+"""The LM transformer family, from the JAX package's ``models/lm.py``: one
+decoder-only stack covering deepseek-7b (llama-arch GQA), qwen3-14b (GQA +
+qk-norm), nemotron-4-340b (GQA + squared-ReLU FFN), deepseek-v3-671b (MLA
++ shared/routed MoE + MTP) and qwen3-moe-235b (GQA + MoE): pre-RMSNorm
+blocks, the first ``n_dense_layers`` dense and the rest MoE.
+
+Parameters are one flat dict keyed by the JAX package's paths, a stack of
+layers as ``[L, ...]`` tensors (``dense_layers/attn/wq``,
+``moe_layers/moe/w_gate``, ``mtp/block/ffn/w_up``), in ``jax.tree_util``'s
+leaf order; ``core/convert.lm_from_reference`` carries the JAX package's
+tree across.  The layers run one at a time over views of the stacks.
+
+This module serves: ``lm_backbone`` and ``lm_logits`` (prefill),
+``lm_prefill`` (prefill writing the decode caches), ``lm_decode_step``
+(decode, caches updated in place) and the caches' shapes
+(``decode_cache_specs``, ``make_decode_caches``).  ``lm_loss``,
+``_chunked_xent`` and ``_mtp_loss`` come with LM training (ROADMAP queue
+1, item 15); ``lm_init`` makes the ``mtp`` parameters all the same, so a
+model converts whole.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import ParamSpec, ShapeDtype
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+STACKS = (("dense", "dense_layers"), ("moe", "moe_layers"))
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    attn_type: str = "gqa"              # gqa | mla
+    ffn_type: str = "swiglu"            # swiglu | squared_relu
+    qk_norm: bool = False
+    moe: Optional[moe_mod.MoEConfig] = None
+    n_dense_layers: int = 0             # leading dense layers in MoE models
+    mtp_depth: int = 0                  # DeepSeek-V3 multi-token prediction
+    rope_base: float = 10000.0
+    q_chunk: int = 512
+    dtype: str = "bfloat16"
+    remat: bool = True
+    loss_chunk: int = 512     # sequence chunking of the CE (0 = off)
+    unroll: bool = False      # the reference's scan unrolling (no effect here)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.n_dense_layers if self.moe else 0
+
+    def gqa_cfg(self) -> attn.GQAConfig:
+        return attn.GQAConfig(self.d_model, self.n_heads, self.n_kv_heads,
+                              self.head_dim, self.qk_norm, self.rope_base,
+                              self.q_chunk)
+
+    def mla_cfg(self) -> attn.MLAConfig:
+        return attn.MLAConfig(self.d_model, self.n_heads,
+                              rope_base=self.rope_base, q_chunk=self.q_chunk)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+def _prefixed(prefix: str, specs: dict) -> dict:
+    return {f"{prefix}/{k}": v for k, v in specs.items()}
+
+
+def _ffn_specs(cfg: LMConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dense = attn._dense
+    if cfg.ffn_type == "swiglu":
+        return {"w_gate": dense(d, f), "w_up": dense(d, f),
+                "w_down": dense(f, d)}
+    if cfg.ffn_type == "squared_relu":
+        return {"w_in": dense(d, f), "w_out": dense(f, d)}
+    raise ValueError(cfg.ffn_type)
+
+
+def _layer_specs(cfg: LMConfig, use_moe: bool) -> dict:
+    a = (attn.mla_specs(cfg.mla_cfg()) if cfg.attn_type == "mla"
+         else attn.gqa_specs(cfg.gqa_cfg()))
+    p = {"ln1": ParamSpec((cfg.d_model,), None), **_prefixed("attn", a),
+         "ln2": ParamSpec((cfg.d_model,), None)}
+    if use_moe:
+        p.update(_prefixed("moe", moe_mod.moe_specs(cfg.moe)))
+    else:
+        p.update(_prefixed("ffn", _ffn_specs(cfg)))
+    return p
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    """``{path: ParamSpec}`` of the whole model, in ``jax.tree_util``'s leaf
+    order (paths sorted component by component)."""
+    d = cfg.d_model
+    n_dense = cfg.n_layers - cfg.n_moe_layers
+    specs = {"embed": ParamSpec((cfg.vocab, d), 0.02),
+             "final_ln": ParamSpec((d,), None),
+             "unembed": attn._dense(d, cfg.vocab)}
+    for n, key, use_moe in ((n_dense, "dense_layers", False),
+                            (cfg.n_moe_layers, "moe_layers", True)):
+        if n:
+            specs.update({f"{key}/{k}": v.stacked(n) for k, v in
+                          _layer_specs(cfg, use_moe).items()})
+    if cfg.mtp_depth:
+        specs.update(_prefixed("mtp", {
+            "proj": attn._dense(2 * d, d),
+            "ln_h": ParamSpec((d,), None), "ln_e": ParamSpec((d,), None),
+            **_prefixed("block", _layer_specs(cfg, use_moe=False)),
+            "final_ln": ParamSpec((d,), None)}))
+    return dict(sorted(specs.items(), key=lambda kv: kv[0].split("/")))
+
+
+def param_bytes(cfg: LMConfig) -> int:
+    return sum(ShapeDtype(s.shape, s.dtype or cfg.torch_dtype).nbytes
+               for s in param_specs(cfg).values())
+
+
+def lm_init(cfg: LMConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random weights of ``cfg`` on ``device``, from a generator seeded
+    ``seed`` there: every matrix a truncated normal scaled by 1/sqrt(fan
+    in) (the embedding by 0.02), every norm's gain ones, as the reference
+    draws them (from another stream: the two packages draw different
+    numbers)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return cm.draw_params(param_specs(cfg), generator=gen, device=device,
+                          dtype=cfg.torch_dtype)
+
+
+def layer_view(params: dict, key: str, i: int) -> dict:
+    """Layer ``i`` of the stack ``key`` (``dense_layers``, ``moe_layers``)
+    as a dict of views."""
+    return {k: v[i] for k, v in cm.sub(params, key).items()}
+
+
+def n_stacked(params: dict, key: str) -> int:
+    return next(v.shape[0] for k, v in params.items()
+                if k.startswith(key + "/"))
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+def _ffn_apply(p: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.ffn_type == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return cm.squared_relu(x @ p["w_in"]) @ p["w_out"]
+
+
+def _attn_apply(p: dict, cfg: LMConfig, a: torch.Tensor,
+                return_cache: bool):
+    if cfg.attn_type == "mla":
+        return attn.mla_apply(p, cfg.mla_cfg(), a, return_cache=return_cache)
+    return attn.gqa_apply(p, cfg.gqa_cfg(), a, return_cache=return_cache)
+
+
+def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor, use_moe: bool,
+                 return_cache: bool = False, taps: Optional[list] = None):
+    """Pre-norm block -> (x, (aux, dropped)) and, with ``return_cache``, the
+    layer's attention cache.  ``taps``, where given, gets each MoE layer's
+    ``(input, output, dropped)``."""
+    a = cm.rms_norm(x, p["ln1"])
+    out = _attn_apply(cm.sub(p, "attn"), cfg, a, return_cache)
+    attn_out, cache = out if return_cache else (out, None)
+    del a, out
+    x = x + attn_out
+    del attn_out
+    h = cm.rms_norm(x, p["ln2"])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if use_moe:
+        y, aux, dropped = moe_mod.moe_apply(cm.sub(p, "moe"), cfg.moe, h)
+        if taps is not None:
+            taps.append((h, y, dropped))
+    else:
+        y, aux, dropped = _ffn_apply(cm.sub(p, "ffn"), cfg, h), zero, zero
+    x = x + y
+    return (x, (aux, dropped), cache) if return_cache else (x, (aux, dropped))
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+def lm_backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+                caches: Optional[dict] = None,
+                taps: Optional[list] = None):
+    """tokens [B, S] -> (hidden [B, S, d] before the final norm, (aux,
+    dropped) summed over the MoE layers).  With ``caches`` (the decode
+    caches, ``make_decode_caches``, at least S long) every layer's cache
+    is written into ``[:, :, :S]`` of its stack."""
+    x = params["embed"][tokens.long()]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    s = tokens.shape[1]
+    for kind, key in STACKS:
+        if key + "/ln1" not in params:
+            continue
+        for i in range(n_stacked(params, key)):
+            p = layer_view(params, key, i)
+            if caches is None:
+                x, (a, d) = _layer_apply(p, cfg, x, kind == "moe",
+                                         taps=taps)
+            else:
+                x, (a, d), c = _layer_apply(p, cfg, x, kind == "moe", True,
+                                            taps)
+                for name, t in c.items():
+                    caches[kind][name][i, :, :s] = t
+            aux, dropped = aux + a, dropped + d
+    return x, (aux, dropped)
+
+
+def lm_logits(params: dict, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
+    return cm.rms_norm(h, params["final_ln"]) @ params["unembed"]
+
+
+def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+               cache_len: int):
+    """Prefill that leaves the decode caches behind: tokens [B, S] ->
+    (the last position's logits [B, V], caches of ``cache_len`` positions
+    holding the S prompt positions, zeros past them)."""
+    caches = make_decode_caches(cfg, tokens.shape[0], cache_len,
+                                tokens.device)
+    h, _ = lm_backbone(params, cfg, tokens, caches=caches)
+    return lm_logits(params, cfg, h[:, -1:])[:, 0], caches
+
+
+def _layer_decode(p: dict, cfg: LMConfig, x, cache: dict, pos,
+                  use_moe: bool):
+    a = cm.rms_norm(x, p["ln1"])
+    ap = cm.sub(p, "attn")
+    if cfg.attn_type == "mla":
+        y, cache = attn.mla_decode(ap, cfg.mla_cfg(), a, cache, pos)
+    else:
+        y, cache = attn.gqa_decode(ap, cfg.gqa_cfg(), a, cache, pos)
+    x = x + y
+    h = cm.rms_norm(x, p["ln2"])
+    if use_moe:
+        y, _, _ = moe_mod.moe_apply(cm.sub(p, "moe"), cfg.moe, h)
+    else:
+        y = _ffn_apply(cm.sub(p, "ffn"), cfg, h)
+    return x + y, cache
+
+
+def lm_decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
+                   pos: torch.Tensor, caches: dict):
+    """One-token decode.  token [B] int; pos [B] the current lengths;
+    ``caches`` ``{'dense': {k, v or ckv, kr: [Ld, B, Smax, ...]}, 'moe':
+    ...}``.  Each layer writes its new entry into its slice of the stacks IN
+    PLACE (the reference returns new caches) -> (logits [B, V], the same
+    caches)."""
+    x = params["embed"][token.long()[:, None]]
+    for kind, key in STACKS:
+        if kind not in caches:
+            continue
+        for i in range(n_stacked(params, key)):
+            view = {name: t[i] for name, t in caches[kind].items()}
+            x, _ = _layer_decode(layer_view(params, key, i), cfg, x, view,
+                                 pos, kind == "moe")
+    return lm_logits(params, cfg, x)[:, 0], caches
+
+
+def decode_cache_specs(cfg: LMConfig, batch: int, s_max: int) -> dict:
+    """The decode caches' shapes and dtypes (the reference's
+    ``make_decode_cache_specs`` without its shardings):
+    ``{'dense' / 'moe': {k, v: [L, B, Smax, Hkv, dh]}}`` for GQA,
+    ``{ckv: [L, B, Smax, kv_lora], kr: [L, B, Smax, dh_rope]}`` for MLA."""
+    dt = cfg.torch_dtype
+    n_dense = cfg.n_layers - cfg.n_moe_layers
+
+    def entry(n):
+        if cfg.attn_type == "mla":
+            m = cfg.mla_cfg()
+            return {"ckv": ShapeDtype((n, batch, s_max, m.kv_lora), dt),
+                    "kr": ShapeDtype((n, batch, s_max, m.dh_rope), dt)}
+        kv = ShapeDtype((n, batch, s_max, cfg.n_kv_heads, cfg.head_dim), dt)
+        return {"k": kv, "v": kv}
+
+    out = {}
+    if n_dense:
+        out["dense"] = entry(n_dense)
+    if cfg.n_moe_layers:
+        out["moe"] = entry(cfg.n_moe_layers)
+    return out
+
+
+def make_decode_caches(cfg: LMConfig, batch: int, s_max: int,
+                       device) -> dict:
+    """Zeroed decode caches of ``decode_cache_specs`` on ``device``."""
+    return {kind: {name: torch.zeros(sd.shape, dtype=sd.dtype, device=device)
+                   for name, sd in entry.items()}
+            for kind, entry in decode_cache_specs(cfg, batch, s_max).items()}
+
+
+def cache_bytes(cfg: LMConfig, batch: int, s_max: int) -> int:
+    return sum(sd.nbytes for entry in
+               decode_cache_specs(cfg, batch, s_max).values()
+               for sd in entry.values())

@@ -63,9 +63,12 @@ from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import embedding_service as es
 
-NOT_PORTED = ("{arch} is not ported: the port runs the four recsys archs "
-              "(din, bst, two_tower, deepfm) and graphsage-reddit; the LM "
-              "archs wait for ROADMAP queue 1, item 15")
+NOT_PORTED = ("{arch} is not ported: the port trains and serves the four "
+              "recsys archs (din, bst, two_tower, deepfm) and "
+              "graphsage-reddit, and serves the five LM archs (prefill_32k, "
+              "decode_32k, long_500k on one device); LM training "
+              "(train_4k), the LM cell builder and dry-run, and the sharded "
+              "LM paths wait for ROADMAP queue 1, item 15")
 
 
 @dataclasses.dataclass(frozen=True)

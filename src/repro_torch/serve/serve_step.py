@@ -1,4 +1,7 @@
-"""The recsys serving steps, from the JAX package's ``serve/serve_step.py``.
+"""The serving steps, from the JAX package's ``serve/serve_step.py``.
+
+``lm_prefill_fn`` and ``lm_decode_fn`` serve an LM (``models/lm.py``): a
+prompt's last-position logits, and one token of decode over the caches.
 
 ``recsys_score_fn`` scores a batch with any of the four recsys archs (DIN,
 BST, DeepFM, the two-tower user tower); ``retrieval_fn`` (two-tower) and
@@ -23,7 +26,28 @@ import torch
 
 from repro_torch.api.client import FeatureClient
 from repro_torch.api.types import QoSClass
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import recsys as rec
+
+
+def lm_decode_fn(cfg):
+    """``step(params, token [B], pos [B], caches) -> (logits [B, V],
+    caches)``: one token of decode, the caches written in place at
+    ``pos``."""
+    @torch.no_grad()
+    def step(params, token, pos, caches):
+        return lm_mod.lm_decode_step(params, cfg, token, pos, caches)
+    return step
+
+
+def lm_prefill_fn(cfg):
+    """``step(params, tokens [B, S]) -> logits [B, V]`` of the last
+    position."""
+    @torch.no_grad()
+    def step(params, tokens):
+        h, _ = lm_mod.lm_backbone(params, cfg, tokens)
+        return lm_mod.lm_logits(params, cfg, h[:, -1:])[:, 0]
+    return step
 
 
 def _upload(batch: dict, device: torch.device) -> dict:

@@ -19,7 +19,8 @@ holds ``loss`` and ``grad_norm`` as 0-dim tensors (read them with
 ``recsys_loss_fn`` and ``gnn_loss_fn`` are the family loss adapters that
 ``make_train_step`` differentiates (GraphSAGE with ``OptConfig()``: Adam
 on every leaf, as the JAX cell builder picks for family ``gnn``).  The LM
-adapter waits for its models (ROADMAP queue 1, item 15).
+models serve (``models/lm.py``); their loss adapter, ``lm_loss_fn``, comes
+with LM training (ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 

@@ -7,14 +7,17 @@ engine on the CPU; the FM term's and the bag's gradient kernels against
 their plain versions, the train steps of all four archs on the card
 against the CPU, the realtime loop's smoke on the card, and GraphSAGE's
 neighbour-sum kernel (``csr_sum``) against its plain version, its
-``NeighborMean`` gradient and the three regimes' steps against the CPU.
+``NeighborMean`` gradient and the three regimes' steps against the CPU;
+the five LM configs' SMOKE prefill and decode on the card against the CPU
+(``chip_smoke.u3_compare``, phase U.3) and the LM serve launcher's smoke.
 No JAX
 here: the parity with the JAX package is pinned on the CPU by
 test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
 test_torch_embedding_bag.py, test_torch_recsys.py, test_torch_two_tower.py,
 test_torch_retrieval.py, test_torch_seq_recsys.py,
 test_torch_query_server.py, test_torch_train.py and
-test_torch_streaming.py and test_torch_gnn.py.  Run on a CUDA machine with
+test_torch_streaming.py, test_torch_gnn.py and test_torch_lm.py.  Run on a
+CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -37,7 +40,8 @@ from repro_torch.core import engine as eng
 from repro_torch.core import hashcore as hc
 from repro_torch.core import lookup as lk
 from repro_torch.core import neighborhash as nh
-from repro_torch.configs import bst, deepfm, din, two_tower_retrieval
+from repro_torch.configs import (bst, deepfm, din, registry,
+                                 two_tower_retrieval)
 from repro_torch.core import convert
 from repro_torch.data import synthetic
 from repro_torch.kernels import build
@@ -2276,3 +2280,40 @@ def test_sharded_lookup_nccl_world1_matches_the_host_table(tmp_path, n_keys,
                        cwd=repo, env=env, capture_output=True, text=True,
                        timeout=300)
     assert "NCCL_WORLD1_OK" in r.stdout, r.stderr[-3000:]
+
+
+# ---------------------------------------------------------------------------
+# LM serving (phase U.3 at SMOKE)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(registry.LM_ARCHS))
+def test_lm_smoke_on_card_matches_cpu(arch, dtype):
+    """Prefill logits, 4 chained decode steps' logits and the caches after
+    them, the same parameters and request on the card and on the CPU:
+    within ``chip_smoke.U3_F32_TOL`` (float32) or ``U3_BF16_TOL`` (bf16)
+    of the CPU's largest value."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    r = cs.u3_compare(arch, dtype, torch.device("cuda"))
+    tol = cs.U3_F32_TOL if dtype == "float32" else cs.U3_BF16_TOL
+    assert r["finite"]
+    assert max(r["prefill"], r["decode"], r["caches"]) <= tol, r
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "deepseek-v3-671b"])
+def test_lm_serve_launcher_smoke_on_card(arch, shape, capsys):
+    out = launch_serve.main(["--arch", arch, "--shape", shape, "--smoke",
+                             "--requests", "3"])
+    assert out["finite"] and out["device"].startswith("cuda")
+    assert f"/{shape}: 3 requests of 2 x 32 on cuda" in \
+        capsys.readouterr().out
+
+
+def test_lm_serve_launcher_names_the_batch_that_fits():
+    """qwen3-14b's decode_32k at the cell's 128 sequences needs 687 GB of
+    cache: the launcher exits before allocating, naming the bytes and the
+    largest --batch that fits the card's free memory."""
+    with pytest.raises(SystemExit, match="qwen3-14b/decode_32k at --batch "
+                       "128 needs .* the largest --batch that fits is"):
+        launch_serve.main(["--arch", "qwen3-14b", "--requests", "1"])

@@ -116,8 +116,9 @@ def test_graphsage_configs_and_family_match_jax():
     for got, want in ((graphsage_reddit.CONFIG, jspec.config),
                       (graphsage_reddit.SMOKE, jspec.smoke)):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert registry.family("deepseek-7b") == "lm"      # an LM arch now
     with pytest.raises(KeyError):
-        registry.family("deepseek-7b")
+        registry.family("deepseek-8b")                  # no arch at all
     with pytest.raises(KeyError, match="no gnn cell"):
         registry.cell_by_name("train_batch", "gnn")
 

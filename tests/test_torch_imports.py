@@ -99,7 +99,8 @@ def test_string_scan_finds_the_reference_error_sources():
 LIBRARY_CALLS = re.compile(r"\b(F|functional)\.embedding_bag\b|"
                            r"\bnn\.EmbeddingBag\b|torch\.compile\b|"
                            r"\bsparse\.mm\b|\bto_sparse_csr\b|"
-                           r"\bsegment_reduce\b")
+                           r"\bsegment_reduce\b|"
+                           r"\bscaled_dot_product_attention\b")
 
 
 def test_scans_cover_the_gnn_slice():
@@ -124,6 +125,20 @@ def test_scans_cover_the_sharded_slice():
         os.path.join(PORT, "core", "distributed.py"))}
     assert roots <= {"__future__", "dataclasses", "math", "typing", "numpy",
                      "torch", "repro_torch"}, roots
+
+
+def test_scans_cover_the_lm_slice():
+    """The scans above read the LM serving slice: its models, configs,
+    ``materialize`` and the serving steps; attention stays plain products,
+    never ``scaled_dot_product_attention`` (the scan below refuses it)."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_files()[1:]}
+    assert {os.path.join(*p.split("/")) for p in (
+        "models/attention.py", "models/moe.py", "models/lm.py",
+        "launch/materialize.py", "configs/qwen3_14b.py",
+        "configs/qwen3_moe_235b.py", "configs/deepseek_7b.py",
+        "configs/deepseek_v3_671b.py", "configs/nemotron_4_340b.py",
+        "serve/serve_step.py")} <= scanned
+    assert LIBRARY_CALLS.search("F.scaled_dot_product_attention(q, k, v)")
 
 
 @pytest.mark.parametrize("path", _port_files()[1:],
