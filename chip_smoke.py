@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu``,
 ``embedding_bag.cu`` and ``segment_sum.cu``) with nvcc, one per library,
-all started together, then runs twenty-one phases.  Two send batch queries
+all started together, then runs twenty-two phases.  Two send batch queries
 through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
@@ -49,7 +49,8 @@ batch against the version it reports.
   ``SimConfig``'s defaults: 8 shards, 3 replicas, retain 2, hedging at
   5 ms, naming propagation 2 s, reload 3 s; a rollout every 20 s) with
   its data plane an engine on the card over phase A's deployment cut to
-  2^20 scalar keys and 200k 1 KB rows, each rollout a delta generation of
+  2^18 scalar keys (2^20 before phase V) and 200k 1 KB rows, each
+  rollout a delta generation of
   64 keys: 300 batch queries of 4096 zipf keys over both tables in 60
   s of sim time (cut from 1000 in 200 s to keep the script inside its
   time limit), under ``paper``, under ``naming``, and under ``paper``
@@ -337,6 +338,29 @@ concatenation of the columns and the pageable copy to the card.
   tokens/s, decode ms a step and tokens/s, peaks, and the busy share and
   top kernels of one traced decode step.  U launches none of the
   kernels.
+* **V** — LM training on the card, the ``train_4k`` cell's sequence of
+  4,096 one a step (of its 256) at published width, through the train
+  launcher's step (``make_train_step(lm_loss_fn(cfg), rule,
+  in_place=True)``, the rule
+  ``launch/cells.opt_cfg``'s for the published depth): **V.1** qwen3-14b
+  cut to the most layers whose step ``launch/train.lm_train_bytes`` puts
+  under 76 GB (Adafactor); **V.2** deepseek-v3-671b's 3 dense layers and
+  its MTP block (MLA's backward, ``_mtp_loss``); **V.3** qwen3-moe's
+  first 3 MoE layers (128 experts, top 8), each layer's dropped share
+  equal to a numpy recount and 256 tokens against float64
+  (``moe_check``), the step's ``moe_dropped`` their sum.  Each: a
+  warm-up, 4 steps timed (events and host clock), one traced (busy
+  share, kernels by kind and the top ones), one in its two halves;
+  every loss and ``grad_norm`` finite, the peak under 80 GB, the chunked
+  CE against one projection of the same hidden states within 1e-5.
+  V.1's and V.2's width at 2 dense layers in float32 (1,024 tokens):
+  remat against none (the same loss, gradients within 1e-5 normwise),
+  then against a plain float64 recompute differentiated on the card
+  (``lm_loss64``: the loss within 1e-5, each gradient leaf within
+  ``V_F64_GRAD_TOL`` normwise).  **V.4**: the five SMOKE configs, a step
+  and a step of two microbatches, on the card and on the CPU from the
+  same parameters and batch (``v4_compare``), within 1e-5 in float32 and
+  ``V4_BF16_TOL`` in bf16.  V launches none of the kernels.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
@@ -411,7 +435,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import api  # noqa: E402
 from repro_torch.configs import (bst, deepfm, deepseek_v3_671b,  # noqa
-                                 din, graphsage_reddit, qwen3_14b, registry,
+                                 din, graphsage_reddit, qwen3_14b,
+                                 qwen3_moe_235b, registry,
                                  two_tower_retrieval)
 from repro_torch.configs.bili_feature_store import CONFIG, SMOKE  # noqa: E402
 from repro_torch.core import cluster_sim as cs  # noqa: E402
@@ -429,6 +454,7 @@ from repro_torch.kernels import fused_fm as fm  # noqa: E402
 from repro_torch.kernels import neighbor_lookup as nl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import segment_sum as segk  # noqa: E402
+from repro_torch.launch import cells as launch_cells  # noqa: E402
 from repro_torch.launch import realtime  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -469,7 +495,7 @@ N_LATENCY_LOADS = 4096         # dependent loads the load latency is timed on
 N_ITERS = 20
 N_BUILD_WORKERS = 6            # processes building N's host tables at once
 # phase O: the consistency protocol's replica fleet (SimConfig's defaults)
-O_KEYS, O_EMB_ROWS = 1 << 20, 200_000
+O_KEYS, O_EMB_ROWS = 1 << 18, 200_000   # 2^20 until phase V came
 O_QUERIES, O_QPS = 300, 5      # 60 s of sim time, 3 versions
 O_UPDATE_US = 20_000_000       # a naming rollout (3 x 5 s) ends first
 O_SEED = 0
@@ -597,6 +623,25 @@ U_MOE_TOL = 2.0 ** -5          # bf16 MoE output, normwise, against float64
 U3_F32_TOL = 1e-5              # SMOKE on the card against the CPU
 U3_BF16_TOL = 3e-2             # the CPU parity's (seen: 5.9e-3)
 U_PEAK_BYTES = 80 * 10**9      # the card's 80 GB
+V_SEQ = 4096                   # V: train_4k's sequence, one a step (of 256)
+V_STEPS = 4                    # timed steps after a warm-up, one traced
+V1_PEAK_TARGET = 76 * 10**9    # V.1: the most layers whose estimate fits
+V2_LAYERS = 3                  # V.2: deepseek-v3's 3 dense layers (+ MTP)
+V3_LAYERS = 3                  # V.3: qwen3-moe's first 3 MoE layers
+V_CHECK_SEQ = 1024             # the float64 and remat checks' sequence
+V_CHECK_LAYERS = 2
+V_F64_LOSS_TOL = 1e-5          # float32 loss against float64, relative
+V_F64_GRAD_TOL = 1e-4          # each gradient leaf, normwise
+V_XENT_TOL = 1e-5              # the chunked CE against one projection
+V_REMAT_TOL = 1e-5             # gradients with and without remat, normwise
+V4_F32_TOL = 1e-5              # SMOKE steps, card against CPU, of max |x|
+V4_BF16_TOL = U3_BF16_TOL      # ... in bf16: an updated bf16 parameter may
+                               # round one ulp (2^-8 of it) the other way,
+                               # a bf16 gradient differ by a few ulps (seen:
+                               # 1.6% of the largest |g|, as sqrt(v))
+V4_ADAM_SENSITIVE = 1e-6       # sqrt(v-hat) below this, or a gradient whose
+                               # sign the two devices' differ on: Adam's
+                               # first step is a sign; held to lr there
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
@@ -5746,13 +5791,15 @@ def moe_recount(topi: np.ndarray, n_experts: int, cap: int):
     return kept.reshape(topi.shape), int((~kept).sum())
 
 
-def moe_check(params, cfg, tap, device, n_check=U_MOE_CHECK_TOKENS):
-    """U.2's MoE layer on one prefill: its dropped share against a numpy
-    recount of ``route_by_owner`` from the card's own top-k experts, and
-    ``n_check`` fixed tokens of its output against a per-token float64
-    recompute of their kept slots (and the shared expert)."""
+def moe_check(params, cfg, tap, device, n_check=U_MOE_CHECK_TOKENS,
+              tag="U.2", layer=0):
+    """MoE layer ``layer`` on one forward (U.2's prefill, V.3's batch):
+    its dropped share against a numpy recount of ``route_by_owner`` from
+    the card's own top-k experts, and ``n_check`` fixed tokens of its
+    output against a per-token float64 recompute of their kept slots (and
+    the shared expert)."""
     h, y, dropped = tap
-    p = lm.layer_view(params, "moe_layers", 0)
+    p = lm.layer_view(params, "moe_layers", layer)
     mp = cm.sub(p, "moe")
     mcfg = cfg.moe
     x = h.reshape(-1, h.shape[-1])
@@ -5763,8 +5810,8 @@ def moe_check(params, cfg, tap, device, n_check=U_MOE_CHECK_TOKENS):
     kept, n_dropped = moe_recount(topi.cpu().numpy(), mcfg.n_experts, cap)
     share = float(np.float32(n_dropped) / np.float32(t * k))
     if share != float(dropped):
-        fail(f"[U.2] the MoE dropped {float(dropped)} of its slots; a numpy "
-             f"recount of route_by_owner gives {share}")
+        fail(f"[{tag}] the MoE dropped {float(dropped)} of its slots; a "
+             f"numpy recount of route_by_owner gives {share}")
     toks = np.linspace(0, t - 1, n_check).astype(np.int64)
     x64 = x[toks].double()
     want = torch.zeros_like(x64)
@@ -5785,9 +5832,12 @@ def moe_check(params, cfg, tap, device, n_check=U_MOE_CHECK_TOKENS):
         want += (torch.nn.functional.silu(x64 @ s["w_gate"].double())
                  * (x64 @ s["w_up"].double())) @ s["w_down"].double()
     got = y.reshape(-1, y.shape[-1])[toks].double()
-    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    diff, den = (got - want).norm(dim=-1), want.norm(dim=-1)
+    # a token whose every slot dropped (and no shared expert) mixes nothing
+    rel = torch.where(den > 0, diff / den.clamp(min=1e-300), diff).max() \
+        .item()
     if not rel <= U_MOE_TOL:
-        fail(f"[U.2] the MoE output of {n_check} fixed tokens is {rel} "
+        fail(f"[{tag}] the MoE output of {n_check} fixed tokens is {rel} "
              f"(normwise) from its float64 recompute (limit {U_MOE_TOL})")
     return {"capacity": cap, "dropped_share": share,
             "dropped_slots": n_dropped, "checked_tokens": n_check,
@@ -5923,44 +5973,56 @@ def _attn64(q, k, v):
     return torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), v)
 
 
-def lm_logits64(params, cfg, tokens, last):
-    """Float64 logits of the ``last`` positions of one sequence ``tokens``
-    [S] through a dense-only LM's layers (GQA or MLA, SwiGLU), computed
-    plainly: the whole causal score matrix, MLA's keys expanded."""
-    p64 = {k: v.double() for k, v in params.items()
-           if not k.startswith("mtp/")}
+def layer64(p, cfg, x, pos):
+    """One dense pre-norm layer (GQA or MLA, SwiGLU) in float64, plainly:
+    the whole causal score matrix, MLA's keys expanded."""
+    n = x.shape[0]
+    a = _rms64(x, p["ln1"])
+    if cfg.attn_type == "mla":
+        m = cfg.mla_cfg()
+        q = (_rms64(a @ p["attn/w_dq"], p["attn/q_gamma"])
+             @ p["attn/w_uq"]).view(n, m.n_heads, -1)
+        q = torch.cat([q[..., :m.dh_nope],
+                       _rope64(q[..., m.dh_nope:], pos, m.rope_base)], -1)
+        ckv = _rms64(a @ p["attn/w_dkv"], p["attn/kv_gamma"])
+        kr = _rope64((a @ p["attn/w_kr"])[:, None], pos, m.rope_base)
+        k = torch.cat([(ckv @ p["attn/w_uk"]).view(n, m.n_heads, -1),
+                       kr.expand(n, m.n_heads, m.dh_rope)], -1)
+        v = (ckv @ p["attn/w_uv"]).view(n, m.n_heads, m.dv)
+        o = _attn64(q, k, v)
+    else:
+        h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = (a @ p["attn/wq"]).view(n, h, dh)
+        k = (a @ p["attn/wk"]).view(n, kv, dh)
+        v = (a @ p["attn/wv"]).view(n, kv, dh)
+        if cfg.qk_norm:
+            q, k = _rms64(q, p["attn/q_gamma"]), _rms64(k, p["attn/k_gamma"])
+        q, k = _rope64(q, pos, cfg.rope_base), _rope64(k, pos, cfg.rope_base)
+        g = h // kv
+        o = _attn64(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))
+    x = x + o.reshape(n, -1) @ p["attn/wo"]
+    f = _rms64(x, p["ln2"])
+    return x + (torch.nn.functional.silu(f @ p["ffn/w_gate"])
+                * (f @ p["ffn/w_up"])) @ p["ffn/w_down"]
+
+
+def lm_hidden64(p64, cfg, tokens):
+    """Float64 hidden states [S, d] of one sequence ``tokens`` [S] through
+    a dense-only LM's layers (``layer64``), before the final norm."""
     x = p64["embed"][tokens.long()]
     pos = torch.arange(len(tokens), device=tokens.device)
-    n = len(tokens)
+    stack = cm.sub(p64, "dense_layers")
     for i in range(cfg.n_layers):
-        p = {k: v[i] for k, v in cm.sub(p64, "dense_layers").items()}
-        a = _rms64(x, p["ln1"])
-        if cfg.attn_type == "mla":
-            m = cfg.mla_cfg()
-            q = (_rms64(a @ p["attn/w_dq"], p["attn/q_gamma"])
-                 @ p["attn/w_uq"]).view(n, m.n_heads, -1)
-            q = torch.cat([q[..., :m.dh_nope],
-                           _rope64(q[..., m.dh_nope:], pos, m.rope_base)], -1)
-            ckv = _rms64(a @ p["attn/w_dkv"], p["attn/kv_gamma"])
-            kr = _rope64((a @ p["attn/w_kr"])[:, None], pos, m.rope_base)
-            k = torch.cat([(ckv @ p["attn/w_uk"]).view(n, m.n_heads, -1),
-                           kr.expand(n, m.n_heads, m.dh_rope)], -1)
-            v = (ckv @ p["attn/w_uv"]).view(n, m.n_heads, m.dv)
-            o = _attn64(q, k, v)
-        else:
-            h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-            q = (a @ p["attn/wq"]).view(n, h, dh)
-            k = (a @ p["attn/wk"]).view(n, kv, dh)
-            v = (a @ p["attn/wv"]).view(n, kv, dh)
-            if cfg.qk_norm:
-                q, k = _rms64(q, p["attn/q_gamma"]), _rms64(k, p["attn/k_gamma"])
-            q, k = _rope64(q, pos, cfg.rope_base), _rope64(k, pos, cfg.rope_base)
-            g = h // kv
-            o = _attn64(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))
-        x = x + o.reshape(n, -1) @ p["attn/wo"]
-        f = _rms64(x, p["ln2"])
-        x = x + (torch.nn.functional.silu(f @ p["ffn/w_gate"])
-                 * (f @ p["ffn/w_up"])) @ p["ffn/w_down"]
+        x = layer64({k: v[i] for k, v in stack.items()}, cfg, x, pos)
+    return x
+
+
+def lm_logits64(params, cfg, tokens, last):
+    """Float64 logits of the ``last`` positions of one sequence ``tokens``
+    [S] through a dense-only LM's layers (``lm_hidden64``)."""
+    p64 = {k: v.double() for k, v in params.items()
+           if not k.startswith("mtp/")}
+    x = lm_hidden64(p64, cfg, tokens)
     return _rms64(x[-last:], p64["final_ln"]) @ p64["unembed"]
 
 
@@ -6142,6 +6204,358 @@ def run_phase_u(device, u1=None, u2=None, smoke=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase V: LM training
+# ---------------------------------------------------------------------------
+def v_batch(cfg, seq, seed, device, batch=1):
+    """``synthetic.lm_batch`` of ``batch`` x ``seq`` from
+    ``default_rng(seed)``, on ``device``."""
+    return {"tokens": torch.as_tensor(synthetic.lm_batch(
+        np.random.default_rng(seed), batch, seq, cfg.vocab)["tokens"],
+        device=device)}
+
+
+def v1_layers(cfg=qwen3_14b.CONFIG, seq=V_SEQ, target=V1_PEAK_TARGET):
+    """The most layers of ``cfg`` whose train step at one sequence
+    ``launch/train.lm_train_bytes`` puts under ``target``."""
+    ocfg = launch_cells.opt_cfg("lm", cfg)
+    for n in range(cfg.n_layers, 0, -1):
+        c = dataclasses.replace(cfg, n_layers=n)
+        if launch_train.step_peak(launch_train.lm_train_bytes(
+                c, ocfg, 1, seq)) <= target:
+            return n
+    raise SystemExit(f"{cfg.name}: not one layer fits {target} B")
+
+
+def normwise(got, want) -> float:
+    """||got - want|| / ||want|| in float64 (||got - want|| when want is
+    zero), 2^26 elements at a time."""
+    d2 = n2 = 0.0
+    for a, b in zip(got.reshape(-1).split(1 << 26),
+                    want.reshape(-1).split(1 << 26)):
+        b = b.double()
+        d2 += (a.double() - b).square().sum().item()
+        n2 += b.square().sum().item()
+    return math.sqrt(d2 / n2) if n2 else math.sqrt(d2)
+
+
+def v_xent_check(tag, cfg, params, tokens):
+    """The chunked CE (S - 1 positions padded to the chunk) against one
+    projection of the same hidden states -> relative difference."""
+    with torch.no_grad():
+        h, _ = lm.lm_backbone(params, cfg, tokens)
+        chunked = lm._chunked_xent(params, cfg, h[:, :-1], tokens[:, 1:])
+        whole = lm._chunked_xent(params, dataclasses.replace(
+            cfg, loss_chunk=0), h[:, :-1], tokens[:, 1:])
+    rel = abs(chunked.item() - whole.item()) / abs(whole.item())
+    if not rel <= V_XENT_TOL:
+        fail(f"[{tag}] the chunked CE {chunked.item()} is {rel} from one "
+             f"projection's {whole.item()} (limit {V_XENT_TOL})")
+    return {"positions": tokens.shape[1] - 1, "chunk": cfg.loss_chunk,
+            "chunked": chunked.item(), "whole": whole.item(), "rel": rel}
+
+
+def kernel_classes_ms(prof) -> dict:
+    """A trace's device ms by kind of kernel: GEMMs (cuBLAS, CUTLASS),
+    element-wise and copies, reductions and softmax, the rest."""
+    out = {"gemm": 0.0, "elementwise": 0.0, "reduce_softmax": 0.0,
+           "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.name.lower()
+        kind = ("gemm" if any(w in n for w in ("gemm", "nvjet", "cutlass",
+                                                "sm90_xmma", "cublas"))
+                else "elementwise" if any(w in n for w in (
+                    "elementwise", "copy", "fill", "memset", "memcpy"))
+                else "reduce_softmax" if any(w in n for w in (
+                    "reduce", "softmax", "norm"))
+                else "other")
+        out[kind] += (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def v_train(tag, cfg, device, steps=V_STEPS, seq=V_SEQ):
+    """``cfg``'s ``train_4k`` at one sequence of ``seq`` a step: weights
+    from ``lm_init`` (seed 0), the optimizer rule of
+    ``launch/cells.opt_cfg`` (the published depth's), the launcher's step
+    (``make_train_step(lm_loss_fn(cfg), rule, in_place=True)``) on
+    ``lm_batch`` tokens; a warm-up, ``steps`` timed by events and host
+    clock, one more traced, one more in its two halves (the loss and its
+    gradients; the update).  An MoE config's layers are tapped on the
+    warm-up's batch first (``moe_check`` each, and the warm-up's
+    ``moe_dropped`` their sum).  Then the chunked CE against one
+    projection on the trained weights -> metrics."""
+    ocfg = launch_cells.opt_cfg("lm", cfg)
+    u_free(device)
+    u_reset_peak(device)
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, seed=0, device=device)
+    state = train_opt.init_opt_state(params, ocfg)
+    u_sync(device)
+    m = {"config": cfg.name, "layers": cfg.n_layers,
+         "published_layers": launch_cells.published_layers(cfg),
+         "rule": ocfg.dense_rule, "table_rule": ocfg.table_rule,
+         "param_bytes": lm.param_bytes(cfg),
+         "estimate_bytes": launch_train.lm_train_bytes(cfg, ocfg, 1, seq),
+         "seq": seq, "batch": 1, "init_s": time.perf_counter() - t0}
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} of {m['published_layers']} "
+          f"layers, {m['param_bytes']} parameter bytes, rule "
+          f"{ocfg.dense_rule} (tables {ocfg.table_rule}), drawn in "
+          f"{m['init_s']:.1f} s", flush=True)
+    fn = train_step.make_train_step(train_step.lm_loss_fn(cfg), ocfg,
+                                    in_place=True)
+    batches = [v_batch(cfg, seq, 10 + i, device) for i in range(steps + 2)]
+    taps = None
+    if cfg.moe is not None:
+        taps = []
+        with torch.no_grad():
+            lm.lm_backbone(params, cfg, batches[0]["tokens"], taps=taps)
+        m["moe"] = [moe_check(params, cfg, tap, device, tag=tag, layer=i)
+                    for i, tap in enumerate(taps)]
+        tapped = torch.zeros((), dtype=torch.float32, device=device)
+        for _, _, d in taps:
+            tapped = tapped + d
+        del taps
+    step, losses, gnorms, host, ev = 0, [], [], [], []
+    for i in range(steps + 1):
+        (params, state, step, metrics), h_ms, e_ms = u_timed(
+            lambda: fn(params, state, step, batches[i]), device)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+        if i:
+            host.append(h_ms)
+            ev.append(e_ms)
+        elif cfg.moe is not None:
+            m["moe_dropped"] = metrics["moe_dropped"].item()
+            if m["moe_dropped"] != tapped.item():
+                fail(f"[{tag}] the step's moe_dropped {m['moe_dropped']} is "
+                     f"not its layers' {tapped.item()}")
+    with request_profiler(device) as prof:
+        (params, state, step, metrics), wall, _ = u_timed(
+            lambda: fn(params, state, step, batches[-1]), device)
+    losses.append(metrics["loss"].item())
+    gnorms.append(metrics["grad_norm"].item())
+    # one more step in its two halves: the loss and its gradients, then
+    # the in-place update
+    (_, _, grads), fb_host, fb_ev = u_timed(
+        lambda: train_step._value_and_grad(
+            train_step.lm_loss_fn(cfg), params, batches[0],
+            layer_leaves=lm.is_stacked), device)
+    gn, up_host, up_ev = u_timed(lambda: train_opt.apply_updates_(
+        params, grads, state, ocfg, step + 1), device)
+    gnorms.append(gn.item())
+    del grads
+    if not np.isfinite(losses + gnorms).all():
+        fail(f"[{tag}] a loss or grad_norm is not finite: {losses} {gnorms}")
+    busy, _ = device_busy_ms(prof)
+    ms = u_median(ev) or u_median(host)
+    m.update(steps=steps, step_host_ms=host, step_event_ms=ev,
+             step_ms_median=ms, tokens_per_s=seq / (ms / 1e3),
+             loss=losses, grad_norm=gnorms, peak_bytes=max_memory(device),
+             split_step_ms={"loss_and_grads": fb_ev or fb_host,
+                            "update": up_ev or up_host},
+             traced_step={"host_ms": wall, "device_busy_ms": busy,
+                          "busy_share": busy / wall if wall else None,
+                          "kernels_by_kind_ms": kernel_classes_ms(prof),
+                          "top_kernels_ms": kernels_by_device_ms(prof)})
+    del prof, state, metrics
+    u_free(device)
+    m["xent_chunks"] = v_xent_check(tag, cfg, params, batches[0]["tokens"])
+    del params
+    u_free(device)
+    return m
+
+
+def xent64(logits, targets):
+    return (torch.logsumexp(logits, -1)
+            - logits.gather(-1, targets.long()[:, None])[:, 0]).mean()
+
+
+def lm_loss64(p64, cfg, tokens):
+    """``lm.lm_loss`` of one sequence ``tokens`` [S] through a dense-only
+    LM in float64, plainly (``lm_hidden64``, every position's logits at
+    once; MTP's block through ``layer64``)."""
+    h = lm_hidden64(p64, cfg, tokens)
+    loss = xent64(_rms64(h[:-1], p64["final_ln"]) @ p64["unembed"],
+                  tokens[1:])
+    if cfg.mtp_depth:
+        p = cm.sub(p64, "mtp")
+        x = torch.cat([_rms64(h[:-1], p["ln_h"]),
+                       _rms64(p64["embed"][tokens[1:].long()], p["ln_e"])],
+                      -1) @ p["proj"]
+        x = layer64(cm.sub(p, "block"), cfg, x,
+                    torch.arange(len(tokens) - 1, device=tokens.device))
+        x = _rms64(x, p["final_ln"])
+        loss = loss + 0.3 * xent64(x[:-1] @ p64["unembed"], tokens[2:])
+    return loss
+
+
+def v_checks(tag, cfg, device, seq=V_CHECK_SEQ, layers=V_CHECK_LAYERS):
+    """``cfg`` cut to ``layers`` dense layers (MTP kept) in float32, seed
+    1, one sequence of ``seq`` (the loss over chunks, the last padded):
+    the loss and gradients with remat against without (the loss the same
+    bits, each leaf within ``V_REMAT_TOL`` normwise), then against
+    float64 (``lm_loss64`` differentiated; the loss within
+    ``V_F64_LOSS_TOL``, each leaf within ``V_F64_GRAD_TOL`` normwise)."""
+    c32 = dataclasses.replace(cfg, n_layers=layers, dtype="float32",
+                              remat=True,
+                              n_dense_layers=layers if cfg.moe else 0)
+    u_free(device)
+    params = lm.lm_init(c32, seed=1, device=device)
+    batch = v_batch(c32, seq, 3, device)
+    loss_r, _, grads = train_step._value_and_grad(
+        train_step.lm_loss_fn(c32), params, batch)
+    loss_n, _, grads_n = train_step._value_and_grad(
+        train_step.lm_loss_fn(dataclasses.replace(c32, remat=False)),
+        params, batch)
+    remat = {k: normwise(grads_n[k], g) for k, g in grads.items()}
+    del grads_n
+    out = {"layers": layers, "seq": seq, "loss_remat": loss_r.item(),
+           "loss_no_remat": loss_n.item(),
+           "remat_grad_max": max(remat.values())}
+    if loss_r.item() != loss_n.item() or not out["remat_grad_max"] \
+            <= V_REMAT_TOL:
+        fail(f"[{tag}] remat changes the loss ({loss_r.item()} against "
+             f"{loss_n.item()}) or a gradient by {out['remat_grad_max']} "
+             f"(limit {V_REMAT_TOL})")
+    grads = {k: g.cpu() for k, g in grads.items()}
+    p64 = {}
+    for k in list(params):
+        p64[k] = params.pop(k).double().requires_grad_()
+    u_free(device)
+    loss64 = lm_loss64(p64, c32, batch["tokens"][0])
+    g64 = dict(zip(p64, torch.autograd.grad(loss64, list(p64.values()))))
+    del p64
+    u_free(device)
+    errs = {k: normwise(grads[k].to(device), g) for k, g in g64.items()}
+    del g64
+    worst = max(errs, key=errs.get)
+    out.update(loss_f64=loss64.item(),
+               loss_rel=abs(loss_r.item() - loss64.item())
+               / abs(loss64.item()),
+               grad_normwise_max=errs[worst], grad_worst_leaf=worst,
+               grad_normwise=errs)
+    u_free(device)
+    if not out["loss_rel"] <= V_F64_LOSS_TOL \
+            or not errs[worst] <= V_F64_GRAD_TOL:
+        fail(f"[{tag}] float32 training is {out['loss_rel']} (loss; limit "
+             f"{V_F64_LOSS_TOL}) and {errs[worst]} ({worst}, normwise; "
+             f"limit {V_F64_GRAD_TOL}) from float64")
+    return out
+
+
+def v4_compare(arch, dtype, device, accum, seed=7):
+    """One step of the launcher's LM step (in place, a layer's leaves at
+    a time) of an LM arch's SMOKE at ``dtype`` (the rule of ``launch/cells.opt_cfg``) on
+    ``device`` and on the CPU from the same parameters (``lm_init`` seed
+    ``seed``) and batch (the reduced ``train_4k``: 2 x 16) -> the loss's
+    and grad_norm's relative difference and each parameter's and state's
+    max |difference| / max |CPU value| (an Adam element whose first step
+    is a sign, sqrt(v-hat) < ``V4_ADAM_SENSITIVE`` on the CPU, held to
+    lr instead)."""
+    cfg = dataclasses.replace(registry.LM_ARCHS[arch].SMOKE, dtype=dtype)
+    ocfg = launch_cells.opt_cfg("lm", cfg)
+    cpu = torch.device("cpu")
+    params = lm.lm_init(cfg, seed=seed, device=cpu)
+    cell = registry.reduce_cell(registry.cell_by_name("train_4k", "lm"))
+    tokens = v_batch(cfg, cell.dims["seq"], seed, cpu,
+                     batch=cell.dims["batch"])["tokens"]
+    runs = []
+    for dev in (cpu, device):
+        p = {k: v.to(dev).clone() for k, v in params.items()}
+        st = train_opt.init_opt_state(p, ocfg)
+        fn = train_step.make_train_step(train_step.lm_loss_fn(cfg), ocfg,
+                                        accum_steps=accum, in_place=True)
+        p, st, _, metrics = fn(p, st, 0, {"tokens": tokens.to(dev)})
+        runs.append(({k: v.float().cpu() for k, v in p.items()},
+                     {f"{k}/{n}": t.float().cpu() for k, e in st.items()
+                      for n, t in e.items()},
+                     {k: metrics[k].item() for k in ("loss", "grad_norm")}))
+    (pc, sc, mc), (pg, sg, mg) = runs
+
+    def rel(a, b, loose=None):
+        d = (a - b).abs()
+        if loose is not None:
+            d = torch.where(loose, (d - ocfg.lr).clamp(min=0), d)
+        return (d.max() / b.abs().max().clamp(min=1e-30)).item()
+    err = {"loss": abs(mg["loss"] - mc["loss"]) / abs(mc["loss"]),
+           "grad_norm": abs(mg["grad_norm"] - mc["grad_norm"])
+           / mc["grad_norm"]}
+    leaves = {}
+    for k in pc:
+        loose = None
+        if f"{k}/v" in sc and f"{k}/m" in sc:            # an Adam leaf
+            vhat = sc[f"{k}/v"] / (1 - ocfg.b2)
+            loose = (vhat.sqrt() < V4_ADAM_SENSITIVE) \
+                | (sc[f"{k}/m"].sign() != sg[f"{k}/m"].sign())
+        leaves[k] = rel(pg[k], pc[k], loose)
+    for k in sc:                 # second moments in the gradient's units
+        root = k.rsplit("/", 1)[1] in ("v", "vr", "vc", "acc")
+        leaves[k] = rel(sg[k].sqrt(), sc[k].sqrt()) if root \
+            else rel(sg[k], sc[k])
+    worst = max(leaves, key=leaves.get)
+    err.update(params_state=leaves[worst], worst_leaf=worst,
+               finite=all(math.isfinite(x) for x in (*mg.values(),
+                                                       *mc.values())))
+    return err
+
+
+def run_phase_v(device, v1=None, v2=None, v3=None, seq=V_SEQ, steps=V_STEPS,
+                check_seq=V_CHECK_SEQ):
+    """V.1 qwen3-14b at published width cut to ``v1_layers``, V.2
+    deepseek-v3-671b's ``V2_LAYERS`` dense layers and its MTP block, V.3
+    qwen3-moe's first ``V3_LAYERS`` MoE layers, each trained at one
+    sequence of ``seq`` (``v_train``); V.1's and V.2's width checked at
+    ``V_CHECK_LAYERS`` layers (``v_checks``); V.4 the five SMOKE configs,
+    a step and a step of two microbatches, card against CPU -> metrics.
+    ``v1`` / ``v2`` / ``v3`` (and ``seq``, ``steps``, ``check_seq``)
+    replace them to rehearse on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    out = {}
+    cells = [("V.1", v1 or dataclasses.replace(
+                 qwen3_14b.CONFIG, n_layers=v1_layers()), True),
+             ("V.2", v2 or dataclasses.replace(
+                 deepseek_v3_671b.CONFIG, n_layers=V2_LAYERS), True),
+             ("V.3", v3 or dataclasses.replace(
+                 qwen3_moe_235b.CONFIG, n_layers=V3_LAYERS), False)]
+    for tag, cfg, check in cells:
+        t0 = time.perf_counter()
+        m = v_train(tag, cfg, device, steps=steps, seq=seq)
+        print(f"[{tag}] " + json.dumps(m), flush=True)
+        if m["peak_bytes"] is not None and m["peak_bytes"] >= U_PEAK_BYTES:
+            fail(f"[{tag}] the card's peak {m['peak_bytes']} B is over "
+                 f"{U_PEAK_BYTES}")
+        if check:
+            m["checks"] = v_checks(tag, cfg, device, seq=check_seq)
+        m["seconds"] = time.perf_counter() - t0
+        print(f"[{tag}] took {m['seconds']:.1f} s", flush=True)
+        if check:
+            c = dict(m["checks"])
+            c.pop("grad_normwise")
+            print(f"[{tag}] checks " + json.dumps(c), flush=True)
+        out[tag] = m
+    t0 = time.perf_counter()
+    v4 = {}
+    for arch in registry.LM_ARCHS:
+        for dtype, tol in (("float32", V4_F32_TOL),
+                           ("bfloat16", V4_BF16_TOL)):
+            for accum in (1, 2):
+                r = v4_compare(arch, dtype, device, accum)
+                v4[f"{arch}/{dtype}/accum{accum}"] = r
+                worst = max(r["loss"], r["grad_norm"], r["params_state"])
+                if not r["finite"] or not worst <= tol:
+                    fail(f"[V.4] {arch} {dtype} accum {accum} on the card "
+                         f"is {worst} from the CPU (limit {tol}): {r}")
+    v4["seconds"] = time.perf_counter() - t0
+    print("[V.4] " + json.dumps(v4), flush=True)
+    out["V.4"] = v4
+    return out
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -6246,7 +6660,9 @@ def main() -> int:
           f"time limit; phase T came after it)")
     print(f"reduced: phase O keys {CONFIG.n_items}->{O_KEYS}, embedding rows "
           f"{CONFIG.n_items}->{O_EMB_ROWS}: each ClusterSim builds its own "
-          f"engine, and the host builder took 60.3 s at 4M keys")
+          f"engine, and the host builder took 60.3 s at 4M keys; 2^20 keys "
+          f"took 130 s of builds in all on a slow host, with phase V the "
+          f"script's time limit")
     zero(nl.launches, nl.lanes_launches)
     t_o = time.perf_counter()
     with LaunchLog() as log_o:
@@ -6592,6 +7008,32 @@ def main() -> int:
     if any(u_counts.values()):
         fail(f"phase U launched a kernel: {u_counts}")
     del m_u
+
+    # V: LM training, qwen3-14b, deepseek-v3's dense layers and MTP,
+    # qwen3-moe's MoE layers at published width; no kernel of the four
+    n_v1 = v1_layers()
+    print(f"reduced: V train_4k batch 256->1, {V_STEPS} timed steps (the "
+          f"script's time limit)")
+    whole = launch_train.step_peak(launch_train.lm_train_bytes(
+        qwen3_14b.CONFIG, launch_cells.opt_cfg("lm", qwen3_14b.CONFIG), 1,
+        V_SEQ))
+    print(f"reduced: V.1 qwen3-14b layers 40->{n_v1} (the most whose step "
+          f"launch/train.lm_train_bytes puts under {V1_PEAK_TARGET} B; "
+          f"whole, it puts the step at {whole} B)")
+    print(f"reduced: V.2 deepseek-v3-671b layers 61->{V2_LAYERS} (its dense "
+          f"layers and the MTP block; one MoE layer of 256 experts is "
+          f"11.3B parameters, ~68 GB trained)")
+    print(f"reduced: V.3 qwen3-moe-235b-a22b layers 94->{V3_LAYERS} (MoE)")
+    u_free(device)
+    zero(nl.launches, fm.launches, bagk.launches, segk.launches)
+    t_v = time.perf_counter()
+    m_v = run_phase_v(device)
+    v_counts = kernel_counts()
+    print(f"[V] took {time.perf_counter() - t_v:.1f} s; launches "
+          + json.dumps(v_counts), flush=True)
+    if any(v_counts.values()):
+        fail(f"phase V launched a kernel: {v_counts}")
+    del m_v
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,9 @@
-"""Synthetic recsys batches and graphs: a copy of the JAX package's
-``data/synthetic.py`` (``zipf_ids``, ``recsys_batch``, ``random_graph``,
-``molecule_batch``).  numpy only, so the same seed gives the same batch in
-both packages.
+"""Synthetic recsys and LM batches and graphs: a copy of the JAX package's
+``data/synthetic.py`` (``zipf_ids``, ``lm_batch``, ``recsys_batch``,
+``random_graph``, ``molecule_batch``).  numpy only, so the same seed gives
+the same batch in both packages.
+
+LM tokens are uniform (content does not matter for systems work).
 
 Recsys ids are zipfian (hot/cold skew drives the hybrid store and table
 sharding); behaviour sequences have ragged lengths (-1 padding exercises
@@ -19,6 +21,12 @@ def zipf_ids(rng: np.random.Generator, vocab: int, size, a: float = 1.1
     """Zipfian ids in [0, vocab) — heavy head, long tail."""
     raw = rng.zipf(a, size=size)
     return ((raw - 1) % vocab).astype(np.int32)
+
+
+def lm_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int
+             ) -> dict:
+    """``{"tokens": [batch, seq] int32}`` uniform in [0, vocab)."""
+    return {"tokens": rng.integers(0, vocab, (batch, seq), dtype=np.int32)}
 
 
 def recsys_batch(rng: np.random.Generator, cfg, batch: int) -> dict:

@@ -8,7 +8,10 @@ order (dict keys sorted): integers uniform in [0, int_high or 8), floats
 from N(0, scale).  The draws are the JAX package's bit for bit, and so is
 the cast: a float leaf is rounded to fp32 first and then to its dtype, as
 ``jnp.asarray`` rounds a float64 array (``tests/test_torch_lm.py``).
-Leaves come back as CPU tensors, or on ``device``.
+Leaves come back as CPU tensors, or on ``device``.  ``nested`` and
+``at`` turn the port's path-keyed dicts (``dense_layers/attn/wq``) into
+the JAX package's nested trees and back, so that a parameter dict or an
+optimizer state draws in the JAX package's leaf order.
 """
 from __future__ import annotations
 
@@ -61,3 +64,24 @@ def materialize(tree, seed: int = 0, scale: float = 0.02,
         t = draw_leaf(rng, leaf, scale, int_high)
         drawn[path] = t if device is None else t.to(device)
     return _rebuild(tree, drawn)
+
+
+def nested(flat_dict: dict) -> dict:
+    """``{"a/b": x, "a/c": y}`` -> ``{"a": {"b": x, "c": y}}``; a value that
+    is itself a dict (an optimizer state's ``{name: tensor}``) nests
+    below its path."""
+    out: dict = {}
+    for path, v in flat_dict.items():
+        *head, last = path.split("/")
+        node = out
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = v
+    return out
+
+
+def at(tree: dict, path: str):
+    """The node of a ``nested`` tree at ``path`` (``"a/b"``)."""
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree

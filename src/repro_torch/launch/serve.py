@@ -12,8 +12,8 @@
         [--smoke] [--requests 20] [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-14b|deepseek-7b|nemotron-4-340b|deepseek-v3-671b|\
-qwen3-moe-235b-a22b [--shape decode_32k|prefill_32k|long_500k] [--smoke] \
-        [--requests 20] [--batch SEQUENCES] [--device cuda|cpu]
+qwen3-moe-235b-a22b [--shape decode_32k|prefill_32k|long_500k|train_4k] \
+        [--smoke] [--requests 20] [--batch SEQUENCES] [--device cuda|cpu]
 
 Builds the model at its published width (the arch's ``CONFIG`` in
 ``configs/``; ``--smoke`` takes ``SMOKE`` and the cell at
@@ -72,8 +72,23 @@ working set in bytes (``lm_bytes``); on the card it exits if they pass
 the free memory, naming them and the largest ``--batch`` that fits.  On
 the card bf16 products accumulate in fp32
 (``allow_bf16_reduced_precision_reduction`` off), as XLA's do.
-``train_4k`` exits: LM training is not ported yet.  It prints the request
-p50 and p99 and tokens a second.
+``train_4k`` runs the train step as its requests, as the JAX launcher
+does: each request one step of ``make_train_step(lm_loss_fn(cfg),
+cells.opt_cfg("lm", cfg))`` (the functional update: every request starts
+from the same parameters, the train launcher's ``lm_params``: the JAX
+launcher's ``materialize`` from seed 0, or ``lm_init`` seed 0 on the
+device for a larger model) on its optimizer state,
+step and tokens, ``materialize``'d with seed ``i + 1`` as the JAX cell
+builder shapes them (tokens in [0, 8)); an optimizer state of more than
+``HOST_DRAW_ELEMENTS`` values is drawn N(0, 0.02) on the device from a
+generator seeded ``i + 1`` there, its step and tokens then from
+``np.random.default_rng(i + 1)`` alone.  The answer waited for is the
+step's loss; the drawn state holds negative second moments, so the
+updated parameters may not be finite (as the JAX launcher's), and only
+the loss is checked.  On the card it exits when the step's bytes
+(``launch/train.lm_train_bytes`` and a second copy of the parameters and
+state) pass the free memory.  It prints the request p50 and p99 and
+tokens a second.
 
 ``--feature-server`` serves the feature lookups through the ported
 ``QueryServer``, as the JAX launcher's feature-server mode does: over the
@@ -110,6 +125,8 @@ from repro_torch.core.engine import (EmbeddingTable, MultiTableEngine,
                                      ScalarTable)
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops
+from repro_torch.launch import cells
+from repro_torch.launch import materialize as mat
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.materialize import materialize
 from repro_torch.models import common as cm
@@ -120,6 +137,7 @@ from repro_torch.serve import serve_step
 from repro_torch.serve.scheduler import BatchPolicy, ShedError
 from repro_torch.serve.server import QueryServer
 from repro_torch.train import optimizer as opt
+from repro_torch.train import train_step as ts
 
 FEATURE_FIELDS = (("item_feats", "item_id"), ("item_pop", "item_id"))
 TOP_K = 100
@@ -410,6 +428,97 @@ def lm_request(cfg, cell: registry.Cell, batch: int, seed: int, device):
             _device_caches(specs[2], seed, device))
 
 
+def lm_train_request_specs(cfg, ocfg: opt.OptConfig, cell: registry.Cell,
+                           batch: int) -> tuple:
+    """A train cell's request as the JAX cell builder shapes it: (the
+    optimizer state as the JAX package's nested tree, the step, ``{tokens:
+    [B, S]}``)."""
+    meta = {k: torch.empty(sp.shape, dtype=sp.dtype or cfg.torch_dtype,
+                           device="meta")
+            for k, sp in lm.param_specs(cfg).items()}
+    state = {k: {n: cm.ShapeDtype(tuple(t.shape), t.dtype)
+                 for n, t in st.items()}
+             for k, st in opt.init_opt_state(meta, ocfg).items()}
+    return (mat.nested(state), cm.ShapeDtype((), torch.int32),
+            {"tokens": cm.ShapeDtype((batch, cell.dims["seq"]),
+                                     torch.int32)})
+
+
+def lm_train_request(cfg, ocfg: opt.OptConfig, cell: registry.Cell,
+                     batch: int, seed: int, device) -> tuple:
+    """Request ``seed`` of a train cell on ``device`` -> (optimizer state
+    ``{path: {name: tensor}}``, step, batch) (module docstring)."""
+    state_specs, step_spec, batch_spec = lm_train_request_specs(
+        cfg, ocfg, cell, batch)
+    paths = list(lm.param_specs(cfg))
+    n = sum(math.prod(sd.shape) for k in paths
+            for sd in mat.at(state_specs, k).values())
+    if n <= HOST_DRAW_ELEMENTS:
+        tree, step, b = materialize((state_specs, step_spec, batch_spec),
+                                    seed=seed, device=device)
+        state = {k: mat.at(tree, k) for k in paths}
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        state = {k: {name: torch.randn(sd.shape, generator=gen,
+                                       device=device, dtype=sd.dtype)
+                     .mul_(0.02)
+                     for name, sd in mat.at(state_specs, k).items()}
+                 for k in paths}
+        step, b = materialize((step_spec, batch_spec), seed=seed,
+                              device=device)
+    return state, int(step), b
+
+
+def serve_lm_train(cfg, cell: registry.Cell, b: int, requests: int,
+                   device) -> dict:
+    """``requests`` train steps of the cell ``train_4k`` (module
+    docstring)."""
+    ocfg = cells.opt_cfg("lm", cfg)
+    if device.type == "cuda":
+        need = launch_train.lm_train_bytes(cfg, ocfg, b, cell.dims["seq"])
+        total = launch_train.step_peak(need) + need["params"] \
+            + need["opt_state"]                  # the functional update's
+        free = torch.cuda.mem_get_info(device)[0]
+        if total > free:
+            raise SystemExit(
+                f"{cfg.name}/{cell.name} at --batch {b} needs {total} B "
+                f"({need}, and a second copy of the parameters and state) "
+                f"and the card has {free} B free")
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    params, _ = launch_train.lm_params(cfg, device)
+    step_fn = ts.make_train_step(ts.lm_loss_fn(cfg), ocfg)
+
+    def answer(req):
+        state, step, batch = req
+        return float(step_fn(params, state, step, batch)[3]["loss"])
+
+    answer(lm_train_request(cfg, ocfg, cell, b, 0, device))   # warm-up
+    lat, losses = [], []
+    for i in range(requests):
+        req = lm_train_request(cfg, ocfg, cell, b, i + 1, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        losses.append(answer(req))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        del req
+    tokens = b * cell.dims["seq"]
+    res = {"arch": cfg.name, "shape": cell.name, "device": str(device),
+           "batch": b, "seq": cell.dims["seq"], "requests": requests,
+           "rule": ocfg.dense_rule, "losses": losses,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "tokens_per_s": tokens * len(lat) / (sum(lat) / 1e3),
+           "finite": bool(np.isfinite(losses).all())}
+    print(f"{cfg.name}/{cell.name}: {requests} requests (a train step "
+          f"each, {ocfg.dense_rule}) of {b} x {cell.dims['seq']} on "
+          f"{device}, p50={res['p50_ms']:.2f}ms p99={res['p99_ms']:.2f}ms "
+          f"tokens/s={res['tokens_per_s']:.0f}")
+    return res
+
+
 def serve_lm(arch: str, shape: str, *, smoke: bool, requests: int,
              batch, device) -> dict:
     """``requests`` requests of the LM cell ``shape`` (module docstring):
@@ -419,10 +528,9 @@ def serve_lm(arch: str, shape: str, *, smoke: bool, requests: int,
     cell = registry.cell_by_name(shape, "lm")
     if smoke:
         cell = registry.reduce_cell(cell)
-    if cell.kind == "train":
-        raise SystemExit(f"--shape {cell.name}: " + rec.NOT_PORTED.format(
-            arch=f"{arch}/{cell.name}"))
     b = cell.dims["batch"] if batch is None else batch
+    if cell.kind == "train":
+        return serve_lm_train(cfg, cell, b, requests, device)
     if device.type == "cuda":
         need = lm_bytes(cfg, cell, b)
         free = torch.cuda.mem_get_info(device)[0]

@@ -8,15 +8,24 @@ Parameters are one flat dict keyed by the JAX package's paths, a stack of
 layers as ``[L, ...]`` tensors (``dense_layers/attn/wq``,
 ``moe_layers/moe/w_gate``, ``mtp/block/ffn/w_up``), in ``jax.tree_util``'s
 leaf order; ``core/convert.lm_from_reference`` carries the JAX package's
-tree across.  The layers run one at a time over views of the stacks.
+tree across.  The layers run one at a time over views of the stacks, each
+stack unbound once a forward (``layers``), so that autograd holds one node
+a stack: its backward stacks the layers' gradients once, where a view a
+layer (``v[i]``) would add a zero tensor of the whole stack a layer.  The
+LM train step goes further (``train_step.make_train_step``'s
+``in_place``): it passes each stack as a list of its layers, each a
+leaf of its own, so that no gradient of a whole stack is ever made.
 
-This module serves: ``lm_backbone`` and ``lm_logits`` (prefill),
-``lm_prefill`` (prefill writing the decode caches), ``lm_decode_step``
-(decode, caches updated in place) and the caches' shapes
-(``decode_cache_specs``, ``make_decode_caches``).  ``lm_loss``,
-``_chunked_xent`` and ``_mtp_loss`` come with LM training (ROADMAP queue
-1, item 15); ``lm_init`` makes the ``mtp`` parameters all the same, so a
-model converts whole.
+Serving: ``lm_backbone`` and ``lm_logits`` (prefill), ``lm_prefill``
+(prefill writing the decode caches), ``lm_decode_step`` (decode, caches
+updated in place) and the caches' shapes (``decode_cache_specs``,
+``make_decode_caches``).  Training: ``lm_loss`` (next-token cross
+entropy over sequence chunks, ``_chunked_xent``; the MoE's aux loss;
+DeepSeek-V3's multi-token prediction, ``_mtp_loss``), differentiated by
+``train/train_step.py``.  With ``cfg.remat`` each layer of a
+differentiated forward runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint``): only its input is kept, and its
+activations are recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -152,8 +162,24 @@ def layer_view(params: dict, key: str, i: int) -> dict:
     return {k: v[i] for k, v in cm.sub(params, key).items()}
 
 
+def layers(params: dict, key: str) -> list:
+    """The stack ``key`` as one dict of views a layer, each stack leaf
+    unbound once (one autograd node a leaf).  A stack given as a list of
+    its layers (``is_stacked``: the train step's leaves a layer at a
+    time) is taken as it is."""
+    per_leaf = {k: v if isinstance(v, (list, tuple)) else torch.unbind(v)
+                for k, v in cm.sub(params, key).items()}
+    return [{k: v[i] for k, v in per_leaf.items()}
+            for i in range(n_stacked(params, key))]
+
+
+def is_stacked(path: str) -> bool:
+    """True for a leaf of a layer stack (``[L, ...]``)."""
+    return path.split("/", 1)[0] in ("dense_layers", "moe_layers")
+
+
 def n_stacked(params: dict, key: str) -> int:
-    return next(v.shape[0] for k, v in params.items()
+    return next(len(v) for k, v in params.items()
                 if k.startswith(key + "/"))
 
 
@@ -197,7 +223,7 @@ def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor, use_moe: bool,
 
 
 # ---------------------------------------------------------------------------
-# serving: prefill + decode
+# forward: prefill, training
 # ---------------------------------------------------------------------------
 def lm_backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
                 caches: Optional[dict] = None,
@@ -205,17 +231,23 @@ def lm_backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     """tokens [B, S] -> (hidden [B, S, d] before the final norm, (aux,
     dropped) summed over the MoE layers).  With ``caches`` (the decode
     caches, ``make_decode_caches``, at least S long) every layer's cache
-    is written into ``[:, :, :S]`` of its stack."""
+    is written into ``[:, :, :S]`` of its stack.  Under autograd with
+    ``cfg.remat`` every layer is checkpointed (module docstring); ``taps``
+    then stays empty (a recomputed layer would tap twice)."""
     x = params["embed"][tokens.long()]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     s = tokens.shape[1]
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for kind, key in STACKS:
         if key + "/ln1" not in params:
             continue
-        for i in range(n_stacked(params, key)):
-            p = layer_view(params, key, i)
-            if caches is None:
+        for i, p in enumerate(layers(params, key)):
+            if remat:
+                x, (a, d) = checkpoint(_layer_apply, p, cfg, x,
+                                       kind == "moe", use_reentrant=False,
+                                       preserve_rng_state=False)
+            elif caches is None:
                 x, (a, d) = _layer_apply(p, cfg, x, kind == "moe",
                                          taps=taps)
             else:
@@ -231,6 +263,86 @@ def lm_logits(params: dict, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
     return cm.rms_norm(h, params["final_ln"]) @ params["unembed"]
 
 
+def _chunk_nll(project, hx, tx, mx):
+    """One chunk's masked NLL sum: its masked mean times its mask's sum."""
+    return cm.softmax_xent(project(hx), tx, mx) * mx.sum()
+
+
+def _chunked_xent(params: dict, cfg: LMConfig, h: torch.Tensor,
+                  targets: torch.Tensor, project=None) -> torch.Tensor:
+    """Cross entropy of ``targets`` [B, S] under ``project(h)`` (default
+    ``lm_logits``) over sequence chunks of ``cfg.loss_chunk``: one [B, C,
+    V] logits chunk is the only vocabulary-sized tensor alive, and each is
+    recomputed in the backward (checkpointed, as the reference's
+    ``jax.checkpoint``).  S is padded to a multiple of the chunk and the
+    padding masked; the chunks' masked NLL sums add in order and the total
+    is divided by B * S (S before the padding).  ``S <= loss_chunk`` (or a
+    chunk of 0) takes the mean over one projection."""
+    if project is None:
+        def project(hx):
+            return lm_logits(params, cfg, hx)
+    b, s, _ = h.shape
+    chunk = cfg.loss_chunk
+    if chunk <= 0 or s <= chunk:
+        return cm.softmax_xent(project(h), targets)
+    pad = (-s) % chunk
+    mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, s + pad, chunk):
+        part = slice(start, start + chunk)
+        args = (project, h[:, part], targets[:, part], mask[:, part])
+        tot = tot + (checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+                     if torch.is_grad_enabled() else _chunk_nll(*args))
+    return tot / (b * s)
+
+
+def lm_loss(params: dict, cfg: LMConfig, batch: dict):
+    """batch ``{"tokens": [B, S] int}``; the targets are the tokens one
+    position on -> (loss, metrics): ``xent``, ``moe_aux`` and
+    ``moe_dropped`` (summed over the MoE layers), ``mtp`` where the config
+    predicts two tokens, and ``loss`` = xent + ``aux_weight`` x aux (an
+    MoE config) + 0.3 x mtp, as the reference."""
+    tokens = batch["tokens"]
+    h, (aux, dropped) = lm_backbone(params, cfg, tokens)
+    loss = _chunked_xent(params, cfg, h[:, :-1], tokens[:, 1:])
+    metrics = {"xent": loss, "moe_aux": aux, "moe_dropped": dropped}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_weight * aux
+    if cfg.mtp_depth:
+        mtp = _mtp_loss(params, cfg, tokens, h)
+        metrics["mtp"] = mtp
+        loss = loss + 0.3 * mtp
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+              h: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction (depth 1): hidden state t
+    (normed) beside the embedding of token t + 1 (normed), projected, one
+    more dense block (not checkpointed, as in the reference), the final
+    norm, then the shared unembedding predicts token t + 2, chunked like
+    the main loss."""
+    p = cm.sub(params, "mtp")
+    emb_next = params["embed"][tokens[:, 1:].long()]
+    hh = cm.rms_norm(h[:, :-1], p["ln_h"])
+    ee = cm.rms_norm(emb_next, p["ln_e"])
+    x = torch.cat([hh, ee], dim=-1) @ p["proj"]
+    del hh, ee, emb_next
+    x, _ = _layer_apply(cm.sub(p, "block"), cfg, x, use_moe=False)
+    x = cm.rms_norm(x, p["final_ln"])
+    return _chunked_xent(params, cfg, x[:, :-1], tokens[:, 2:],
+                         project=lambda hx: hx @ params["unembed"])
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
 def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
                cache_len: int):
     """Prefill that leaves the decode caches behind: tokens [B, S] ->
@@ -270,10 +382,9 @@ def lm_decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
     for kind, key in STACKS:
         if kind not in caches:
             continue
-        for i in range(n_stacked(params, key)):
+        for i, p in enumerate(layers(params, key)):
             view = {name: t[i] for name, t in caches[kind].items()}
-            x, _ = _layer_decode(layer_view(params, key, i), cfg, x, view,
-                                 pos, kind == "moe")
+            x, _ = _layer_decode(p, cfg, x, view, pos, kind == "moe")
     return lm_logits(params, cfg, x)[:, 0], caches
 
 

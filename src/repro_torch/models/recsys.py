@@ -64,11 +64,10 @@ from repro_torch.models import common as cm
 from repro_torch.models import embedding_service as es
 
 NOT_PORTED = ("{arch} is not ported: the port trains and serves the four "
-              "recsys archs (din, bst, two_tower, deepfm) and "
-              "graphsage-reddit, and serves the five LM archs (prefill_32k, "
-              "decode_32k, long_500k on one device); LM training "
-              "(train_4k), the LM cell builder and dry-run, and the sharded "
-              "LM paths wait for ROADMAP queue 1, item 15")
+              "recsys archs (din, bst, two_tower, deepfm), graphsage-reddit "
+              "and the five LM archs (train_4k, prefill_32k, decode_32k, "
+              "long_500k on one device); the LM cell builder and dry-run "
+              "and the sharded LM paths wait for ROADMAP queue 1, item 15")
 
 
 @dataclasses.dataclass(frozen=True)

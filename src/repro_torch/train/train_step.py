@@ -1,5 +1,5 @@
-"""Recsys and GNN train steps, from the JAX package's
-``train/train_step.py``: loss -> gradients -> clipped update.
+"""Train steps, from the JAX package's ``train/train_step.py``: loss ->
+gradients -> clipped update.
 
 A train step maps ``(params, opt_state, step, batch)`` to ``(params',
 opt_state', step + 1, metrics)``: ``params`` a path-keyed dict of tensors,
@@ -9,18 +9,24 @@ holds ``loss`` and ``grad_norm`` as 0-dim tensors (read them with
 ``float`` where the host needs them) and, where asked, ``delta_ids``.
 
 * ``make_train_step`` differentiates the whole loss with autograd: every
-  table's gradient is dense, as JAX's is.
+  table's gradient is dense, as JAX's is.  With ``in_place`` it updates
+  the caller's parameters and state in place (``opt.apply_updates_``, a
+  block of a leaf at a time) and returns the same dicts, and a layer
+  stack's gradient is a list of its layers' (never one tensor of the
+  stack), each freed once its layer is updated: the LM launcher's step,
+  whose parameters, gradients and state fill most of the card, where one
+  contiguous gradient of a 32-layer stack (5.7 GB) did not fit the space
+  its layers' gradients left behind.
 * ``make_sparse_recsys_train_step`` gathers the rows a batch touches,
   differentiates with respect to those rows only and scatters row-wise
   Adagrad into the touched rows: into the table and its accumulator in
   place (``index_add_``), where JAX returns new arrays; so the caller's
   table tensors are the updated ones.
 
-``recsys_loss_fn`` and ``gnn_loss_fn`` are the family loss adapters that
-``make_train_step`` differentiates (GraphSAGE with ``OptConfig()``: Adam
-on every leaf, as the JAX cell builder picks for family ``gnn``).  The LM
-models serve (``models/lm.py``); their loss adapter, ``lm_loss_fn``, comes
-with LM training (ROADMAP queue 1, item 15).
+``lm_loss_fn``, ``recsys_loss_fn`` and ``gnn_loss_fn`` are the family
+loss adapters that ``make_train_step`` differentiates (GraphSAGE with
+``OptConfig()``: Adam on every leaf, as the JAX cell builder picks for
+family ``gnn``; an LM with ``launch/cells.opt_cfg``'s rule).
 """
 from __future__ import annotations
 
@@ -29,39 +35,66 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models import gnn
+from repro_torch.models import lm
 from repro_torch.models import recsys as rec
 from repro_torch.train import optimizer as opt
 
 
-def _value_and_grad(loss_fn: Callable, params: dict, *args):
+def _value_and_grad(loss_fn: Callable, params: dict, *args,
+                    layer_leaves: Optional[Callable] = None):
     """-> (loss, metrics, grads of ``loss_fn(params, *args)`` w.r.t. every
-    entry of ``params``), each gradient in its entry's dtype."""
-    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    entry of ``params``), each gradient in its entry's dtype.  An entry of
+    three or more axes whose path ``layer_leaves`` names is differentiated
+    a layer at a time: ``loss_fn`` gets it as the list of its first axis'
+    views, each a leaf, and its gradient comes back as the list of
+    theirs (a stack of vectors, a layer's norm gains, stays whole)."""
+    leaves, flat = {}, []
+    for k, v in params.items():
+        if layer_leaves is not None and layer_leaves(k) and v.dim() >= 3:
+            leaves[k] = [t.requires_grad_() for t in v.detach().unbind(0)]
+            flat.extend(leaves[k])
+        else:
+            leaves[k] = v.detach().requires_grad_()
+            flat.append(leaves[k])
     loss, metrics = loss_fn(leaves, *args)
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
-        k: torch.zeros_like(p) if g is None else g     # unused: zero, as JAX
-        for (k, p), g in zip(leaves.items(), grads)}
+    got = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+
+    def grad(p):
+        g = next(got)
+        return torch.zeros_like(p) if g is None else g  # unused: zero, as JAX
+    grads = {k: [grad(t) for t in p] if isinstance(p, list) else grad(p)
+             for k, p in leaves.items()}
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
                     accum_steps: int = 1,
-                    delta_ids_fn: Optional[Callable] = None):
+                    delta_ids_fn: Optional[Callable] = None,
+                    in_place: bool = False):
     """``loss_fn(params, batch) -> (loss, metrics)``.
 
     ``accum_steps`` > 1 splits the batch into that many microbatches along
-    its first axis and sums their gradients in order (then divides), as the
-    JAX step's ``scan`` does; ``metrics`` are the last microbatch's.
+    its first axis and sums their gradients in order into fp32 (then
+    divides), as the JAX step's ``scan`` does; ``metrics`` are the last
+    microbatch's.
+
+    ``in_place``: the update writes into ``params`` and ``opt_state``
+    (module docstring), which the step returns, and the layer stacks
+    (``lm.is_stacked``) are differentiated a layer at a time
+    (``_value_and_grad``), their gradients a list of layers through the
+    update.
 
     ``delta_ids_fn(batch) -> {table_name: ids}`` adds the embedding rows
     this step touched to ``metrics["delta_ids"]``: the per-step delta a
     driver accumulates into incremental serving publishes
     (``engine.publish_delta``)."""
 
+    layer_leaves = lm.is_stacked if in_place else None
+
     def train_step(params: dict, opt_state: dict, step: int, batch: dict):
         if accum_steps == 1:
-            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+            loss, metrics, grads = _value_and_grad(
+                loss_fn, params, batch, layer_leaves=layer_leaves)
         else:
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
@@ -71,13 +104,26 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
                 mb = {k: x.reshape((accum_steps, x.shape[0] // accum_steps)
                                    + x.shape[1:])[i]
                       for k, x in batch.items()}
-                l, metrics, g = _value_and_grad(loss_fn, params, mb)
-                grads = {k: grads[k] + g[k] for k in grads}
+                l, metrics, g = _value_and_grad(
+                    loss_fn, params, mb, layer_leaves=layer_leaves)
+                for k in grads:
+                    if isinstance(g[k], list):
+                        for acc, part in zip(grads[k], g[k]):
+                            acc += part
+                    else:
+                        grads[k] += g[k]
+                del g
                 loss = loss + l
-            grads = {k: g / accum_steps for k, g in grads.items()}
+            for g in grads.values():
+                g /= accum_steps
             loss = loss / accum_steps
-        new_params, new_state, gnorm = opt.apply_updates(
-            params, grads, opt_state, opt_cfg, step + 1)
+        if in_place:
+            gnorm = opt.apply_updates_(params, grads, opt_state, opt_cfg,
+                                       step + 1)
+            new_params, new_state = params, opt_state
+        else:
+            new_params, new_state, gnorm = opt.apply_updates(
+                params, grads, opt_state, opt_cfg, step + 1)
         metrics = dict(metrics, grad_norm=gnorm, loss=loss)
         if delta_ids_fn is not None:
             metrics["delta_ids"] = delta_ids_fn(batch)
@@ -150,6 +196,14 @@ def make_sparse_recsys_train_step(cfg, opt_cfg: opt.OptConfig,
         return new_params, new_state, step + 1, metrics
 
     return train_step
+
+
+def lm_loss_fn(cfg) -> Callable:
+    """``lm.lm_loss`` of ``cfg`` as ``loss_fn(params, batch)`` (its stacks
+    tensors or lists of layers)."""
+    def fn(params: dict, batch: dict):
+        return lm.lm_loss(params, cfg, batch)
+    return fn
 
 
 def recsys_loss_fn(cfg) -> Callable:

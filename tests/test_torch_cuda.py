@@ -9,14 +9,17 @@ against the CPU, the realtime loop's smoke on the card, and GraphSAGE's
 neighbour-sum kernel (``csr_sum``) against its plain version, its
 ``NeighborMean`` gradient and the three regimes' steps against the CPU;
 the five LM configs' SMOKE prefill and decode on the card against the CPU
-(``chip_smoke.u3_compare``, phase U.3) and the LM serve launcher's smoke.
+(``chip_smoke.u3_compare``, phase U.3) and the LM serve launcher's smoke;
+their train steps on the card against the CPU (``chip_smoke.v4_compare``,
+phase V.4) and both launchers' LM training.
 No JAX
 here: the parity with the JAX package is pinned on the CPU by
 test_torch_lookup.py, test_torch_engine.py, test_torch_fused_fm.py,
 test_torch_embedding_bag.py, test_torch_recsys.py, test_torch_two_tower.py,
 test_torch_retrieval.py, test_torch_seq_recsys.py,
 test_torch_query_server.py, test_torch_train.py and
-test_torch_streaming.py, test_torch_gnn.py and test_torch_lm.py.  Run on a
+test_torch_streaming.py, test_torch_gnn.py, test_torch_lm.py and
+test_torch_lm_train.py.  Run on a
 CUDA machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
@@ -2317,3 +2320,35 @@ def test_lm_serve_launcher_names_the_batch_that_fits():
     with pytest.raises(SystemExit, match="qwen3-14b/decode_32k at --batch "
                        "128 needs .* the largest --batch that fits is"):
         launch_serve.main(["--arch", "qwen3-14b", "--requests", "1"])
+
+
+# ---------------------------------------------------------------------------
+# LM training (phase V.4 at SMOKE; the launchers)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(registry.LM_ARCHS))
+def test_lm_train_step_on_card_matches_cpu(arch, dtype, accum):
+    """One in-place train step (and one of two microbatches) of each
+    SMOKE config on the card and on the CPU from the same parameters and
+    batch: loss, grad_norm, every parameter and state entry within
+    ``chip_smoke.V4_F32_TOL`` (float32) or ``V4_BF16_TOL`` (bf16) of the
+    CPU's largest value (``chip_smoke.v4_compare``)."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    r = cs.v4_compare(arch, dtype, torch.device("cuda"), accum)
+    tol = cs.V4_F32_TOL if dtype == "float32" else cs.V4_BF16_TOL
+    assert r["finite"]
+    assert max(r["loss"], r["grad_norm"], r["params_state"]) <= tol, r
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "deepseek-v3-671b"])
+def test_lm_train_launchers_smoke_on_card(arch, capsys):
+    out = launch_train.main(["--arch", arch, "--smoke", "--steps", "3"])
+    assert out["device"].startswith("cuda") and out["step"] == 3
+    assert np.isfinite(out["losses"]).all()
+    out = launch_serve.main(["--arch", arch, "--shape", "train_4k",
+                             "--smoke", "--requests", "2"])
+    assert out["finite"] and out["device"].startswith("cuda")
+    assert "/train_4k: 2 requests (a train step each" in \
+        capsys.readouterr().out

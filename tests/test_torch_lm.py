@@ -770,15 +770,22 @@ def test_launcher_lm_defaults_to_decode_32k_and_takes_batch():
 
 
 def test_launchers_refuse_lm_training():
-    """What still refuses names what is missing: the serve launcher's
-    train_4k and the train launcher, for every LM arch."""
-    with pytest.raises(SystemExit, match="qwen3-14b/train_4k is not ported"
-                       ".*LM training \\(train_4k\\).*ROADMAP"):
-        launch_serve.main(["--arch", "qwen3-14b", "--shape", "train_4k",
-                           "--smoke", "--device", "cpu"])
+    """What still refuses once LM training is ported: the train launcher
+    trains an LM's train_4k only, and points a serving cell to the serve
+    launcher, for every LM arch; an arch the port lacks names what the port
+    runs and what waits (the cell builder, the sharded LM paths) in
+    ROADMAP."""
     for arch in ARCHS:
-        with pytest.raises(SystemExit, match=f"{arch} is not ported.*serves "
-                           "the five LM archs.*LM training.*ROADMAP queue 1, "
-                           "item 15"):
-            launch_train.main(["--arch", arch, "--smoke", "--device",
-                               "cpu"])
+        for shape in ("prefill_32k", "decode_32k", "long_500k"):
+            with pytest.raises(SystemExit, match=f"{shape} is not a train "
+                               "cell; serve it with python -m "
+                               "repro_torch.launch.serve"):
+                launch_train.main(["--arch", arch, "--shape", shape,
+                                   "--smoke", "--device", "cpu"])
+    for launcher in (launch_train, launch_serve):
+        with pytest.raises(SystemExit, match="qwen3-15b is not ported.*five "
+                           "LM archs \\(train_4k, prefill_32k.*cell builder "
+                           "and dry-run and the sharded LM paths.*ROADMAP "
+                           "queue 1, item 15"):
+            launcher.main(["--arch", "qwen3-15b", "--smoke", "--device",
+                           "cpu"])

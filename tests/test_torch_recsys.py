@@ -531,10 +531,11 @@ def test_launcher_refuses_unported_archs(arch):
     """An arch the port does not know (``qwen3_14b`` is not the registry's
     ``qwen3-14b``) exits naming ROADMAP before any model is built, also for
     the retrieval_cand cell the recsys archs all serve.  The LM archs this
-    test once held as refused now serve their smoke prefill and decode;
-    what still refuses is their training, through the serve launcher's
-    train_4k and through the train launcher, naming ROADMAP.  (The LM
-    slice's own tests: ``tests/test_torch_lm.py``.)"""
+    test once held as refused now serve their smoke prefill and decode
+    and train (the serve launcher's train_4k, a step a request, and the
+    train launcher); what still refuses is an LM cell that is no train
+    cell in the train launcher.  (The LM slices' own tests:
+    ``tests/test_torch_lm.py``, ``tests/test_torch_lm_train.py``.)"""
     lm_arch = arch.replace("_", "-")
     if arch != lm_arch:
         with pytest.raises(SystemExit, match=f"{arch} is not ported.*ROADMAP"):
@@ -546,10 +547,14 @@ def test_launcher_refuses_unported_archs(arch):
                                  "--smoke", "--device", "cpu",
                                  "--requests", "1"])
         assert out["finite"] and out["shape"] == shape
-    with pytest.raises(SystemExit, match=f"{lm_arch}/train_4k is not "
-                       "ported.*LM training.*ROADMAP"):
-        launch_serve.main(["--arch", lm_arch, "--shape", "train_4k",
+    out = launch_serve.main(["--arch", lm_arch, "--shape", "train_4k",
+                             "--smoke", "--device", "cpu", "--requests",
+                             "1"])
+    assert out["finite"] and out["shape"] == "train_4k"
+    out = launch_train.main(["--arch", lm_arch, "--smoke", "--device", "cpu",
+                             "--steps", "1"])
+    assert np.isfinite(out["losses"]).all() and out["step"] == 1
+    with pytest.raises(SystemExit, match="decode_32k is not a train cell; "
+                       "serve it with python -m repro_torch.launch.serve"):
+        launch_train.main(["--arch", lm_arch, "--shape", "decode_32k",
                            "--smoke", "--device", "cpu"])
-    with pytest.raises(SystemExit, match=f"{lm_arch} is not ported.*LM "
-                       "training.*ROADMAP"):
-        launch_train.main(["--arch", lm_arch, "--smoke", "--device", "cpu"])

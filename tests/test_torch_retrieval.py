@@ -124,17 +124,18 @@ def test_registry_maps_the_ported_archs_to_their_configs(arch):
 
 
 def test_registry_refuses_unported_archs_and_unknown_cells():
-    """deepseek-7b is an LM arch, not a recsys one: it serves (``tests/
-    test_torch_lm.py``) and its training still refuses, naming ROADMAP;
-    an arch the port does not know refuses the same way; an LM cell is no
+    """deepseek-7b is an LM arch, not a recsys one: it serves and trains
+    (``tests/test_torch_lm.py``, ``tests/test_torch_lm_train.py``: here
+    its train_4k through the serve launcher, one step a request); an arch
+    the port does not know refuses, naming ROADMAP; an LM cell is no
     recsys cell."""
     assert "deepseek-7b" not in registry.ARCHS
     assert "graphsage-reddit" not in registry.ARCHS      # not a recsys arch
     assert registry.family("deepseek-7b") == "lm"
-    with pytest.raises(SystemExit, match="deepseek-7b/train_4k is not "
-                       "ported.*LM training.*ROADMAP"):
-        launch_serve.main(["--arch", "deepseek-7b", "--shape", "train_4k",
-                           "--smoke", "--device", "cpu"])
+    out = launch_serve.main(["--arch", "deepseek-7b", "--shape", "train_4k",
+                             "--smoke", "--device", "cpu", "--requests",
+                             "1"])
+    assert out["finite"] and out["shape"] == "train_4k"
     with pytest.raises(SystemExit,
                        match="deepseek-8b is not ported.*ROADMAP"):
         launch_serve.main(["--arch", "deepseek-8b", "--smoke",

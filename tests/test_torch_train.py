@@ -961,9 +961,12 @@ def test_train_launcher_refusals():
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "deepfm", "--shape", "serve_p99",
                            "--smoke", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="deepseek-7b is not ported"):
-        launch_train.main(["--arch", "deepseek-7b", "--smoke",
+    with pytest.raises(SystemExit, match="deepseek-8b is not ported"):
+        launch_train.main(["--arch", "deepseek-8b", "--smoke",
                            "--device", "cpu"])
+    with pytest.raises(SystemExit, match="prefill_32k is not a train cell"):
+        launch_train.main(["--arch", "deepseek-7b", "--shape", "prefill_32k",
+                           "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "deepfm", "--smoke", "--device", "cpu",
                            "--steps", "0"])
