@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu``,
 ``embedding_bag.cu`` and ``segment_sum.cu``) with nvcc, one per library,
-all started together, then runs twenty-two phases.  Two send batch queries
+all started together, then runs twenty-three phases.  Two send batch queries
 through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
@@ -361,6 +361,25 @@ concatenation of the columns and the pageable copy to the card.
   and a step of two microbatches, on the card and on the CPU from the
   same parameters and batch (``v4_compare``), within 1e-5 in float32 and
   ``V4_BF16_TOL`` in bf16.  V launches none of the kernels.
+* **W** — the cell builder, the dry-run and the H100 roofline.  **W.1**:
+  ``python -m repro_torch.launch.dryrun --all`` (every (arch x cell) of
+  the registry at published width on the ``meta`` device, the layer fit
+  checked), ``deepfm/train_batch/sparse_emb``,
+  ``qwen3-14b/train_4k/accum2`` and the cut cells W.2 and W.3 read
+  (``w_cut_cells``), in a child interpreter started right after the
+  kernels' build (nice 10, no card visible: ``start_w1``) and joined
+  here; a line a cell (FLOPs by dtype, bytes, argument and peak GB,
+  whether it fits 80 GB, the bound and its term, MODEL over counted
+  FLOPs); W fails unless every record is ``ok``.  **W.2**: five bundles
+  of ``launch/cells.build_cell`` through ``materialize_bundle`` on the
+  card, at published width: DeepFM ``serve_p99`` (``fused_fm``) and
+  ``train_batch`` (and ``fused_fm_backward``), two-tower ``serve_p99``
+  (``embedding_bag``), GraphSAGE ``full_graph_sm`` (``csr_sum``), and
+  qwen3-14b ``decode_32k`` at U.1's batch 8; each held to
+  ``test_arch_smoke``'s checks, every kernel launch of its checked run
+  against its plain version, three runs timed by events, its peak and
+  time beside the dry-run's peak and bound.  **W.3**: V.1-V.3's peaks
+  beside the dry-run's and ``lm_train_bytes``' estimates.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
@@ -408,6 +427,7 @@ repository around it.  The last line of a passing run is
 """
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -455,6 +475,9 @@ from repro_torch.kernels import neighbor_lookup as nl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import segment_sum as segk  # noqa: E402
 from repro_torch.launch import cells as launch_cells  # noqa: E402
+from repro_torch.launch import dryrun as launch_dryrun  # noqa: E402
+from repro_torch.launch import materialize as launch_mat  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import realtime  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -467,6 +490,7 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import recsys as rec  # noqa: E402
 from repro_torch.obs import exporter  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
 from repro_torch.serve import serve_step  # noqa: E402
 from repro_torch.serve.scheduler import BatchPolicy  # noqa: E402
 from repro_torch.serve.server import QueryServer  # noqa: E402
@@ -642,6 +666,16 @@ V4_BF16_TOL = U3_BF16_TOL      # ... in bf16: an updated bf16 parameter may
 V4_ADAM_SENSITIVE = 1e-6       # sqrt(v-hat) below this, or a gradient whose
                                # sign the two devices' differ on: Adam's
                                # first step is a sign; held to lr there
+W_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_dryrun")
+W_VARIANTS = (("deepfm", "train_batch", "sparse_emb"),
+              ("qwen3-14b", "train_4k", "accum2"))
+W2_CELLS = (("deepfm", "serve_p99"), ("deepfm", "train_batch"),
+            ("two-tower-retrieval", "serve_p99"),
+            ("graphsage-reddit", "full_graph_sm"))
+W2_DECODE_BATCH = U1_DECODE_BATCHES[0]   # U.1's cut of decode_32k's 128
+W_RUNS = 3                     # W.2: timed runs after the checked one
+W_TIMEOUT_S = 1000             # the dry-run child, from the script's start
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
             "fused_fm": "src/repro/kernels/fused_fm.py:31",
@@ -6556,6 +6590,345 @@ def run_phase_v(device, v1=None, v2=None, v3=None, seq=V_SEQ, steps=V_STEPS,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase W: the cell builder's bundles, the dry-run and the H100 roofline
+# ---------------------------------------------------------------------------
+def w_cut_cells(n_v1: int, smoke: bool = False) -> dict:
+    """The cut cells phase W reads a dry-run of: W.2's qwen3-14b
+    ``decode_32k`` at U.1's batch, and V.1-V.3's configs at one sequence
+    of ``V_SEQ`` -> {tag: (arch, config, cell)}.  ``smoke``: the SMOKE
+    configs at ``registry.reduce_cell``'s sizes, to rehearse on the
+    CPU."""
+    decode = registry.cell_by_name("decode_32k", "lm")
+    train = registry.cell_by_name("train_4k", "lm")
+    batch, seq = W2_DECODE_BATCH, V_SEQ
+    configs = {a: m.CONFIG for a, m in registry.LM_ARCHS.items()}
+    if smoke:
+        decode, train = registry.reduce_cell(decode), \
+            registry.reduce_cell(train)
+        batch, seq = decode.dims["batch"], train.dims["seq"]
+        configs = {a: m.SMOKE for a, m in registry.LM_ARCHS.items()}
+    one_seq = registry.Cell(train.name, train.kind,
+                            {**train.dims, "batch": 1, "seq": seq})
+    v = {"V.1": ("qwen3-14b", n_v1), "V.2": ("deepseek-v3-671b", V2_LAYERS),
+         "V.3": ("qwen3-moe-235b-a22b", V3_LAYERS)}
+    out = {"W.2 qwen3-14b/decode_32k": (
+        "qwen3-14b", configs["qwen3-14b"],
+        registry.Cell(decode.name, decode.kind,
+                      {**decode.dims, "batch": batch}))}
+    for tag, (arch, layers) in v.items():
+        cfg = configs[arch]
+        out[tag] = (arch, dataclasses.replace(
+            cfg, n_layers=min(layers, cfg.n_layers) if smoke else layers),
+            one_seq)
+    return out
+
+
+def w_cut_path(out_dir: str, tag: str) -> str:
+    return os.path.join(out_dir, "cut__" + tag.replace(" ", "_")
+                        .replace("/", "_") + ".json")
+
+
+def w1_child(out_dir: str, smoke: bool = False) -> int:
+    """W.1's work, in a child interpreter that never touches the card:
+    ``python -m repro_torch.launch.dryrun --all`` into ``out_dir``, the
+    ``W_VARIANTS``, then the dry-run of each of ``w_cut_cells`` (one pass,
+    no layer fit) -> the CLI's exit code.  ``smoke``: every cell at SMOKE
+    (``run_cell(smoke=True)``), to rehearse on the CPU."""
+    t_child = time.perf_counter()
+    if smoke:
+        rc = 0
+        for arch, shape in launch_cells.all_cells():
+            rc = rc or int(not launch_dryrun.run_cell(
+                arch, shape, out_dir, force=True, smoke=True)["ok"])
+    else:
+        rc = launch_dryrun.main(["--all", "--force", "--out", out_dir])
+    for arch, shape, variant in W_VARIANTS:
+        rec = launch_dryrun.run_cell(arch, shape, out_dir, variant=variant,
+                                     force=True, smoke=smoke)
+        rc = rc or (0 if rec["ok"] else 1)
+    mesh = launch_mesh.make_local_mesh()
+    n_v1 = V2_LAYERS if smoke else v1_layers()
+    for tag, (arch, cfg, cell) in w_cut_cells(n_v1, smoke).items():
+        t0 = time.time()
+        rec = {"tag": tag, "arch": arch, "shape": cell.name,
+               "config": cfg.name, "layers": cfg.n_layers,
+               "dims": cell.dims, "ok": False}
+        try:
+            bundle = launch_cells._lm_cell(arch, cfg, cell, mesh)
+            rec.update(ok=True, n_devices=1, meta=bundle.meta,
+                       **launch_dryrun.measure(bundle))
+        except Exception as e:       # noqa: BLE001 — recorded, W fails it
+            rec["error"] = f"{type(e).__name__}: {e}"
+            rc = 1
+        rec["wall_s"] = round(time.time() - t0, 2)
+        with open(w_cut_path(out_dir, tag), "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"[{'OK' if rec['ok'] else 'FAIL'}] {tag} "
+              f"wall={rec['wall_s']}s", flush=True)
+    print(f"W.1 counted every cell in {time.perf_counter() - t_child:.1f} "
+          f"s, exit {rc}", flush=True)
+    return rc
+
+
+def start_w1(smoke: bool = False):
+    """Starts ``w1_child`` in a child interpreter at low priority, with no
+    card visible, its output to ``W_DIR/log.txt`` -> (the process, the
+    start time).  main() joins it at phase W, and kills it at exit if it
+    still runs."""
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    os.makedirs(W_DIR)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.w1_child({W_DIR!r}, {smoke!r}))")
+    with open(os.path.join(W_DIR, "log.txt"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=log,
+            stderr=subprocess.STDOUT, cwd=root,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            preexec_fn=lambda: os.nice(10))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def w_roofline(rec: dict, cfg, cell) -> dict:
+    """A dry-run record's bound on the H100 at ``cfg`` and ``cell``."""
+    family = registry.family(rec["arch"])
+    r = roofline.from_record(rec, roofline.model_flops_for(
+        family, cfg, cell, rec["meta"]))
+    return {"bound_s": r.bound_time_s, "dominant": r.dominant,
+            "compute_s": r.compute_s, "memory_s": r.memory_s,
+            "collective_s": r.collective_s,
+            "model_over_counted": r.useful_flops_ratio}
+
+
+def w1_line(name: str, rec: dict, cfg, cell) -> dict:
+    """W.1's line of one record (it fails the phase unless ``ok``)."""
+    if not rec.get("ok"):
+        fail(f"[W.1] the dry-run of {name} failed: {rec.get('error')}")
+    c, m = rec["cost"], rec["memory"]
+    return {"cell": name,
+            "flops": {k[len("flops_"):]: v for k, v in c.items()
+                      if k.startswith("flops_")},
+            "bytes_accessed": c["bytes accessed"],
+            "argument_gb": m["argument_size_in_bytes"] / 1e9,
+            "peak_gb": m["peak_size_in_bytes"] / 1e9,
+            "fits_80gb": rec["fits_hbm"], **w_roofline(rec, cfg, cell),
+            "collectives": rec["collectives"]["total"],
+            "kernels": {k: v["calls"] for k, v in rec.get("kernels",
+                                                          {}).items()},
+            "wall_s": rec["wall_s"]}
+
+
+def run_phase_w1(proc, t_start, n_v1, smoke=False) -> dict:
+    """Joins the dry-run child and prints W.1's line a cell -> {name:
+    record}: the registry's cells, the variants and the cut cells
+    (``smoke``: as ``start_w1(smoke=True)`` counted them)."""
+    try:
+        rc = proc.wait(timeout=max(1.0, W_TIMEOUT_S
+                                   - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"[W.1] the dry-run did not end within {W_TIMEOUT_S} s")
+    waited = time.perf_counter() - t_start
+    with open(os.path.join(W_DIR, "log.txt")) as f:
+        log = f.read()
+    print(f"[W.1] the dry-run child exited {rc}, joined {waited:.1f} s "
+          f"after it started: {log.strip().splitlines()[-1]}", flush=True)
+    recs = {}
+    for arch, shape in launch_cells.all_cells():
+        with open(launch_dryrun.record_path(W_DIR, arch, shape)) as f:
+            recs[f"{arch}/{shape}"] = json.load(f)
+    for arch, shape, variant in W_VARIANTS:
+        with open(launch_dryrun.record_path(W_DIR, arch, shape,
+                                            variant)) as f:
+            recs[f"{arch}/{shape}/{variant}"] = json.load(f)
+    for name, rec in recs.items():
+        family = registry.family(rec["arch"])
+        configs = launch_cells.configs_of(rec["arch"])
+        cell = registry.cell_by_name(rec["shape"], family)
+        line = w1_line(name, rec, configs.SMOKE if smoke else configs.CONFIG,
+                       registry.reduce_cell(cell) if smoke else cell)
+        print("[W.1] " + json.dumps(line), flush=True)
+    for tag, (arch, cfg, cell) in w_cut_cells(n_v1, smoke).items():
+        with open(w_cut_path(W_DIR, tag)) as f:
+            rec = json.load(f)
+        recs[tag] = rec
+        print(f"[W.1] reduced: {tag} {cfg.name} {cfg.n_layers} layers "
+              f"{cell.dims} " + json.dumps(w1_line(tag, rec, cfg, cell)),
+              flush=True)
+    if rc != 0:
+        fail(f"[W.1] the dry-run exited {rc}: {log[-2000:]}")
+    return recs
+
+
+def w_finite(out) -> bool:
+    """Every float leaf of ``out`` finite, checked 2^26 elements at a
+    time (a 21.5 GB cache leaves no room for its whole mask)."""
+    step = 1 << 26
+    for x in torch.utils._pytree.tree_flatten(out)[0]:
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            flat = x.reshape(-1)
+            for i in range(0, flat.numel(), step):
+                if not bool(torch.isfinite(flat[i:i + step]).all()):
+                    return False
+    return True
+
+
+def allocated(device):
+    return (torch.cuda.memory_allocated(device) if device.type == "cuda"
+            else None)
+
+
+def w2_bundle(tag, bundle, device, rec, cfg, logs) -> dict:
+    """One bundle of the builder run for real on the card (W.2): its
+    arguments from ``materialize_bundle`` on the card, one run inside
+    ``logs`` (every kernel launch held against its plain version) whose
+    ``max_memory_allocated``, less what the process held before the
+    arguments were drawn (``held_before_bytes``: earlier phases' caches
+    and library workspaces), is the bundle's peak (``peak_bytes``, over
+    the dry-run's in ``peak_over_dryrun``), then ``W_RUNS`` timed
+    by CUDA events; ``test_arch_smoke``'s checks -> metrics beside the
+    dry-run's peak and bound, the bundle's bytes allocated before the
+    checked run (its arguments) and those the run left allocated once its
+    outputs went (what a first call keeps: library workspaces)."""
+    u_free(device)
+    held = allocated(device)           # what the process holds already
+    t0 = time.perf_counter()
+    args = launch_mat.materialize_bundle(bundle, seed=0, device=device)
+    u_sync(device)
+    draw_s = time.perf_counter() - t0
+    u_reset_peak(device)
+    before = allocated(device)
+    with contextlib.ExitStack() as stack:
+        for log in logs:
+            stack.enter_context(log)
+        out, _, first_ms = u_timed(lambda: bundle.fn(*args), device)
+        raw_peak = max_memory(device)  # before the checks' plain versions
+        for log in logs:
+            log.check_pending()
+            log.last = None            # its launch's tensors (the tables)
+            getattr(log, "kept", {}).clear()
+    peak = raw_peak - held if raw_peak is not None else None   # the bundle's
+    if not w_finite(out):
+        fail(f"[{tag}] produced non-finite outputs")
+    if bundle.meta.get("has_opt"):
+        for k, p in args[0].items():
+            if out[0][k].shape != p.shape:
+                fail(f"[{tag}] {k} changed shape: {tuple(p.shape)} -> "
+                     f"{tuple(out[0][k].shape)}")
+        if int(out[2]) != 1:
+            fail(f"[{tag}] the step did not advance: {int(out[2])}")
+    if bundle.cell.kind == "rec_serve":
+        lead = torch.utils._pytree.tree_flatten(out)[0][0].shape[0]
+        if lead != bundle.cell.dims["batch"]:
+            fail(f"[{tag}] leading dim {lead}, batch "
+                 f"{bundle.cell.dims['batch']}")
+    del out
+    u_sync(device)
+    kept = allocated(device) - before if before is not None else None
+    before = before - held if before is not None else None
+    ev = []
+    for _ in range(W_RUNS):
+        out, _, e_ms = u_timed(lambda: bundle.fn(*args), device)
+        ev.append(e_ms)
+        del out
+    ms = u_median(ev)
+    dry_peak = rec["memory"]["peak_size_in_bytes"]
+    bound = w_roofline(rec, cfg, bundle.cell)
+    m = {"cell": f"{bundle.arch_id}/{bundle.cell.name}",
+         "dims": bundle.cell.dims, "draw_s": draw_s,
+         "first_ms": first_ms, "step_ms": ev, "step_ms_median": ms,
+         "max_memory_allocated": raw_peak, "held_before_bytes": held,
+         "peak_bytes": peak, "allocated_before": before,
+         "kept_after_the_step": kept,
+         "dryrun_peak_bytes": dry_peak,
+         "peak_over_dryrun": peak / dry_peak if peak and dry_peak else None,
+         "dryrun_argument_bytes": rec["memory"]["argument_size_in_bytes"],
+         "bound_ms": bound["bound_s"] * 1e3, "bound_by": bound["dominant"],
+         "bound_over_measured": bound["bound_s"] * 1e3 / ms if ms else None}
+    del args
+    u_free(device)
+    return m
+
+
+def run_phase_w2(device, recs, smoke=False) -> tuple[dict, dict]:
+    """W.2: ``W2_CELLS`` through ``build_cell`` and ``materialize_bundle``
+    on the card at published width, then qwen3-14b's ``decode_32k`` at
+    ``W2_DECODE_BATCH`` through ``_lm_cell`` of the cut cell; the kernels'
+    counts from 0 just before and read just after -> (metrics, counts).
+    ``smoke``: the SMOKE cells, to rehearse on the CPU (no kernel
+    launches there; the logs then check nothing)."""
+    mesh = launch_mesh.make_local_mesh()
+    cut = w_cut_cells(V2_LAYERS if smoke else v1_layers(),
+                      smoke)["W.2 qwen3-14b/decode_32k"]
+    logs = (FMLog(), BackwardLog(), BagLog(), CsrLog())
+    out = {}
+    zero(nl.launches, fm.launches, bagk.launches, segk.launches)
+    for arch, shape in W2_CELLS:
+        bundle = launch_cells.build_cell(arch, shape, mesh, smoke=smoke)
+        configs = launch_cells.configs_of(arch)
+        cfg = configs.SMOKE if smoke else configs.CONFIG
+        tag = f"W.2 {arch}/{shape}"
+        out[tag] = w2_bundle(tag, bundle, device, recs[f"{arch}/{shape}"],
+                             cfg, logs)
+        print(f"[{tag}] " + json.dumps(out[tag]), flush=True)
+    arch, cfg, cell = cut
+    tag = "W.2 qwen3-14b/decode_32k"
+    full = registry.cell_by_name(cell.name, "lm").dims["batch"]
+    print(f"reduced: {tag} batch {full}->{cell.dims['batch']} (U.1's cut: "
+          f"the cache at {full} is "
+          f"{lm.cache_bytes(cfg, full, cell.dims['seq'])} B)", flush=True)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    out[tag] = w2_bundle(tag, launch_cells._lm_cell(arch, cfg, cell, mesh),
+                         device, recs[tag], cfg, logs)
+    print(f"[{tag}] " + json.dumps(out[tag]), flush=True)
+    counts = kernel_counts()
+    checked = {log.__class__.__name__: log.checked for log in logs}
+    print("[W.2] launches: " + json.dumps(counts) + " checked against "
+          "their plain versions: " + json.dumps(checked), flush=True)
+    for k in ("fused_fm", "fused_fm_backward", "embedding_bag", "csr_sum"):
+        if counts[k] == 0 and device.type == "cuda":
+            fail(f"[W.2] {k} was not launched by the builder's bundles")
+    for log in logs:
+        if not log.checked and device.type == "cuda":
+            fail(f"[W.2] {log.__class__.__name__} checked no launch")
+    out["max_abs_err"] = {log.__class__.__name__: log.max_err
+                          for log in logs}
+    return out, counts
+
+
+def run_phase_w3(recs, v_peaks: dict, n_v1: int, smoke=False) -> dict:
+    """W.3: the dry-run's peak of V.1-V.3's cut configs beside the peaks
+    phase V measured in this process and ``launch/train.lm_train_bytes``'
+    estimates."""
+    out = {}
+    for tag, (arch, cfg, cell) in w_cut_cells(n_v1, smoke).items():
+        if not tag.startswith("V."):
+            continue
+        ocfg = launch_cells.opt_cfg("lm", cfg)
+        est = launch_train.step_peak(launch_train.lm_train_bytes(
+            cfg, ocfg, 1, cell.dims["seq"]))
+        dry = recs[tag]["memory"]["peak_size_in_bytes"]
+        got = v_peaks.get(tag)
+        out[tag] = {"config": cfg.name, "layers": cfg.n_layers,
+                    "dryrun_peak_bytes": dry, "measured_peak_bytes": got,
+                    "estimate_bytes": est,
+                    "measured_over_dryrun": got / dry if got else None,
+                    "estimate_over_dryrun": est / dry,
+                    **w_roofline(recs[tag], cfg, cell)}
+        print(f"[W.3] {tag} " + json.dumps(out[tag]), flush=True)
+    return out
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -6589,6 +6962,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     build_kernels()
+    w1 = start_w1()                    # W.1's dry-run, beside the card's
 
     n_a, emb_a = T_KEYS, 200_000
     print(f"reduced: n_items {CONFIG.n_items}->{n_a} (the host builder "
@@ -7033,7 +7407,29 @@ def main() -> int:
           + json.dumps(v_counts), flush=True)
     if any(v_counts.values()):
         fail(f"phase V launched a kernel: {v_counts}")
+    v_peaks = {tag: m_v[tag]["peak_bytes"] for tag in ("V.1", "V.2", "V.3")}
     del m_v
+
+    # W: the dry-run of every cell (W.1, joined here), the builder's
+    # bundles on the card through fused_fm, its gradient, embedding_bag
+    # and csr_sum (W.2), the dry-run's peaks beside V's (W.3)
+    u_free(device)
+    t_w = time.perf_counter()
+    recs = run_phase_w1(*w1, n_v1)
+    m_w2, w_counts = run_phase_w2(device, recs)
+    m_w3 = run_phase_w3(recs, v_peaks, n_v1)
+    print(f"[W] took {time.perf_counter() - t_w:.1f} s (W.1's wait "
+          f"included); launches " + json.dumps(w_counts), flush=True)
+    by_name = {row["name"]: row for row in kernels}
+    for name, log in (("fused_fm", "FMLog"),
+                      ("fused_fm_backward", "BackwardLog"),
+                      ("embedding_bag", "BagLog"), ("csr_sum", "CsrLog")):
+        row, err = by_name[name], m_w2["max_abs_err"][log]
+        row["launches"] += w_counts[name]
+        row["cell_bundles"] = {"launches": w_counts[name],
+                               "max_abs_err": err}
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    del recs, m_w2, m_w3
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,8 +10,9 @@ The trainer (``train/``) holds parameters as one flat dict of tensors keyed
 by the JAX pytree paths (``field_table``, ``mlp/0/w``, ``blocks/0/wq``), in
 ``jax.tree_util``'s leaf order, and its optimizer state as ``{path: {name:
 tensor}}``: ``params_of`` maps a port model to that dict,
-``model_from_params`` maps it back, and ``params_from_reference`` /
-``opt_state_from_reference`` carry the JAX package's trees across.
+``model_from_params`` maps it back (``model_view`` without a copy), and
+``params_from_reference`` / ``opt_state_from_reference`` carry the JAX
+package's trees across.
 GraphSAGE has no model object: its parameters are that dict
 (``models/gnn.sage_init``), and ``gnn_from_reference`` carries the JAX
 package's ``sage_init`` tree over with every name and shape checked.
@@ -363,3 +364,39 @@ def model_from_params(cfg, params: dict, device):
         return {k: lists(v) for k, v in node.items()}
 
     return FROM_REFERENCE[cfg.arch](lists(tree), cfg, device)
+
+
+def model_view(cfg, params: dict):
+    """The trainer's path-keyed dict -> the port's serving model of ``cfg``
+    whose parameters ARE the given tensors (nothing copied, on their
+    device, meta tensors included): what a cell bundle's serving step
+    scores with (``launch/cells.py``)."""
+    t = {k.replace("/", "."): v for k, v in params.items()}
+
+    def mlp(name: str) -> list:
+        n = sum(1 for k in t if k.startswith(name + ".") and
+                k.endswith(".w"))
+        return _layers(t, name, n)
+
+    if cfg.arch == "deepfm":
+        return recsys.DeepFM(cfg, field_table=t["field_table"],
+                             w1_table=t["w1_table"],
+                             dense_w1=t["dense_w1"], mlp=mlp("mlp"),
+                             bias=t["bias"])
+    if cfg.arch == "two_tower":
+        return recsys.TwoTower(cfg, user_table=t["user_table"],
+                               item_table=t["item_table"],
+                               cat_table=t["cat_table"],
+                               user_mlp=mlp("user_mlp"),
+                               item_mlp=mlp("item_mlp"))
+    if cfg.arch == "din":
+        return recsys.DIN(cfg, item_table=t["item_table"],
+                          cat_table=t["cat_table"],
+                          attn_mlp=mlp("attn_mlp"), mlp=mlp("mlp"))
+    if cfg.arch == "bst":
+        return recsys.BST(
+            cfg, item_table=t["item_table"], pos_table=t["pos_table"],
+            blocks=[{k: t[f"blocks.{i}.{k}"] for k in recsys.BST_BLOCK}
+                    for i in range(cfg.n_blocks)],
+            mlp=mlp("mlp"))
+    raise NotImplementedError(recsys.NOT_PORTED.format(arch=cfg.arch))

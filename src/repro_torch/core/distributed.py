@@ -51,6 +51,7 @@ from repro_torch.core import neighborhash as nh
 from repro_torch.kernels import neighbor_lookup as _nl
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import u32
+from repro_torch.roofline import analysis
 
 WORDS = ("key_hi", "key_lo", "val_hi", "val_lo")
 INT32_MIN = -(1 << 31)
@@ -149,7 +150,7 @@ def route_by_owner(owner: torch.Tensor, n_dest: int,
     n = owner.shape[0]
     order = torch.argsort(owner, stable=True)
     sorted_owner = owner[order].long()
-    counts = torch.bincount(owner.long(), minlength=n_dest)[:n_dest]
+    counts = _counts(owner.long(), n_dest)[:n_dest]
     # the reference's take of a start past n_dest gives the int32 minimum
     starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=owner.device),
                         torch.cumsum(counts, 0)[:-1],
@@ -166,6 +167,15 @@ def route_by_owner(owner: torch.Tensor, n_dest: int,
                    n_dropped=(n - kept.sum()).to(torch.int32))
 
 
+def _counts(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(keys, minlength=n)``; on the meta device (the dry-run),
+    which has no data and no ``bincount``, a tensor of its static shape
+    [n]."""
+    if keys.device.type == "meta":
+        return torch.empty(n, dtype=torch.int64, device=keys.device)
+    return torch.bincount(keys, minlength=n)
+
+
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 values wrapped to int32 as the reference's int32 arithmetic
     wraps them."""
@@ -179,13 +189,17 @@ def scatter_to_buffers(r: Routing, xs: list, n_dest: int, capacity: int,
     dropped queries at ``(owner, 0)``; see the module docstring.)  A kept
     query whose owner is past ``n_dest`` goes nowhere, as the reference's
     out-of-bounds write drops it."""
-    keep = r.kept & (r.slot_row < n_dest)
-    rows, cols = r.slot_row[keep].long(), r.slot_col[keep].long()
+    meta = r.kept.device.type == "meta"
+    if meta:          # no data to select by: every query's write is counted
+        rows, cols = r.slot_row.long(), r.slot_col.long()
+    else:
+        keep = r.kept & (r.slot_row < n_dest)
+        rows, cols = r.slot_row[keep].long(), r.slot_col[keep].long()
     out = []
     for x in xs:
         buf = torch.full((n_dest, capacity) + tuple(x.shape[1:]), fill,
                          dtype=x.dtype, device=x.device)
-        buf[rows, cols] = x[keep]
+        buf[rows, cols] = x if meta else x[keep]
         out.append(buf)
     return out
 
@@ -229,7 +243,11 @@ def _int32(x: torch.Tensor) -> torch.Tensor:
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Row j of the result = row ``rank`` of what rank j sent (``x`` is
-    [S, ...]): the reference's tiled ``all_to_all`` on axis 0."""
+    [S, ...]): the reference's tiled ``all_to_all`` on axis 0.  Its bytes
+    go to every open ``roofline.analysis.Tally``; under a dry one it is
+    not run and returns an empty tensor of its result's shape."""
+    if analysis.note_collective("all-to-all", x.numel() * x.element_size()):
+        return torch.empty_like(x)
     staged = host_staged(group, x.device)
     send = (x.cpu() if staged else x).contiguous()      # to the host
     recv = torch.empty_like(send)
@@ -238,7 +256,10 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The elementwise sum of every rank's ``x``."""
+    """The elementwise sum of every rank's ``x`` (counted as
+    ``all_to_all`` is)."""
+    if analysis.note_collective("all-reduce", x.numel() * x.element_size()):
+        return torch.empty_like(x)
     staged = host_staged(group, x.device)
     out = x.cpu() if staged else x.clone()              # to the host
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
@@ -246,7 +267,10 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def group_size(group) -> int:
-    """The number of ranks in ``group`` (None: the default group)."""
+    """The number of ranks in ``group`` (None: the default group, and 1 in
+    a process outside any group: a world of one)."""
+    if group is None and not (dist.is_available() and dist.is_initialized()):
+        return 1
     return dist.get_world_size(group)
 
 

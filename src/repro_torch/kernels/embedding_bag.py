@@ -34,7 +34,11 @@ The wrappers launch their kernels on CUDA tensors or raise; they never
 fall back to the plain versions (``kernels/ref.embedding_bag``,
 ``ref.embedding_bag_backward``) — ``kernels/ops.py`` picks those for CPU
 tensors, and ``EmbeddingBag`` takes them for a CPU table only.
-``launches`` counts each kernel's launches.
+``launches`` counts each kernel's launches.  On the meta device (the
+dry-run, ``launch/dryrun.py``) a wrapper launches nothing: it returns an
+empty tensor of its output's shape and reports its work to the open dry
+``roofline.analysis.Tally`` (its bound's bytes and operations, every
+entry taken as valid and its row as read: there are no ids to count).
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.roofline import analysis
 
 launches = {"embedding_bag": 0, "embedding_bag_backward": 0}
 paths = {"staged": 0, "registers": 0}   # which branch each launch took
@@ -115,7 +120,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     if weights is not None:
         given["weights"] = weights
     for name, t in given.items():
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"embedding_bag takes CUDA tensors ({name} is "
                              f"on {t.device}); CPU tensors go to "
                              "kernels/ref.py through kernels/ops.py")
@@ -145,6 +150,12 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"indices {tuple(indices.shape)} or table width "
                          f"{d} exceed the launch's limits")
     out = torch.empty(b, d, dtype=torch.float32, device=table.device)
+    if table.device.type == "meta":         # the dry-run: the work, no data
+        analysis.note_kernel(
+            "embedding_bag", 2 * b * n * d,
+            b * n * d * table.element_size() + indices.numel() * 4
+            + (0 if weights is None else weights.numel() * 4) + b * d * 4)
+        return out
     if b == 0 or d == 0:
         return out
     lib = _build.library("embedding_bag", _bind)
@@ -184,7 +195,7 @@ def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
     if weights is not None:
         given["weights"] = weights
     for name, t in given.items():
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"embedding_bag_backward takes CUDA tensors "
                              f"({name} is on {t.device}); CPU tensors go "
                              "to kernels/ref.py through EmbeddingBag")
@@ -209,6 +220,12 @@ def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"g {tuple(g.shape)}, indices "
                          f"{tuple(indices.shape)} or {n_rows} rows exceed "
                          "the launch's limits")
+    if g.device.type == "meta":
+        analysis.note_kernel(
+            "embedding_bag_backward", b * n * d,
+            indices.numel() * 4 * (1 if weights is None else 2) + b * d * 4
+            + n_rows * d * 4)
+        return torch.empty(n_rows, d, dtype=torch.float32, device=g.device)
     if b == 0 or d == 0 or n_rows == 0:
         return torch.zeros(n_rows, d, dtype=torch.float32, device=g.device)
     lib = _build.library("embedding_bag", _bind)

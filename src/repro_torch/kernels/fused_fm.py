@@ -25,7 +25,10 @@ The wrappers launch their kernels on a CUDA tensor or raise; they never
 fall back to the plain versions (``kernels/ref.fused_fm``,
 ``ref.fused_fm_backward``) — ``kernels/ops.py`` picks those for CPU
 tensors, and ``FusedFM`` takes them for a CPU tensor only.  ``launches``
-counts each kernel's launches.
+counts each kernel's launches.  On the meta device (the dry-run,
+``launch/dryrun.py``) a wrapper launches nothing: it returns an empty
+tensor of its output's shape and reports its work to the open dry
+``roofline.analysis.Tally`` (the bytes and operations of its bound).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.roofline import analysis
 
 launches = {"fused_fm": 0, "fused_fm_backward": 0}
 paths = {"bulk": 0, "loads": 0}          # which branch each launch took
@@ -197,7 +201,7 @@ def fused_fm(emb: torch.Tensor) -> torch.Tensor:
     """``emb`` [B, F, D], contiguous fp32 or bf16 on the card -> fp32 [B] on
     the current stream.  Raises on anything else: a non-contiguous tensor
     is the caller's to copy."""
-    if emb.device.type != "cuda":
+    if emb.device.type not in ("cuda", "meta"):
         raise ValueError("fused_fm takes a CUDA tensor; CPU tensors go to "
                          "kernels/ref.py through kernels/ops.py")
     if emb.dtype not in _DTYPES:
@@ -211,6 +215,10 @@ def fused_fm(emb: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"shape {tuple(emb.shape)} exceeds the launch's "
                          "limits")
     out = torch.empty(b, dtype=torch.float32, device=emb.device)
+    if emb.device.type == "meta":           # the dry-run: the work, no data
+        analysis.note_kernel("fused_fm", 3 * b * f * d + 3 * b * d,
+                             emb.numel() * emb.element_size() + 4 * b)
+        return out
     if b == 0:
         return out
     lib = _build.library("fused_fm", _bind)
@@ -235,7 +243,7 @@ def fused_fm_backward(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     bf16 on the card) given ``g`` [B] (contiguous fp32, the gradient of its
     output) -> grad [B, F, D] in emb's dtype, on the current stream.
     Raises on anything else."""
-    if emb.device.type != "cuda":
+    if emb.device.type not in ("cuda", "meta"):
         raise ValueError("fused_fm_backward takes CUDA tensors; CPU tensors "
                          "go to kernels/ref.py through FusedFM")
     if emb.dtype not in _DTYPES:
@@ -252,6 +260,10 @@ def fused_fm_backward(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          f"[{b}] on {emb.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
     grad = torch.empty_like(emb)
+    if emb.device.type == "meta":
+        analysis.note_kernel("fused_fm_backward", 3 * b * f * d,
+                             2 * emb.numel() * emb.element_size() + 4 * b)
+        return grad
     if grad.numel() == 0:
         return grad
     p = backward_plan(b, f, d, emb.element_size(), _sm_count(emb.device),

@@ -41,7 +41,12 @@ The library is compiled with ``nvcc`` at first use (``kernels/build.py``).
 back to the plain version, which ``kernels/ops.csr_sum`` picks for CPU
 tensors.  ``launches`` counts the kernel's launches, ``paths`` its
 branches (16-byte loads where D % 4 == 0 and the rows are aligned, else
-one float a load) and ``hot_launches`` the marked launches.
+one float a load) and ``hot_launches`` the marked launches.  On the meta
+device (the dry-run, ``launch/dryrun.py``) ``csr_sum`` launches nothing:
+it returns an empty [R, D] tensor and reports its work (its term floor's
+bytes, a row read a term, and an add a term and column) to the open dry
+``roofline.analysis.Tally``; ``adjacency`` there gives CSRs of their
+static sizes (n + 1 offsets, E terms).
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.roofline import analysis
 
 launches = {"csr_sum": 0}
 paths = {"vec": 0, "scalar": 0}        # which branch each launch took
@@ -126,7 +132,7 @@ def csr_sum(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
     if deg is not None:
         given["deg"] = deg
     for name, t in given.items():
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"csr_sum takes CUDA tensors ({name} is on "
                              f"{t.device}); CPU tensors go to kernels/ref.py "
                              "through kernels/ops.py")
@@ -153,6 +159,12 @@ def csr_sum(x: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"{n_rows} rows of width {dim} exceed the launch's "
                          "limits")
     out = torch.empty(n_rows, dim, dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":             # the dry-run: the work, no data
+        nnz = indices.numel()               # every term's row read (no ids)
+        analysis.note_kernel("csr_sum", nnz * dim,
+                             nnz * dim * 4 + nnz * 4 + indptr.numel() * 8
+                             + n_rows * dim * 4)
+        return out
     if n_rows == 0 or dim == 0:
         return out
     lib = _build.library("segment_sum", _bind)
@@ -208,7 +220,9 @@ def _csr(keys: torch.Tensor, values: torch.Tensor,
     sort of ``keys``, so each group keeps the edges' order."""
     order = torch.sort(keys, stable=True).indices
     indptr = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
-    torch.cumsum(torch.bincount(keys, minlength=n), 0, out=indptr[1:])
+    counts = torch.empty(n, dtype=torch.int64, device=keys.device) \
+        if keys.device.type == "meta" else torch.bincount(keys, minlength=n)
+    torch.cumsum(counts, 0, out=indptr[1:])    # meta: no data, no bincount
     return indptr, values[order].to(torch.int32)
 
 

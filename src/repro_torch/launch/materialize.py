@@ -10,15 +10,29 @@ the cast: a float leaf is rounded to fp32 first and then to its dtype, as
 ``jnp.asarray`` rounds a float64 array (``tests/test_torch_lm.py``).
 Leaves come back as CPU tensors, or on ``device``.  ``nested`` and
 ``at`` turn the port's path-keyed dicts (``dense_layers/attn/wq``) into
-the JAX package's nested trees and back, so that a parameter dict or an
-optimizer state draws in the JAX package's leaf order.
+the JAX package's nested trees and back; a path-keyed dict also draws in
+the JAX package's leaf order as it stands (its keys sorted component by
+component, list indices by number).  ``materialize_bundle`` gives a cell
+bundle (``launch/cells.py``) its arguments.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.models.common import ShapeDtype
+
+HOST_DRAW_PARAMS = 1 << 26    # larger leaves are made on the card
+
+
+def _key_order(key: str) -> tuple:
+    """A dict key's place: a path-keyed dict's ``mlp/10/w`` sorts as the
+    reference's nested tree does (component by component, list indices
+    by number)."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in str(key).split("/"))
 
 
 def _leaves(tree, path=()):
@@ -26,7 +40,7 @@ def _leaves(tree, path=()):
     if isinstance(tree, ShapeDtype):
         yield path, tree
     elif isinstance(tree, dict):
-        for k in sorted(tree):
+        for k in sorted(tree, key=_key_order):
             yield from _leaves(tree[k], path + (k,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
@@ -43,6 +57,48 @@ def _rebuild(tree, drawn: dict, path=()):
         return {k: _rebuild(v, drawn, path + (k,)) for k, v in tree.items()}
     return type(tree)(_rebuild(v, drawn, path + (i,))
                       for i, v in enumerate(tree))
+
+
+def materialize_bundle(bundle, seed: int = 0, device=None) -> tuple:
+    """The arguments of a ``launch/cells.CellBundle``, role-aware as the
+    reference's ``materialize_bundle``: every leaf drawn by ``materialize``
+    (integers below ``meta["int_high"]``), then, for a train cell, the
+    optimizer state zeros and the step 0.  On the CPU (``device`` None or
+    ``cpu``) the draws are the JAX package's bit for bit.  On the card a
+    leaf of more than ``HOST_DRAW_PARAMS`` values is made on the device
+    and takes nothing from the host stream: zeros for the optimizer state,
+    else drawn there from ``seed`` (normal at ``scale`` 0.02, integers
+    uniform below ``int_high`` or 8); those leaves are printed."""
+    device = None if device is None else torch.device(device)
+    on_card = device is not None and device.type == "cuda"
+    has_opt = bundle.meta.get("has_opt")
+    int_high = bundle.meta.get("int_high")
+    rng = np.random.default_rng(seed)
+    gen, big = None, []
+    drawn = {}
+    for path, leaf in _leaves(tuple(bundle.args)):
+        zero = has_opt and path[0] in (1, 2)
+        if on_card and math.prod(leaf.shape) > HOST_DRAW_PARAMS:
+            big.append("/".join(str(p) for p in path))
+            if gen is None:
+                gen = torch.Generator(device=device).manual_seed(seed)
+            t = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+            if zero:
+                t.zero_()
+            elif leaf.dtype.is_floating_point:
+                t.normal_(0, 0.02, generator=gen)
+            else:
+                t.random_(0, int_high or 8, generator=gen)
+            drawn[path] = t
+            continue
+        t = draw_leaf(rng, leaf, 0.02, int_high)
+        if zero:
+            t = torch.zeros_like(t)
+        drawn[path] = t if device is None else t.to(device)
+    if big:
+        print(f"drawn on the device from seed {seed}: {', '.join(big)}",
+              flush=True)
+    return _rebuild(tuple(bundle.args), drawn)
 
 
 def draw_leaf(rng: np.random.Generator, leaf: ShapeDtype, scale: float,

@@ -45,14 +45,16 @@ sequence, printing the request latency's p50 and p99.
   (``python -m repro_torch.launch.train``).
 * ``graphsage-reddit`` runs its cell's train step for each request, as
   the JAX launcher does: the ``--shape`` cell's (default ``molecule``;
-  ``configs/registry.GNN_CELLS``) dense step, each request's from the same
-  base parameters (seed 0) and fresh optimizer state, on a batch drawn
-  from ``np.random.default_rng(i + 1)`` for request i as the train
-  launcher draws one (``launch/train.gnn_arrays``: at ``molecule`` a
-  ``synthetic.molecule_batch``; the JAX launcher draws random arrays of the
-  cell's shapes instead, through ``launch/materialize.py``, which the port
-  lacks), uploaded before the request is timed.  The latency is the step
-  and the wait for its loss on the host.
+  ``configs/registry.GNN_CELLS``) bundle from ``launch/cells.build_cell``
+  at the local mesh, its arguments from ``materialize_bundle`` (seed 0:
+  the base parameters, zero optimizer state, step 0; the warm-up runs
+  them), and request i's optimizer state, step and batch random arrays of
+  the bundle's shapes from ``materialize`` with seed ``i + 1`` (integers
+  below the cell's classes), the JAX launcher's draws bit for bit
+  (``gnn_request``), uploaded before the request is timed; each request
+  runs from the base parameters.  The latency is the step and the wait
+  for its loss on the host (the drawn state holds negative second
+  moments, so only the loss is checked).
 
 An LM arch (``configs/registry.LM_ARCHS``) serves its ``--shape`` cell
 (``configs/registry.LM_CELLS``, default ``decode_32k``) as the JAX
@@ -127,10 +129,10 @@ from repro_torch.data import synthetic
 from repro_torch.kernels import ops
 from repro_torch.launch import cells
 from repro_torch.launch import materialize as mat
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.materialize import materialize
 from repro_torch.models import common as cm
-from repro_torch.models import gnn
 from repro_torch.models import lm
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
@@ -335,34 +337,41 @@ def serve_with_feature_server(cfg, model, cell: registry.Cell, *, rows: int,
     return res
 
 
+def gnn_request(bundle, i: int, device) -> tuple:
+    """Request ``i``'s arguments after the parameters (optimizer state,
+    step, batch) of a GNN cell's bundle, as the JAX launcher draws them:
+    ``materialize`` of their shapes with seed ``i + 1``."""
+    return materialize(tuple(bundle.args[1:]), seed=i + 1,
+                       int_high=bundle.meta.get("int_high"), device=device)
+
+
 def serve_gnn(arch: str, shape: str, *, smoke: bool, requests: int,
               device) -> dict:
     """``requests`` runs of the GNN cell ``shape``'s train step from the
     same base parameters (the module docstring says how): p50 / p99 ms."""
-    cell, cfg, params, step = launch_train.gnn_setup(arch, shape, smoke,
-                                                     device)
-    state = opt.init_opt_state(params, opt.OptConfig())
+    bundle = cells.build_cell(arch, shape, mesh_mod.make_local_mesh(),
+                              smoke=smoke)
+    base = mat.materialize_bundle(bundle, seed=0, device=device)
+    configs = cells.configs_of(arch)
+    name = (configs.SMOKE if smoke else configs.CONFIG).name
 
-    def request(seed):
-        return gnn.gnn_batch(launch_train.gnn_arrays(
-            np.random.default_rng(seed), cell), cell.kind, device)
+    def answer(args) -> float:
+        return float(bundle.fn(*args)[3]["loss"])
 
-    def answer(batch) -> float:
-        return float(step(params, state, 0, batch)[3]["loss"])
-
-    answer(request(0))                          # warm-up
+    answer(base)                                # warm-up
     lat, losses = [], []
     for i in range(requests):
-        batch = request(i + 1)
+        req = gnn_request(bundle, i, device)
         t0 = time.perf_counter()
-        losses.append(answer(batch))
+        losses.append(answer((base[0],) + tuple(req)))
         lat.append((time.perf_counter() - t0) * 1e3)
-    res = {"arch": cfg.name, "shape": cell.name, "device": str(device),
-           "requests": requests, "p50_ms": float(np.percentile(lat, 50)),
+    res = {"arch": name, "shape": bundle.cell.name,
+           "device": str(device), "requests": requests,
+           "p50_ms": float(np.percentile(lat, 50)),
            "p99_ms": float(np.percentile(lat, 99)),
            "finite": bool(np.isfinite(losses).all())}
-    print(f"{cfg.name}/{cell.name}: {requests} requests (a train step "
-          f"each) on {device}, p50={res['p50_ms']:.2f}ms "
+    print(f"{name}/{bundle.cell.name}: {requests} requests (a train "
+          f"step each) on {device}, p50={res['p50_ms']:.2f}ms "
           f"p99={res['p99_ms']:.2f}ms")
     return res
 

@@ -124,7 +124,8 @@ def gnn_setup(arch: str, shape: str, smoke: bool, device):
     return cell, cfg, params, fn
 
 
-HOST_DRAW_PARAMS = 1 << 26    # larger parameters are drawn on the device
+HOST_DRAW_PARAMS = mat.HOST_DRAW_PARAMS   # larger parameters are drawn
+#                                           on the device
 
 
 def _state_bytes(rule: str, shape: tuple) -> int:

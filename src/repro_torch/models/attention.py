@@ -10,7 +10,7 @@ Parameters are path-keyed dicts of tensors (``wq``, ``q_gamma``, ...), the
 JAX package's names and shapes.  The decode paths are the JAX package's
 one-device paths (the cache whole on one card: ``attention.py``'s
 fallback when the ``model`` axis has one shard); the sequence-sharded
-flash-decode waits for ROADMAP queue 1, item 15.
+flash-decode waits for ROADMAP queue 1, item 15.3.
 
 Two departures, neither of which changes a value beyond rounding:
 

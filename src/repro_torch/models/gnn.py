@@ -149,12 +149,15 @@ def sage_minibatch(params: dict, cfg: GNNConfig, block: dict) -> torch.Tensor:
 def molecule_adjacency(edges: torch.Tensor, n_nodes: int) -> seg.Adjacency:
     """The ``Adjacency`` of a molecule batch's edges [G, E, 2] (src, dst;
     -1 pad) over its G * n_nodes nodes: graph g's edge (s, d) becomes
-    g * n_nodes + s -> g * n_nodes + d, in (g, e) order; pads are dropped."""
+    g * n_nodes + s -> g * n_nodes + d, in (g, e) order; pads are dropped
+    (on the meta device, which has no data, none is: the static G * E)."""
     g = edges.shape[0]
     base = torch.arange(g, device=edges.device)[:, None] * n_nodes
-    valid = (edges[..., 0] >= 0).reshape(-1)
-    src = (edges[..., 0].long() + base).reshape(-1)[valid]
-    dst = (edges[..., 1].long() + base).reshape(-1)[valid]
+    src = (edges[..., 0].long() + base).reshape(-1)
+    dst = (edges[..., 1].long() + base).reshape(-1)
+    if edges.device.type != "meta":     # the dry-run keeps every slot
+        valid = (edges[..., 0] >= 0).reshape(-1)
+        src, dst = src[valid], dst[valid]
     return seg.adjacency(src, dst, g * n_nodes)
 
 

@@ -8,7 +8,7 @@ every expert answers its buffer, and the answers are gathered back and
 mixed by the top-k gate weights; tokens past an expert's capacity are
 dropped and counted (never silently).  With one rank the reference's
 ``all_to_all`` over ``model`` is the identity; its torch.distributed form
-waits for ROADMAP queue 1, item 15.
+waits for ROADMAP queue 1, item 15.3.
 
 One departure, the one ``core/distributed.py`` makes: only kept slots are
 written into the send buffers.  The reference also writes a zero for every

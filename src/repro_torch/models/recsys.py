@@ -66,8 +66,9 @@ from repro_torch.models import embedding_service as es
 NOT_PORTED = ("{arch} is not ported: the port trains and serves the four "
               "recsys archs (din, bst, two_tower, deepfm), graphsage-reddit "
               "and the five LM archs (train_4k, prefill_32k, decode_32k, "
-              "long_500k on one device); the LM cell builder and dry-run "
-              "and the sharded LM paths wait for ROADMAP queue 1, item 15")
+              "long_500k on one device), and builds and dry-runs every "
+              "cell at one device; the sharded LM paths wait for ROADMAP "
+              "queue 1, item 15.3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -484,11 +485,14 @@ INIT = {"din": din_init, "bst": bst_init, "two_tower": two_tower_init,
 def recsys_init(cfg: RecsysConfig, *, seed: int = 0,
                 device=None) -> _Recsys:
     """The model of ``cfg`` with random weights from ``seed``, on
-    ``device`` (default ``"cuda"``; raises without a card)."""
+    ``device`` (default ``"cuda"``; raises without a card).  On the meta
+    device its parameters have shapes and dtypes and no data, and no
+    generator is made (the meta device has none)."""
     if cfg.arch not in INIT:
         raise NotImplementedError(NOT_PORTED.format(arch=cfg.arch))
     device = ops.resolve_device(device)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     return INIT[cfg.arch](cfg, generator=generator, device=device)
 
 

@@ -40,6 +40,12 @@ from repro_torch.models import recsys as rec
 from repro_torch.train import optimizer as opt
 
 
+def _by_layer(path: str, v: torch.Tensor,
+              layer_leaves: Optional[Callable]) -> bool:
+    """Whether the leaf at ``path`` is differentiated a layer at a time."""
+    return layer_leaves is not None and layer_leaves(path) and v.dim() >= 3
+
+
 def _value_and_grad(loss_fn: Callable, params: dict, *args,
                     layer_leaves: Optional[Callable] = None):
     """-> (loss, metrics, grads of ``loss_fn(params, *args)`` w.r.t. every
@@ -50,7 +56,7 @@ def _value_and_grad(loss_fn: Callable, params: dict, *args,
     theirs (a stack of vectors, a layer's norm gains, stays whole)."""
     leaves, flat = {}, []
     for k, v in params.items():
-        if layer_leaves is not None and layer_leaves(k) and v.dim() >= 3:
+        if _by_layer(k, v, layer_leaves):
             leaves[k] = [t.requires_grad_() for t in v.detach().unbind(0)]
             flat.extend(leaves[k])
         else:
@@ -82,7 +88,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
     (module docstring), which the step returns, and the layer stacks
     (``lm.is_stacked``) are differentiated a layer at a time
     (``_value_and_grad``), their gradients a list of layers through the
-    update.
+    update (with ``accum_steps``, each layer's fp32 sum a tensor of its
+    own), so the update's work grows by a layer a layer.
 
     ``delta_ids_fn(batch) -> {table_name: ids}`` adds the embedding rows
     this step touched to ``metrics["delta_ids"]``: the per-step delta a
@@ -96,8 +103,14 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
             loss, metrics, grads = _value_and_grad(
                 loss_fn, params, batch, layer_leaves=layer_leaves)
         else:
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            # fp32 sums; a layered leaf's a list of its layers', as its
+            # gradients come (the update then goes a layer at a time)
+            grads = {k: [torch.zeros(p.shape[1:], dtype=torch.float32,
+                                     device=p.device)
+                         for _ in range(p.shape[0])]
+                     if _by_layer(k, p, layer_leaves) else
+                     torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)
                      for k, p in params.items()}
             loss = 0.0
             for i in range(accum_steps):
@@ -115,7 +128,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
                 del g
                 loss = loss + l
             for g in grads.values():
-                g /= accum_steps
+                for part in g if isinstance(g, list) else [g]:
+                    part /= accum_steps
             loss = loss / accum_steps
         if in_place:
             gnorm = opt.apply_updates_(params, grads, opt_state, opt_cfg,
