@@ -5,7 +5,7 @@
 
 Builds the kernels (``src/repro_torch/csrc/probe.cu``, ``fused_fm.cu``,
 ``embedding_bag.cu`` and ``segment_sum.cu``) with nvcc, one per library,
-all started together, then runs twenty-three phases.  Two send batch queries
+all started together, then runs twenty-four phases.  Two send batch queries
 through
 ``FeatureClient(EngineBackend(MultiTableEngine))``:
 
@@ -380,6 +380,36 @@ concatenation of the columns and the pageable copy to the card.
   against its plain version, three runs timed by events, its peak and
   time beside the dry-run's peak and bound.  **W.3**: V.1-V.3's peaks
   beside the dry-run's and ``lm_train_bytes``' estimates.
+* **X** — the sharded LM serving paths over ``torch.distributed``, after
+  W.  **X.1**: NCCL at world 1 in this process: ``_flash_decode_body``
+  (qwen3-14b's heads) and ``_mla_flash_body`` (deepseek-v3's) at one
+  shard through their all-reduces, held to the one-device decode paths
+  on the same float32 tensors within ``X1_F32_TOL`` of max, and
+  ``_moe_body`` (deepseek-v3's MoE at ``X1_EXPERTS`` experts) through the
+  NCCL ``all_to_all`` over the group of one, bitwise the local body.
+  **X.2**: four gloo ranks on the card at ``make_mesh(model=4)``
+  (``x_rank``), each drawing its share of the same weights
+  (``lm.lm_init(..., mesh=)``): qwen3-14b cut to ``X_Q_LAYERS`` layers at
+  ``decode_32k``'s 32,768 positions (8,192 a rank) and U.1's batch 8,
+  the launcher's request 1, a warm-up, ``X_Q_STEPS`` timed chained steps
+  and one traced for its collectives' host time; rank 0 then decodes the
+  same tokens over the whole caches in one process on the card, every
+  step's logits within ``U3_BF16_TOL`` of max |logit| of the ranks' (all
+  four the same bits).  deepseek-v3-671b cut to 1 dense and 1 MoE layer
+  (64 of the 256 experts a rank): a prefill of ``X_D_PROMPT`` tokens (the
+  MoE's sequence split, 1,024 a rank) into caches split along the
+  sequence, then ``X_D_STEPS`` decode steps.  X fails if any layer took
+  the one-device path (``attention.DECODE_PATHS``, ``moe.EP_PATHS``).
+  After the ranks exit, this process draws deepseek-v3 whole at the same
+  seed (~28 GB, never beside the ranks) and holds each rank's MoE taps
+  (prefill and decode) to the local ``_moe_body`` over the same tokens
+  (the same capacity) within ``U_MOE_TOL`` normwise, the same dropped
+  share, and the prefill taps through ``moe_check`` (a numpy recount of
+  the drops, 256 tokens against float64).  It prints each rank's step
+  and prefill times, the exchange's share of the traced step, its peak
+  beside its weight and cache bytes, the card's peak across the
+  processes, and the decode step's p50 at four ranks beside one
+  process.  X launches none of the kernels.
 
 Then each kernel is timed at the shapes the main path gave it (and the bulk
 kernels at the ``serve_bulk`` batch of 262,144 rows), beside its plain
@@ -675,6 +705,19 @@ W2_CELLS = (("deepfm", "serve_p99"), ("deepfm", "train_batch"),
             ("graphsage-reddit", "full_graph_sm"))
 W2_DECODE_BATCH = U1_DECODE_BATCHES[0]   # U.1's cut of decode_32k's 128
 W_RUNS = 3                     # W.2: timed runs after the checked one
+X_SEED = 37
+X1_BATCH, X1_SEQ = 8, 4096     # X.1: the flash bodies' batch and positions
+X1_TOKENS, X1_EXPERTS = 512, 16  # X.1: deepseek-v3's MoE at 16 experts
+X1_F32_TOL = 1e-5              # float32 body against the one-device path
+X_WORLD = 4                    # X.2: gloo ranks on the one card, model 4
+X_Q_LAYERS = 4                 # X.2 qwen3-14b: 4 of its 40 layers
+X_Q_BATCH = U1_DECODE_BATCHES[0]  # decode_32k's 128 sequences cut to U.1's
+X_Q_STEPS = 8                  # timed decode steps after one warm-up
+X_D_PROMPT = 4096              # X.2 deepseek-v3: the prefill's tokens
+X_D_STEPS = 4                  # its decode steps after the prefill
+X_TIMEOUT_S = 600              # the ranks, and each gloo collective
+X_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_x")
 W_TIMEOUT_S = 1000             # the dry-run child, from the script's start
 REPLACES = {"probe_lines": "src/repro/kernels/neighbor_lookup.py:235",
             "probe_smem": "src/repro/kernels/neighbor_lookup.py:106",
@@ -5203,20 +5246,23 @@ class TSpans:
     """Per-batch time in the sharded lookup's layers, while the block runs:
     each rank-local probe by CUDA events (``distributed._probe``; the host
     clock in a rehearsal on the CPU) and each collective by the host clock
-    (``all_to_all``, ``all_reduce_sum``: with gloo, the copies to the host
-    and back included).  ``take()`` returns (probe ms, exchange ms) since
-    the last call."""
+    (``COLLECTIVES``: with gloo, the copies to the host and back
+    included).  ``take()`` returns (probe ms, exchange ms) since the last
+    call."""
+
+    COLLECTIVES = ("all_to_all", "all_gather", "all_reduce_sum",
+                   "all_reduce_max")
 
     def __init__(self, device):
         self.cuda = device.type == "cuda"
         self.events, self.exchange_s, self.probe_s = [], 0.0, 0.0
         self.orig = {k: getattr(tdist, k)
-                     for k in ("_probe", "all_to_all", "all_reduce_sum")}
+                     for k in ("_probe",) + self.COLLECTIVES}
 
     def __enter__(self):
         tdist._probe = self._probe
-        tdist.all_to_all = self._timed(self.orig["all_to_all"])
-        tdist.all_reduce_sum = self._timed(self.orig["all_reduce_sum"])
+        for k in self.COLLECTIVES:
+            setattr(tdist, k, self._timed(self.orig[k]))
         return self
 
     def __exit__(self, *exc):
@@ -5476,14 +5522,11 @@ def t3_rank(rank, device, params, cfg, path):
 T_RANKS = {"T.2": t2_rank, "T.3": t3_rank}
 
 
-def spawn_ranks(subs, device):
-    """``T_WORLD`` ranks in spawned processes, each running the
-    sub-phases of ``subs`` ({name: payload}) in turn; fails the run if one
-    exits non-zero or the set passes ``T_TIMEOUT_S`` (every rank is then
-    killed).  Returns {name: each rank's (arrays, metrics)} (only rank 0
-    writes T.3's arrays; every rank the digests of its own) and the card's
-    peak use across all processes (``torch.cuda.mem_get_info``, polled;
-    None on the CPU)."""
+def run_world(tag, target, args, world, timeout_s, device):
+    """``world`` spawned processes of ``target(rank, *args)``; fails the
+    run if one exits non-zero or the set passes ``timeout_s`` (every rank
+    is then killed) -> the card's peak use across all processes
+    (``torch.cuda.mem_get_info``, polled; None on the CPU)."""
     cuda = device.type == "cuda"
     total = torch.cuda.mem_get_info()[1] if cuda else 0
     low, stop = [total], threading.Event()
@@ -5494,24 +5537,34 @@ def spawn_ranks(subs, device):
             stop.wait(0.05)
     watcher = threading.Thread(target=poll, daemon=True)
     watcher.start()
-    rdvs = {sub: t_rdv(sub) for sub in subs}
     ctx = torch.multiprocessing.start_processes(
-        t_rank, args=(subs, rdvs, T_WORLD, device.type), nprocs=T_WORLD,
-        join=False, start_method="spawn")
-    deadline = time.perf_counter() + T_TIMEOUT_S
+        target, args=args, nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout_s
     try:
         while not ctx.join(timeout=1):
             if time.perf_counter() > deadline:
                 for p in ctx.processes:
                     p.kill()
-                fail(f"[T] ranks passed {T_TIMEOUT_S} s")
+                fail(f"[{tag}] ranks passed {timeout_s} s")
     except torch.multiprocessing.ProcessRaisedException as e:
-        fail(f"[T] a rank failed:\n{e}")
+        fail(f"[{tag}] a rank failed:\n{e}")
     except torch.multiprocessing.ProcessExitedException as e:
-        fail(f"[T] a rank exited with code {e.exit_code}")
+        fail(f"[{tag}] a rank exited with code {e.exit_code}")
     finally:
         stop.set()
         watcher.join()
+    return total - low[0] if cuda else None
+
+
+def spawn_ranks(subs, device):
+    """``T_WORLD`` ranks in spawned processes, each running the
+    sub-phases of ``subs`` ({name: payload}) in turn (``run_world``).
+    Returns {name: each rank's (arrays, metrics)} (only rank 0 writes
+    T.3's arrays; every rank the digests of its own) and the card's peak
+    use across all processes."""
+    rdvs = {sub: t_rdv(sub) for sub in subs}
+    peak = run_world("T", t_rank, (subs, rdvs, T_WORLD, device.type),
+                     T_WORLD, T_TIMEOUT_S, device)
     outs = {}
     for sub in subs:
         outs[sub] = []
@@ -5523,7 +5576,7 @@ def spawn_ranks(subs, device):
                     arrays = dict(f)
             with open(os.path.join(T_DIR, f"{sub}-rank{r}.json")) as f:
                 outs[sub].append((arrays, json.load(f)))
-    return outs, (total - low[0] if cuda else None)
+    return outs, peak
 
 
 def same_digests(outs, names, what):
@@ -6929,6 +6982,505 @@ def run_phase_w3(recs, v_peaks: dict, n_v1: int, smoke=False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase X: the sharded LM serving paths over torch.distributed
+# ---------------------------------------------------------------------------
+def x_paths_zero() -> None:
+    for counts in (attn.DECODE_PATHS, moe.EP_PATHS):
+        for k in counts:
+            counts[k] = 0
+
+
+def x_paths() -> dict:
+    return {**attn.DECODE_PATHS, **moe.EP_PATHS}
+
+
+def x_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-300)).item()
+
+
+def run_phase_x1(device, smoke=False) -> dict:
+    """X.1: a world of one over NCCL in this process (gloo on the CPU):
+    ``_flash_decode_body`` and ``_mla_flash_body`` at one shard through
+    their all-reduces, wired as ``gqa_decode`` / ``mla_decode`` wire them,
+    against the one-device decode paths on the same float32 tensors
+    (output and cache within ``X1_F32_TOL`` of their max); ``_moe_body``
+    through the NCCL ``all_to_all`` over the group of one against the
+    local body, bitwise (output, aux, dropped share)."""
+    gqa_cfg = (qwen3_14b.SMOKE if smoke else qwen3_14b.CONFIG).gqa_cfg()
+    mla_cfg = (deepseek_v3_671b.SMOKE if smoke
+               else deepseek_v3_671b.CONFIG).mla_cfg()
+    mcfg = dataclasses.replace(
+        (deepseek_v3_671b.SMOKE if smoke else deepseek_v3_671b.CONFIG).moe,
+        n_experts=X1_EXPERTS)
+    b, seq = (2, 16) if smoke else (X1_BATCH, X1_SEQ)
+    torch.distributed.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo", init_method=t_rdv("x1"),
+        world_size=1, rank=0)
+    out = {}
+    try:
+        group = torch.distributed.group.WORLD
+        out["exchange"] = tdist.exchange_route(group, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(X_SEED)
+        pos = torch.linspace(0, seq - 1, b, device=device).to(torch.int32)
+        x = torch.randn(b, 1, gqa_cfg.d_model, generator=gen, device=device)
+        p = attn.gqa_init(gqa_cfg, generator=gen, device=device,
+                          dtype=torch.float32)
+        kv_shape = (b, seq, gqa_cfg.n_kv_heads, gqa_cfg.head_dim)
+        kc, vc = (torch.randn(kv_shape, generator=gen, device=device)
+                  for _ in range(2))
+        with torch.no_grad():
+            # each path twice (it writes the same entries again), the
+            # second timed
+            whole = {"k": kc.clone(), "v": vc.clone()}
+            for _ in range(2):
+                (y_w, _), w_host, w_ev = u_timed(
+                    lambda: attn.gqa_decode(p, gqa_cfg, x, whole, pos),
+                    device)
+            q, k_new, v_new = attn._gqa_qkv(p, gqa_cfg, x, pos)
+            h, kv, dh = gqa_cfg.n_heads, gqa_cfg.n_kv_heads, gqa_cfg.head_dim
+            for _ in range(2):
+                (o, kc, vc), f_host, f_ev = u_timed(
+                    lambda: attn._flash_decode_body(
+                        q.view(b, kv, h // kv, dh), kc, vc, k_new[:, 0],
+                        v_new[:, 0], pos, group=group, index=0, smax=seq,
+                        n_shards=1), device)
+            y_f = o.view(b, 1, h * dh) @ p["wo"]
+        out["gqa"] = {"batch": b, "positions": seq,
+                      "rel_err": max(x_rel(y_f, y_w),
+                                     x_rel(kc, whole["k"]),
+                                     x_rel(vc, whole["v"])),
+                      "body_host_ms": f_host, "body_event_ms": f_ev,
+                      "whole_host_ms": w_host, "whole_event_ms": w_ev}
+        del p, kc, vc, whole, o
+        p = attn.mla_init(mla_cfg, generator=gen, device=device,
+                          dtype=torch.float32)
+        x = torch.randn(b, 1, mla_cfg.d_model, generator=gen, device=device)
+        ckv = torch.randn(b, seq, mla_cfg.kv_lora, generator=gen,
+                          device=device)
+        kr = torch.randn(b, seq, mla_cfg.dh_rope, generator=gen,
+                         device=device)
+        with torch.no_grad():
+            whole = {"ckv": ckv.clone(), "kr": kr.clone()}
+            for _ in range(2):
+                (y_w, _), w_host, w_ev = u_timed(
+                    lambda: attn.mla_decode(p, mla_cfg, x, whole, pos),
+                    device)
+            q_abs, qr, ckv_new, kr_new = attn._mla_absorbed(p, mla_cfg, x,
+                                                            pos)
+            for _ in range(2):
+                (ctx, ckv, kr), f_host, f_ev = u_timed(
+                    lambda: attn._mla_flash_body(
+                        q_abs, qr, ckv, kr, ckv_new, kr_new, pos,
+                        group=group, index=0, smax=seq, n_shards=1,
+                        scale=attn.mla_scale(mla_cfg)), device)
+            y_f = attn._mla_out(p, mla_cfg, ctx, x.dtype)
+        out["mla"] = {"batch": b, "positions": seq,
+                      "rel_err": max(x_rel(y_f, y_w),
+                                     x_rel(ckv, whole["ckv"]),
+                                     x_rel(kr, whole["kr"])),
+                      "body_host_ms": f_host, "body_event_ms": f_ev,
+                      "whole_host_ms": w_host, "whole_event_ms": w_ev}
+        del p, ckv, kr, whole
+        mp = moe.moe_init(mcfg, generator=gen, device=device,
+                          dtype=torch.bfloat16)
+        xt = torch.randn(X1_TOKENS, mcfg.d_model, generator=gen,
+                         device=device).to(torch.bfloat16)
+        with torch.no_grad():
+            for _ in range(2):
+                local, l_host, l_ev = u_timed(
+                    lambda: moe._moe_body(mp, xt, mcfg), device)
+                exch, e_host, e_ev = u_timed(
+                    lambda: moe._moe_body(mp, xt, mcfg, group), device)
+        out["moe"] = {
+            "experts": mcfg.n_experts, "tokens": X1_TOKENS,
+            "capacity": moe.capacity(mcfg, X1_TOKENS),
+            "bitwise": all(torch.equal(a, c) for a, c in zip(local, exch)),
+            "dropped_share": float(local[2]),
+            "exchanged_host_ms": e_host, "exchanged_event_ms": e_ev,
+            "local_host_ms": l_host, "local_event_ms": l_ev}
+        del mp
+    finally:
+        torch.distributed.destroy_process_group()
+        u_free(device)
+    for name in ("gqa", "mla"):
+        if not out[name]["rel_err"] <= X1_F32_TOL:
+            fail(f"[X.1] the {name} flash body at one shard is "
+                 f"{out[name]['rel_err']} of max from the one-device "
+                 f"decode (limit {X1_F32_TOL})")
+    if not out["moe"]["bitwise"]:
+        fail("[X.1] the MoE body through the all_to_all over a group of "
+             "one differs from the local body")
+    return out
+
+
+def x_configs(smoke=False) -> dict:
+    """X.2's two configs at published width, cut in depth."""
+    if smoke:
+        return {"qwen3": dataclasses.replace(qwen3_14b.SMOKE, n_layers=2),
+                "deepseek": dataclasses.replace(
+                    deepseek_v3_671b.SMOKE, n_layers=2, n_dense_layers=1,
+                    mtp_depth=0)}
+    return {"qwen3": dataclasses.replace(qwen3_14b.CONFIG,
+                                         n_layers=X_Q_LAYERS),
+            "deepseek": dataclasses.replace(
+                deepseek_v3_671b.CONFIG, n_layers=2, n_dense_layers=1,
+                mtp_depth=0)}
+
+
+def x_reserved(device):
+    """The most this process's allocator held from the card (blocks freed
+    but kept included) since the last reset."""
+    return (torch.cuda.max_memory_reserved(device) if device.type == "cuda"
+            else None)
+
+
+def x_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def x_decode_chain(step, params, token, pos, caches, steps, device):
+    """1 + ``steps`` chained decode steps (the first a warm-up), one more
+    traced for its collectives' host time -> (the tokens fed, each step's
+    logits in fp32 on the host, the timed steps' host and event ms, the
+    traced step's host ms and its collectives' host ms)."""
+    fed, logits_all, host, ev = [], [], [], []
+    for i in range(steps + 2):
+        fed.append(token.clone())
+        if i == steps + 1:
+            with TSpans(device) as spans:
+                (logits, caches), traced_ms, _ = u_timed(
+                    lambda: step(params, token, pos, caches), device)
+                exchange_ms = spans.take()[1]
+        else:
+            (logits, caches), h_ms, e_ms = u_timed(
+                lambda: step(params, token, pos, caches), device)
+            if i:
+                host.append(h_ms)
+                ev.append(e_ms)
+        logits_all.append(logits.float().cpu())
+        token, pos = logits.float().argmax(-1).to(token.dtype), pos + 1
+    return fed, logits_all, host, ev, (traced_ms, exchange_ms)
+
+
+def x2_qwen(rank, mesh, device, cfg, smoke) -> tuple[dict, dict]:
+    """X.2's qwen3-14b ``decode_32k`` at this rank: its share of the
+    weights (all of them: no experts) and of the launcher's request 1
+    (``launch_serve.lm_request``: its slices of the caches), then the
+    chained decode steps; rank 0 then decodes the same tokens over the
+    whole caches in one process, on the same card, and holds every step's
+    logits to the ranks' within ``U3_BF16_TOL`` of max |logit|."""
+    cell = registry.cell_by_name("decode_32k", "lm")
+    if smoke:
+        cell = registry.reduce_cell(cell)
+    b, s = (cell.dims["batch"] if smoke else X_Q_BATCH), cell.dims["seq"]
+    u_reset_peak(device)
+    params = lm.lm_init(cfg, seed=0, device=device, mesh=mesh)
+    token, pos, caches = launch_serve.lm_request(cfg, cell, b, 1, device,
+                                                 mesh)
+    pos0 = pos.clone()
+    x_paths_zero()
+    fed, logits_all, host, ev, traced = x_decode_chain(
+        serve_step.lm_decode_fn(cfg, mesh, s), params, token, pos, caches,
+        X_Q_STEPS if not smoke else 2, device)
+    m = {"batch": b, "positions": s, "positions_a_rank": s // mesh.size(
+        "model"), "steps": len(host), "paths": x_paths(),
+         "step_host_ms": host, "step_event_ms": ev,
+         "step_ms_p50": float(np.percentile(ev if ev[0] is not None
+                                            else host, 50)),
+         "traced_step_host_ms": traced[0],
+         "traced_exchange_host_ms": traced[1],
+         "exchange_share": traced[1] / traced[0],
+         "weight_bytes": x_bytes(params.values()),
+         "cache_bytes": x_bytes(t for e in caches.values()
+                                for t in e.values()),
+         "peak_bytes": max_memory(device),
+         "peak_reserved_bytes": x_reserved(device),
+         "finite": all(bool(l.isfinite().all()) for l in logits_all)}
+    del caches
+    u_free(device)
+    if rank == 0:
+        whole_token, whole_pos, whole = launch_serve.lm_request(
+            cfg, cell, b, 1, device)
+        if not torch.equal(whole_pos, pos0):
+            fail("[X.2] the one-process request's positions differ")
+        one = serve_step.lm_decode_fn(cfg)
+        errs, host1, ev1 = [], [], []
+        p = whole_pos
+        for i, tok in enumerate(fed):
+            (got, whole), h_ms, e_ms = u_timed(
+                lambda: one(params, tok, p, whole), device)
+            if i:
+                host1.append(h_ms)
+                ev1.append(e_ms)
+            want = logits_all[i]
+            errs.append(((got.float().cpu() - want).abs().max()
+                         / want.abs().max()).item())
+            p = p + 1
+        m["one_process"] = {
+            "step_host_ms": host1, "step_event_ms": ev1,
+            "step_ms_p50": float(np.percentile(
+                ev1 if ev1[0] is not None else host1, 50)),
+            "rel_err": errs, "cache_bytes": x_bytes(
+                t for e in whole.values() for t in e.values())}
+        del whole
+    del params
+    u_free(device)
+    m["logits_digest"] = digest(torch.stack(logits_all).numpy())
+    return m, {}
+
+
+def x_tap_arrays(taps, prefix) -> dict:
+    """MoE taps (tokens, output, dropped share) as host arrays, bf16 by its
+    bits."""
+    out = {}
+    for i, (x, y, dropped) in enumerate(taps):
+        for name, t in (("x", x), ("y", y)):
+            t = t.detach().cpu()
+            out[f"{prefix}{i}_{name}"] = (t.view(torch.int16) if t.dtype ==
+                                          torch.bfloat16 else t).numpy()
+        out[f"{prefix}{i}_dropped"] = np.array(float(dropped), np.float32)
+    return out
+
+
+def x2_deepseek(rank, mesh, device, cfg, smoke) -> tuple[dict, dict]:
+    """X.2's deepseek-v3-671b at this rank: its share of the weights (64 of
+    the 256 experts), a prefill of ``X_D_PROMPT`` tokens (the MoE's
+    sequence split over the 4 ranks) into its slices of caches of
+    ``X_D_PROMPT + X_D_STEPS`` positions, then ``X_D_STEPS`` chained decode
+    steps (the flash body, the MoE over the whole batch); every MoE tap
+    saved for the parent's check."""
+    prompt = 32 if smoke else X_D_PROMPT
+    cache_len = prompt + X_D_STEPS
+    u_reset_peak(device)
+    params = lm.lm_init(cfg, seed=0, device=device, mesh=mesh)
+    tokens = u_tokens(cfg, (1, prompt), 1, device)
+    taps = []
+    x_paths_zero()
+    with torch.no_grad():
+        (logits, caches), pre_host, pre_ev = u_timed(
+            lambda: lm.lm_prefill(params, cfg, tokens, cache_len, mesh,
+                                  taps), device)
+        finite = bool(logits.isfinite().all())
+        token = logits.float().argmax(-1).to(torch.int32)
+        pos = torch.full((1,), prompt, dtype=torch.int32, device=device)
+        host, ev, dec_taps = [], [], []
+        for _ in range(X_D_STEPS):
+            (logits, caches), h_ms, e_ms = u_timed(
+                lambda: lm.lm_decode_step(params, cfg, token, pos, caches,
+                                          mesh, cache_len, dec_taps),
+                device)
+            host.append(h_ms)
+            ev.append(e_ms)
+            finite = finite and bool(logits.isfinite().all())
+            token, pos = logits.float().argmax(-1).to(torch.int32), pos + 1
+    m = {"prompt": prompt, "cache_positions": cache_len,
+         "positions_a_rank": cache_len // mesh.size("model"),
+         "moe_tokens_a_rank_prefill": int(taps[0][0].shape[0]),
+         "paths": x_paths(), "prefill_host_ms": pre_host,
+         "prefill_event_ms": pre_ev, "step_host_ms": host,
+         "step_event_ms": ev, "weight_bytes": x_bytes(params.values()),
+         "cache_bytes": x_bytes(t for e in caches.values()
+                                for t in e.values()),
+         "peak_bytes": max_memory(device),
+         "peak_reserved_bytes": x_reserved(device), "finite": finite,
+         "prefill_dropped_share": float(taps[0][2])}
+    arrays = {**x_tap_arrays(taps, "prefill"),
+              **x_tap_arrays(dec_taps, "decode")}
+    del params, caches, taps, dec_taps
+    u_free(device)
+    return m, arrays
+
+
+def x_rank(rank, world, rdv, device_type, smoke):
+    """One X.2 rank, spawned: gloo over card 0 (the CPU in a rehearsal),
+    ``make_mesh(model=world)``, qwen3-14b's decode then deepseek-v3's
+    prefill and decode; its metrics and arrays under ``X_DIR``."""
+    device = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    t0 = time.perf_counter()
+    torch.distributed.init_process_group(
+        "gloo", init_method=rdv, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=X_TIMEOUT_S))
+    out, arrays = {"start_seconds": time.perf_counter() - t0}, {}
+    try:
+        mesh = launch_mesh.make_mesh(model=world)
+        out["exchange"] = tdist.exchange_route(mesh.model_group, device)
+        cfgs = x_configs(smoke)
+        for tag, run in (("qwen3", x2_qwen), ("deepseek", x2_deepseek)):
+            # every rank's last run freed before any draws the next
+            torch.distributed.barrier()
+            t1 = time.perf_counter()
+            out[tag], a = run(rank, mesh, device, cfgs[tag], smoke)
+            out[tag]["seconds"] = time.perf_counter() - t1
+            arrays.update({f"{tag}_{k}": v for k, v in a.items()})
+    finally:
+        torch.distributed.destroy_process_group()
+    np.savez(os.path.join(X_DIR, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(X_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def x_spawn(device, smoke) -> tuple:
+    """``X_WORLD`` ranks (``x_rank``, ``run_world``) -> each rank's
+    (metrics, arrays) and the card's peak use across all processes."""
+    peak = run_world("X.2", x_rank, (X_WORLD, t_rdv("x2"), device.type,
+                                     smoke), X_WORLD, X_TIMEOUT_S, device)
+    outs = []
+    for r in range(X_WORLD):
+        with np.load(os.path.join(X_DIR, f"rank{r}.npz")) as f:
+            arrays = dict(f)
+        with open(os.path.join(X_DIR, f"rank{r}.json")) as f:
+            outs.append((json.load(f), arrays))
+    return outs, peak
+
+
+def x_tap(arrays, prefix, i, device):
+    def t(name):
+        a = torch.from_numpy(arrays[f"{prefix}{i}_{name}"])
+        return (a.view(torch.bfloat16) if a.dtype == torch.int16
+                else a).to(device)
+    return t("x"), t("y"), float(arrays[f"{prefix}{i}_dropped"])
+
+
+def check_x2(outs, device, cfgs, smoke) -> dict:
+    """After the ranks: every layer on the sharded path, the qwen3 ranks'
+    logits equal and within ``U3_BF16_TOL`` of the one-process decode;
+    then deepseek-v3 whole (this process, the ranks gone) at the same
+    seed: each rank's MoE answers against the local ``_moe_body`` over its
+    tokens (the same capacity) within ``U_MOE_TOL`` normwise, their
+    dropped shares equal, and the prefill taps through ``moe_check`` (the
+    dropped share against a numpy recount, tokens against float64)."""
+    q_cfg, d_cfg = cfgs["qwen3"], cfgs["deepseek"]
+    m = {}
+    for r, (o, _) in enumerate(outs):
+        q, d = o["qwen3"], o["deepseek"]
+        want_q = {"flash": (q["steps"] + 2) * q_cfg.n_layers, "whole": 0,
+                  "expert_parallel": 0, "local": 0}
+        steps_d = len(d["step_host_ms"])
+        want_d = {"flash": steps_d * d_cfg.n_layers, "whole": 0,
+                  "expert_parallel": (steps_d + 1) * d_cfg.n_moe_layers,
+                  "local": 0}
+        for name, got, want in (("qwen3-14b", q["paths"], want_q),
+                                ("deepseek-v3", d["paths"], want_d)):
+            if got != want:
+                fail(f"[X.2] rank {r} {name}: the layers took {got}; every "
+                     f"one must take the sharded path: {want}")
+        if not (q["finite"] and d["finite"]):
+            fail(f"[X.2] rank {r}: a logit is not finite")
+    for r, (o, _) in enumerate(outs[1:], 1):
+        if o["qwen3"]["logits_digest"] != outs[0][0]["qwen3"]["logits_digest"]:
+            fail(f"[X.2] rank {r}'s qwen3 logits differ from rank 0's")
+    one = outs[0][0]["qwen3"]["one_process"]
+    if not max(one["rel_err"]) <= U3_BF16_TOL:
+        fail(f"[X.2] qwen3-14b's decode over 4 ranks is {max(one['rel_err'])}"
+             f" of max |logit| from the one-process decode (limit "
+             f"{U3_BF16_TOL})")
+    m["qwen3_rel_err_max"] = max(one["rel_err"])
+    u_free(device)
+    t0 = time.perf_counter()
+    whole = lm.lm_init(d_cfg, seed=0, device=device)
+    mp = cm.sub(lm.layer_view(whole, "moe_layers", 0), "moe")
+    checks = []
+    with torch.no_grad():
+        for r, (_, a) in enumerate(outs):
+            for prefix in ("deepseek_prefill", "deepseek_decode"):
+                n = sum(1 for k in a if k.startswith(prefix)
+                        and k.endswith("_dropped"))
+                for i in range(n):
+                    x, y, dropped = x_tap(a, prefix, i, device)
+                    want, _, want_drop = moe._moe_body(mp, x, d_cfg.moe)
+                    diff = (y.double() - want.double()).norm(dim=-1)
+                    den = want.double().norm(dim=-1)
+                    rel = torch.where(den > 0, diff / den.clamp(
+                        min=1e-300), diff).max().item()
+                    row = {"rank": r, "tap": f"{prefix}{i}",
+                           "tokens": int(x.shape[0]),
+                           "capacity": moe.capacity(d_cfg.moe, x.shape[0]),
+                           "dropped_share": dropped,
+                           "local_dropped_share": float(want_drop),
+                           "max_normwise_err_vs_local": rel,
+                           "bitwise_local": bool(torch.equal(y, want))}
+                    if prefix.endswith("prefill"):
+                        row["f64"] = moe_check(
+                            whole, d_cfg, (x, y, torch.tensor(dropped)),
+                            device, tag=f"X.2 rank {r}",
+                            n_check=64 if smoke else U_MOE_CHECK_TOKENS)
+                    if dropped != float(want_drop):
+                        fail(f"[X.2] rank {r} {prefix}{i}: dropped "
+                             f"{dropped}, the local body {float(want_drop)}")
+                    if not rel <= U_MOE_TOL:
+                        fail(f"[X.2] rank {r} {prefix}{i}: the expert-"
+                             f"parallel MoE is {rel} (normwise) from the "
+                             f"local body (limit {U_MOE_TOL})")
+                    checks.append(row)
+    decode = [c for c in checks if "decode" in c["tap"]]
+    m["moe_checks"] = [c for c in checks if "prefill" in c["tap"]]
+    m["moe_decode_checks"] = {
+        "taps": len(decode), "bitwise_local": sum(c["bitwise_local"]
+                                                  for c in decode),
+        "max_normwise_err_vs_local": max(c["max_normwise_err_vs_local"]
+                                         for c in decode),
+        "dropped_shares": sorted({c["dropped_share"] for c in decode})}
+    m["whole_check_seconds"] = time.perf_counter() - t0
+    m["whole_weight_bytes"] = x_bytes(whole.values())
+    del whole, mp
+    u_free(device)
+    return m
+
+
+def run_phase_x(device, smoke=False) -> dict:
+    """X.1 here, then X.2 in ``X_WORLD`` spawned gloo ranks on the card
+    and its checks -> metrics."""
+    shutil.rmtree(X_DIR, ignore_errors=True)
+    os.makedirs(X_DIR, exist_ok=True)
+    cfgs = x_configs(smoke)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["X.1"] = run_phase_x1(device, smoke)
+        out["X.1"]["seconds"] = time.perf_counter() - t0
+        print("[X.1] " + json.dumps(out["X.1"]), flush=True)
+        held = torch.cuda.memory_allocated(device) if device.type == "cuda" \
+            else None
+        t0 = time.perf_counter()
+        outs, peak = x_spawn(device, smoke)
+        ranks_s = time.perf_counter() - t0
+        for r, (o, _) in enumerate(outs):
+            print(f"[X.2] rank {r} " + json.dumps(o), flush=True)
+        print("[X.2] " + json.dumps({
+            "ranks_seconds": ranks_s, "peak_bytes_all_processes": peak,
+            "parent_allocated_bytes": held}), flush=True)
+        if peak is not None and peak >= U_PEAK_BYTES:
+            fail(f"[X.2] the card's peak {peak} B is over {U_PEAK_BYTES}")
+        t0 = time.perf_counter()
+        m = check_x2(outs, device, cfgs, smoke)
+        m.update(ranks_seconds=ranks_s, peak_bytes_all_processes=peak,
+                 check_seconds=time.perf_counter() - t0)
+        out["X.2"] = m
+        print("[X.2] " + json.dumps(m), flush=True)
+        q = outs[0][0]["qwen3"]
+        print("[X.2] qwen3-14b decode_32k step p50: " + json.dumps({
+            "four_ranks_ms": q["step_ms_p50"],
+            "one_process_ms": q["one_process"]["step_ms_p50"],
+            "exchange_share_of_traced_step": q["exchange_share"]}),
+            flush=True)
+    finally:
+        shutil.rmtree(X_DIR, ignore_errors=True)
+    return out
+
+
 def build_kernels() -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -7430,6 +7982,32 @@ def main() -> int:
                                "max_abs_err": err}
         row["max_abs_err"] = max(row["max_abs_err"], err)
     del recs, m_w2, m_w3
+
+    # X: the sharded LM serving paths over torch.distributed, X.1 NCCL at
+    # world 1 here, X.2 four gloo ranks on the card; no kernel of the four
+    cfgs = x_configs()
+    print(f"reduced: X.1 deepseek-v3's MoE experts 256->{X1_EXPERTS} (a "
+          f"world of one holds every expert); the flash bodies at batch "
+          f"{X1_BATCH} over {X1_SEQ} positions in float32")
+    print(f"reduced: X.2 qwen3-14b layers 40->{X_Q_LAYERS}, decode_32k batch "
+          f"128->{X_Q_BATCH} (U.1's): "
+          f"{lm.param_bytes(cfgs['qwen3'])} B of weights and "
+          f"{lm.cache_bytes(cfgs['qwen3'], X_Q_BATCH, 32768)} B of cache, a "
+          f"quarter of the cache a rank")
+    print(f"reduced: X.2 deepseek-v3-671b layers 61->2 (1 dense, 1 MoE of "
+          f"256 experts, 64 a rank), no MTP block (serving does not run "
+          f"it): {lm.param_bytes(cfgs['deepseek'])} B whole; a prefill of "
+          f"{X_D_PROMPT} tokens at batch 1 (prefill_32k: 32 x 32768) and "
+          f"{X_D_STEPS} decode steps")
+    u_free(device)
+    zero(nl.launches, fm.launches, bagk.launches, segk.launches)
+    t_x = time.perf_counter()
+    run_phase_x(device)
+    x_counts = kernel_counts()
+    print(f"[X] took {time.perf_counter() - t_x:.1f} s; launches "
+          + json.dumps(x_counts), flush=True)
+    if any(x_counts.values()):
+        fail(f"phase X launched a kernel: {x_counts}")
 
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -20,7 +20,9 @@ package's ``sage_init`` tree over with every name and shape checked.
 blocks of its user and item tables, for the sharded user tower.
 An LM's parameters are such a dict too (``models/lm.py``), and
 ``lm_from_reference`` carries the JAX package's ``lm_init`` tree over with
-every name, shape and dtype checked, bf16 bit for bit.
+every name, shape and dtype checked, bf16 bit for bit, and
+``lm_rank_share`` cuts it and its decode caches to one rank's share of a
+``launch/mesh.make_mesh`` mesh.
 """
 from __future__ import annotations
 
@@ -278,6 +280,29 @@ def lm_from_reference(params: dict, cfg, device) -> dict:
                              f"needs {dtype}")
         out[k] = _from_numpy(leaf, device)
     return out
+
+
+def lm_rank_share(params: dict, cfg, mesh, device, caches=None):
+    """The JAX package's LM parameters (``lm_init``'s unboxed tree, numpy
+    leaves) and, where given, its decode caches (``{'dense' / 'moe':
+    {name: [L, B, Smax, ...]}}``, numpy) -> this rank of ``mesh``'s share
+    on ``device``: the experts of each MoE stack cut to the rank's ``E /
+    n`` (``lm.expert_cuts``), each cache cut to its ``[:, B / data rows,
+    Smax / n positions]`` slice (``lm.decode_cache_specs(..., mesh)``'s
+    shapes), everything else whole -> (params, caches or None).  Every
+    parameter's name, shape and dtype is checked as
+    ``lm_from_reference`` checks it."""
+    out = lm_from_reference(params, cfg, "cpu")
+    for k, (dim, start, stop) in lm.expert_cuts(cfg, mesh).items():
+        out[k] = out[k].narrow(dim, start, stop - start)
+    out = {k: v.to(device, copy=True).contiguous() for k, v in out.items()}
+    if caches is None:
+        return out, None
+    whole = {kind: {name: _from_numpy(arr, "cpu")
+                    for name, arr in entry.items()}
+             for kind, entry in caches.items()}
+    return out, {kind: {name: t.to(device) for name, t in entry.items()}
+                 for kind, entry in lm.cache_share(whole, mesh).items()}
 
 
 FROM_REFERENCE = {"deepfm": deepfm_from_reference,

@@ -34,7 +34,11 @@ Collectives run on the backend the caller gave the group.  NCCL exchanges
 the card's tensors; gloo exchanges host copies, so with gloo a CUDA
 tensor is copied to the host before each collective and back after it
 (``host_staged``): that is how several ranks share one card, which NCCL
-refuses.  uint32 words and flags travel as int32.
+refuses.  uint32 words and flags travel as int32, and a bf16 tensor that
+is only moved (``all_to_all``, ``all_gather``) as its bytes.  The
+LM's sequence-sharded decode and expert-parallel MoE
+(``models/attention.py``, ``models/moe.py``) use ``all_to_all``,
+``all_gather``, ``all_reduce_sum`` and ``all_reduce_max``.
 """
 from __future__ import annotations
 
@@ -241,6 +245,15 @@ def _int32(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32) if x.dtype == torch.uint32 else x
 
 
+def _raw(x: torch.Tensor) -> torch.Tensor:
+    """A tensor that a collective only moves, as words gloo carries: bf16
+    as its bytes (uint8, two a value along the last axis: never rounded
+    through fp32, and gloo takes no int16), uint32 as int32."""
+    if x.dtype == torch.bfloat16:
+        return x.contiguous().view(torch.uint8)
+    return x.view(torch.int32) if x.dtype == torch.uint32 else x
+
+
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Row j of the result = row ``rank`` of what rank j sent (``x`` is
     [S, ...]): the reference's tiled ``all_to_all`` on axis 0.  Its bytes
@@ -249,10 +262,36 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if analysis.note_collective("all-to-all", x.numel() * x.element_size()):
         return torch.empty_like(x)
     staged = host_staged(group, x.device)
-    send = (x.cpu() if staged else x).contiguous()      # to the host
+    send = _raw(x.cpu() if staged else x).contiguous()  # to the host
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
+    recv = recv.view(x.dtype)
     return recv.to(x.device) if staged else recv        # back to the card
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+    reference's tiled ``all_gather``), moved as raw words; counted as
+    ``all_to_all`` is (its result's bytes)."""
+    n = group_size(group)
+    shape = list(x.shape)
+    shape[dim] *= n
+    if analysis.note_collective("all-gather",
+                                x.numel() * n * x.element_size()):
+        return x.new_empty(shape)
+    staged = host_staged(group, x.device)
+    send = _raw(x.cpu() if staged else x).contiguous()  # to the host
+    parts = [torch.empty_like(send) for _ in range(n)]
+    dist.all_gather(parts, send, group=group)
+    out = torch.cat(parts, dim=dim).view(x.dtype)
+    return out.to(x.device) if staged else out          # back to the card
+
+
+def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    staged = host_staged(group, x.device)
+    out = x.cpu() if staged else x.clone()              # to the host
+    dist.all_reduce(out, op=op, group=group)
+    return out.to(x.device) if staged else out          # back to the card
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -260,10 +299,15 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     ``all_to_all`` is)."""
     if analysis.note_collective("all-reduce", x.numel() * x.element_size()):
         return torch.empty_like(x)
-    staged = host_staged(group, x.device)
-    out = x.cpu() if staged else x.clone()              # to the host
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out.to(x.device) if staged else out          # back to the card
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every rank's ``x``: the reference's
+    ``pmax`` (counted as an all-reduce)."""
+    if analysis.note_collective("all-reduce", x.numel() * x.element_size()):
+        return torch.empty_like(x)
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
 def group_size(group) -> int:

@@ -29,8 +29,8 @@ bundle's positional arguments and returns what it returns:
 ``meta`` is the reference bundle's dict, key for key (``tokens``,
 ``kv_len``, ``has_opt``, ``int_high``, ``examples``, ``edges``,
 ``seeds``, ``graphs``, ``candidates``).  The reference's ``in_shardings``
-and ``out_shardings`` are left out until the sharded LM paths (ROADMAP
-queue 1, item 15.3) consume them: at the local mesh every leaf is
+and ``out_shardings`` are left out until the production mesh (ROADMAP
+queue 1, item 15.4) consumes them: at the local mesh every leaf is
 replicated.  A full-graph cell builds its CSRs inside the step
 (``kernels/segment_sum.adjacency``), where the reference pads its edge
 list there.

@@ -43,8 +43,9 @@ meta pass counts every layer, so the totals fitted from ``base`` and
 ``base + 1`` layers must equal the full count (a mismatch fails the cell),
 and ``roofline/report.effective_record`` reads it unchanged.
 
-``--multi-pod`` and ``--both-meshes`` refuse: the production mesh runs
-the sharded LM paths, which wait for ROADMAP queue 1, item 15.3.
+``--multi-pod`` and ``--both-meshes`` refuse: the production mesh needs
+the dense weights' FSDP / tensor-parallel placement and the bundles'
+shardings, which wait for ROADMAP queue 1, item 15.4.
 """
 from __future__ import annotations
 
@@ -273,7 +274,7 @@ def run_cell(arch_id: str, shape: str, out_dir: str = DEFAULT_OUT,
             return json.load(f)
     mesh = mesh or mesh_mod.make_local_mesh()
     if not mesh.local:
-        raise SystemExit(mesh_mod.ITEM_15_3)
+        raise SystemExit(mesh_mod.ITEM_15_4)
     record = {"arch": arch_id, "shape": shape, "mesh": "local",
               "variant": variant, "smoke": smoke, "ok": False,
               "flops_convention": FLOPS_CONVENTION}
@@ -311,16 +312,16 @@ def main(argv=None) -> int:
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: the production mesh is item 15.3's")
+                    help="refused: the production mesh is item 15.4's")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--both-meshes", action="store_true",
-                    help="refused: the production mesh is item 15.3's")
+                    help="refused: the production mesh is item 15.4's")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
     if args.multi_pod or args.both_meshes:
-        raise SystemExit(mesh_mod.ITEM_15_3)
+        raise SystemExit(mesh_mod.ITEM_15_4)
     if args.all:
         jobs = cells_mod.all_cells()
     else:

@@ -13,7 +13,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-14b|deepseek-7b|nemotron-4-340b|deepseek-v3-671b|\
 qwen3-moe-235b-a22b [--shape decode_32k|prefill_32k|long_500k|train_4k] \
-        [--smoke] [--requests 20] [--batch SEQUENCES] [--device cuda|cpu]
+        [--smoke] [--requests 20] [--batch SEQUENCES] [--device cuda|cpu] \
+        [--model-ranks N]
 
 Builds the model at its published width (the arch's ``CONFIG`` in
 ``configs/``; ``--smoke`` takes ``SMOKE`` and the cell at
@@ -92,6 +93,21 @@ the loss is checked.  On the card it exits when the step's bytes
 state) pass the free memory.  It prints the request p50 and p99 and
 tokens a second.
 
+``--model-ranks N`` serves an LM's prefill or decode cell from N rank
+processes (spawned; a ``file://`` rendezvous in a temporary directory)
+at ``launch/mesh.make_mesh(model=N)``, in place of the reference's
+production mesh: each rank draws its share of the same weights
+(``lm.lm_init(..., mesh=)``: E / N experts of each MoE stack) and of each
+request (its slices of the caches, the sequence split over the N ranks
+where they divide it), and runs the sharded paths (the flash-decode's
+combine and the MoE's ``all_to_all`` over the ``model`` group).  On the
+CPU the ranks talk over gloo; on the card over NCCL where each rank has a
+card of its own, else over gloo staged through the host, every rank on
+card 0.  Each rank prints its line; the launcher returns rank 0's
+numbers, ``finite`` over every rank's.  ``train_4k`` at N ranks is
+refused: training through the expert-parallel exchange is ROADMAP queue
+1, item 15.4.
+
 ``--feature-server`` serves the feature lookups through the ported
 ``QueryServer``, as the JAX launcher's feature-server mode does: over the
 same feature engine, ``--clients`` threads each score ``--requests``
@@ -112,7 +128,11 @@ no fallback to the CPU).
 from __future__ import annotations
 
 import argparse
+import datetime
+import json
 import math
+import os
+import tempfile
 import threading
 import time
 
@@ -122,6 +142,7 @@ import torch
 from repro_torch.api.backends import EngineBackend
 from repro_torch.api.client import FeatureClient
 from repro_torch.configs import bili_feature_store, registry
+from repro_torch.core import distributed as tdist
 from repro_torch.core import hashcore as hc
 from repro_torch.core.engine import (EmbeddingTable, MultiTableEngine,
                                      ScalarTable)
@@ -134,6 +155,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.launch.materialize import materialize
 from repro_torch.models import common as cm
 from repro_torch.models import lm
+from repro_torch.models import moe
 from repro_torch.models import recsys as rec
 from repro_torch.serve import serve_step
 from repro_torch.serve.scheduler import BatchPolicy, ShedError
@@ -387,54 +409,77 @@ def lm_request_specs(cfg, cell: registry.Cell, batch: int) -> tuple:
     return (tok, tok, lm.decode_cache_specs(cfg, batch, s))
 
 
-def lm_bytes(cfg, cell: registry.Cell, batch: int) -> dict:
+def lm_bytes(cfg, cell: registry.Cell, batch: int, mesh=None) -> dict:
     """What serving ``cell`` at ``batch`` sequences holds on the device, in
     bytes: the weights, the decode caches, and the largest working set of
     one step (an estimate): for prefill one query chunk's fp32 scores, its
     softmax and their cast, with the fp32 keys and ten activations of the
-    whole prompt; for decode one layer's fp32 scores and softmax."""
+    whole prompt; for decode one layer's fp32 scores and softmax.  At a
+    ``mesh``, one rank's: its share of the weights, its slices of the
+    caches, its rows' working set."""
     s = cell.dims["seq"]
     h = cfg.n_heads
     dh = (cfg.mla_cfg().dh_nope + cfg.mla_cfg().dh_rope
           if cfg.attn_type == "mla" else cfg.head_dim)
     kv = h if cfg.attn_type == "mla" else cfg.n_kv_heads
-    caches = lm.cache_bytes(cfg, batch, s) if cell.kind == "decode" else 0
+    caches = lm.cache_bytes(cfg, batch, s, mesh) \
+        if cell.kind == "decode" else 0
+    if mesh is not None:
+        rows = mesh.batch_rows(batch)
+        batch = rows.stop - rows.start
     if cell.kind == "prefill":
         qc = min(cfg.q_chunk, s)
         work = batch * (h * qc * s * 10 + s * kv * dh * 4
                         + 10 * s * max(cfg.d_model, cfg.d_ff) * 2)
     else:
         work = batch * h * s * 8
-    return {"weights": lm.param_bytes(cfg), "caches": caches, "work": work}
+    return {"weights": lm.param_bytes(cfg, mesh), "caches": caches,
+            "work": work}
 
 
-def _device_caches(specs: dict, seed: int, device) -> dict:
+def _device_caches(specs: dict, seed: int, device, mesh=None) -> dict:
     """Decode caches of ``specs`` drawn N(0, 0.02) on ``device`` from a
-    generator seeded ``seed`` there."""
+    generator seeded ``seed`` there, one [Smax, ...] row of a layer and
+    sequence at a time; at a ``mesh``, this rank's slices of the same
+    draws (every row drawn, the rank's kept)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     out = {}
     for kind, entry in specs.items():
         out[kind] = {}
         for name, sd in entry.items():
-            t = torch.empty(sd.shape, dtype=sd.dtype, device=device)
-            for part in t.view(sd.shape[0] * sd.shape[1], -1):
-                part.copy_(torch.randn(part.shape, generator=gen,
-                                       device=device).mul_(0.02))
+            n_layers, b, s_max = sd.shape[:3]
+            rows, seq = (slice(0, b), slice(0, s_max)) if mesh is None \
+                else lm.cache_slices(mesh, b, s_max)
+            t = torch.empty((n_layers, rows.stop - rows.start,
+                             seq.stop - seq.start) + tuple(sd.shape[3:]),
+                            dtype=sd.dtype, device=device)
+            for i in range(n_layers * b):
+                part = torch.randn((s_max,) + tuple(sd.shape[3:]),
+                                   generator=gen, device=device).mul_(0.02)
+                layer, row = divmod(i, b)
+                if rows.start <= row < rows.stop:
+                    t[layer, row - rows.start].copy_(part[seq])
             out[kind][name] = t
     return out
 
 
-def lm_request(cfg, cell: registry.Cell, batch: int, seed: int, device):
-    """Request ``seed`` of an LM cell, on ``device`` (module docstring)."""
+def lm_request(cfg, cell: registry.Cell, batch: int, seed: int, device,
+               mesh=None):
+    """Request ``seed`` of an LM cell, on ``device`` (module docstring); at
+    a ``mesh``, the whole tokens and positions and this rank's slices of
+    the caches."""
     specs = lm_request_specs(cfg, cell, batch)
-    if cell.kind == "prefill" or sum(
-            math.prod(sd.shape) for e in specs[2].values()
-            for sd in e.values()) <= HOST_DRAW_ELEMENTS:
+    if cell.kind == "prefill":
         return materialize(specs, seed=seed, device=device)
+    if sum(math.prod(sd.shape) for e in specs[2].values()
+           for sd in e.values()) <= HOST_DRAW_ELEMENTS:
+        token, pos, caches = materialize(specs, seed=seed, device=device)
+        return (token, pos, caches if mesh is None
+                else lm.cache_share(caches, mesh))
     # token and pos are the first leaves: the same draws as the whole tree's
     return (*materialize(specs[:2], seed=seed, device=device),
-            _device_caches(specs[2], seed, device))
+            _device_caches(specs[2], seed, device, mesh))
 
 
 def lm_train_request_specs(cfg, ocfg: opt.OptConfig, cell: registry.Cell,
@@ -529,9 +574,10 @@ def serve_lm_train(cfg, cell: registry.Cell, b: int, requests: int,
 
 
 def serve_lm(arch: str, shape: str, *, smoke: bool, requests: int,
-             batch, device) -> dict:
+             batch, device, mesh=None) -> dict:
     """``requests`` requests of the LM cell ``shape`` (module docstring):
-    p50 / p99 ms and tokens a second."""
+    p50 / p99 ms and tokens a second; at a ``mesh``, this rank's part
+    (``--model-ranks``)."""
     configs = registry.LM_ARCHS[arch]
     cfg = configs.SMOKE if smoke else configs.CONFIG
     cell = registry.cell_by_name(shape, "lm")
@@ -540,30 +586,36 @@ def serve_lm(arch: str, shape: str, *, smoke: bool, requests: int,
     b = cell.dims["batch"] if batch is None else batch
     if cell.kind == "train":
         return serve_lm_train(cfg, cell, b, requests, device)
+    where = ""
+    if mesh is not None:
+        where = f" (rank {mesh.model_index} of {mesh.size('model')})"
     if device.type == "cuda":
-        need = lm_bytes(cfg, cell, b)
-        free = torch.cuda.mem_get_info(device)[0]
+        need = lm_bytes(cfg, cell, b, mesh)
+        # ranks that share one card (gloo) share its free memory
+        sharing = 1 if mesh is None or torch.cuda.device_count() \
+            >= mesh.size("model") else mesh.size("model")
+        free = torch.cuda.mem_get_info(device)[0] // sharing
         if sum(need.values()) > free:
             per_seq = (need["caches"] + need["work"]) / b
             fits = int((free - need["weights"]) // per_seq) if per_seq else 0
             raise SystemExit(
-                f"{cfg.name}/{cell.name} at --batch {b} needs "
+                f"{cfg.name}/{cell.name}{where} at --batch {b} needs "
                 f"{sum(need.values())} B ({need}) and the card has {free} B "
                 f"free; the largest --batch that fits is {max(fits, 0)}")
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
             = False
-    params = lm.lm_init(cfg, seed=0, device=device)
-    step = (serve_step.lm_prefill_fn(cfg) if cell.kind == "prefill"
-            else serve_step.lm_decode_fn(cfg))
+    params = lm.lm_init(cfg, seed=0, device=device, mesh=mesh)
+    step = (serve_step.lm_prefill_fn(cfg, mesh) if cell.kind == "prefill"
+            else serve_step.lm_decode_fn(cfg, mesh, cell.dims["seq"]))
 
     def answer(req):
         out = step(params, *req)
         return (out if cell.kind == "prefill" else out[0]).cpu()
 
-    answer(lm_request(cfg, cell, b, 0, device))              # warm-up
+    answer(lm_request(cfg, cell, b, 0, device, mesh))        # warm-up
     lat, finite = [], True
     for i in range(requests):
-        req = lm_request(cfg, cell, b, i + 1, device)
+        req = lm_request(cfg, cell, b, i + 1, device, mesh)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
@@ -578,9 +630,64 @@ def serve_lm(arch: str, shape: str, *, smoke: bool, requests: int,
            "p99_ms": float(np.percentile(lat, 99)),
            "tokens_per_s": tokens * len(lat) / (sum(lat) / 1e3),
            "finite": finite}
-    print(f"{cfg.name}/{cell.name}: {requests} requests of {b} x "
+    print(f"{cfg.name}/{cell.name}{where}: {requests} requests of {b} x "
           f"{cell.dims['seq']} on {device}, p50={res['p50_ms']:.2f}ms "
-          f"p99={res['p99_ms']:.2f}ms tokens/s={res['tokens_per_s']:.0f}")
+          f"p99={res['p99_ms']:.2f}ms tokens/s={res['tokens_per_s']:.0f}",
+          flush=True)
+    return res
+
+
+RANK_TIMEOUT_S = 1800
+
+
+def _serve_rank(rank: int, ranks: int, rdv: str, out_dir: str, arch: str,
+                shape: str, smoke: bool, requests: int, batch,
+                device_type: str) -> None:
+    """One rank of ``--model-ranks``, spawned: its process group, the mesh,
+    ``serve_lm`` at it, its numbers into ``out_dir``."""
+    if device_type == "cuda":
+        own_card = torch.cuda.device_count() >= ranks
+        device = torch.device("cuda", rank if own_card else 0)
+        torch.cuda.set_device(device)
+        backend = "nccl" if own_card else "gloo"
+    else:
+        device, backend = torch.device("cpu"), "gloo"
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    torch.distributed.init_process_group(
+        backend, init_method=rdv, world_size=ranks, rank=rank,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        mesh = mesh_mod.make_mesh(model=ranks)
+        res = serve_lm(arch, shape, smoke=smoke, requests=requests,
+                       batch=batch, device=device, mesh=mesh)
+        res["exchange"] = tdist.exchange_route(mesh.model_group, device)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def serve_lm_ranks(arch: str, shape: str, *, smoke: bool, requests: int,
+                   batch, device, ranks: int) -> dict:
+    """``--model-ranks``: ``ranks`` spawned processes serve the cell at
+    ``make_mesh(model=ranks)`` (module docstring) -> rank 0's numbers,
+    with ``ranks``, the exchange's route and ``finite`` over every
+    rank."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.start_processes(
+            _serve_rank, args=(ranks, "file://" + os.path.join(tmp, "rdv"),
+                               tmp, arch, shape, smoke, requests, batch,
+                               device.type),
+            nprocs=ranks, join=True, start_method="spawn")
+        results = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    res = dict(results[0], ranks=ranks,
+               finite=all(r["finite"] for r in results))
+    print(f"{res['arch']}/{res['shape']} at {ranks} model ranks over "
+          f"{res['exchange']}: p50={res['p50_ms']:.2f}ms (rank 0), every "
+          f"rank finite: {res['finite']}")
     return res
 
 
@@ -605,6 +712,10 @@ def main(argv=None) -> dict:
                     help="scoring client threads for --feature-server")
     ap.add_argument("--prefetch-clients", type=int, default=2,
                     help="PREFETCH-lane lookup threads for --feature-server")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="serve an LM's prefill or decode from this many "
+                         "rank processes, its cache and experts split over "
+                         "them")
     args = ap.parse_args(argv)
     try:
         family = registry.family(args.arch)
@@ -620,9 +731,22 @@ def main(argv=None) -> dict:
             ap.error("--feature-server takes a recsys arch")
         if args.requests < 1 or (args.batch is not None and args.batch < 1):
             ap.error("--requests and --batch must be at least 1")
+        if args.model_ranks < 1:
+            ap.error("--model-ranks must be at least 1")
+        if args.model_ranks > 1:
+            if registry.cell_by_name(shape, "lm").kind == "train":
+                raise SystemExit(f"--model-ranks serves prefill and decode; "
+                                 f"{shape} at {args.model_ranks} ranks: "
+                                 + moe.EP_AUTOGRAD)
+            return serve_lm_ranks(args.arch, shape, smoke=args.smoke,
+                                  requests=args.requests, batch=args.batch,
+                                  device=ops.resolve_device(args.device),
+                                  ranks=args.model_ranks)
         return serve_lm(args.arch, shape, smoke=args.smoke,
                         requests=args.requests, batch=args.batch,
                         device=ops.resolve_device(args.device))
+    if args.model_ranks != 1:
+        ap.error("--model-ranks takes an LM arch")
     if family == "gnn":
         if args.feature_server or args.batch is not None:
             ap.error("--feature-server and --batch take a recsys arch")

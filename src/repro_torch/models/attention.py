@@ -7,10 +7,16 @@ Shapes:  x [B, S, d];  GQA cache {k, v: [B, Smax, Hkv, dh]};
          MLA cache {ckv: [B, Smax, kv_lora], kr: [B, Smax, dh_rope]}.
 
 Parameters are path-keyed dicts of tensors (``wq``, ``q_gamma``, ...), the
-JAX package's names and shapes.  The decode paths are the JAX package's
-one-device paths (the cache whole on one card: ``attention.py``'s
-fallback when the ``model`` axis has one shard); the sequence-sharded
-flash-decode waits for ROADMAP queue 1, item 15.3.
+JAX package's names and shapes.  Decode takes the reference's two paths:
+with a ``mesh`` (``launch/mesh.make_mesh``) whose ``model`` axis has n > 1
+ranks that divide the cache's ``smax`` positions, each rank holds its
+slice ``[B_loc, smax / n, ...]`` of the cache and runs the flash-decode
+body (``_flash_decode_body``, ``_mla_flash_body``): the new entry written
+on its owning shard only, the softmax's max, sum and fp32 numerator
+combined over the ``model`` group (``core/distributed``'s
+``all_reduce_max`` and ``all_reduce_sum``).  Otherwise the cache is whole
+on the rank and the one-device path runs (the reference's fallback).
+``DECODE_PATHS`` counts which ran.
 
 Two departures, neither of which changes a value beyond rounding:
 
@@ -34,10 +40,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamSpec
 
 NEG = -1e30          # the reference's mask value
+DECODE_PATHS = {"flash": 0, "whole": 0}    # decode calls, by path
 
 
 # ---------------------------------------------------------------------------
@@ -126,8 +134,9 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Sq, Hkv, G, dv] in ``v``'s dtype.  One query chunk at a time: the
     scores in fp32 (``(q . k) * 1/sqrt(dh)``), the causal mask at -1e30,
     the softmax, then ``p`` in ``v``'s dtype times ``v``.  Each chunk's
-    tensors are freed before the next chunk starts; keys past a chunk's
-    last position are skipped under the causal mask (module docstring)."""
+    tensors are freed before the next chunk starts (the chunks run from
+    the last); keys past a chunk's last position are skipped under the
+    causal mask (module docstring)."""
     b, sq, hkv, g, dh = q.shape
     sk, dv = k.shape[1], v.shape[-1]
     scale = _scalar_in(1.0 / math.sqrt(dh), torch.float32)
@@ -137,7 +146,10 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   memory_format=torch.contiguous_format)
     vt = v.permute(0, 2, 1, 3).contiguous()              # [B, Hkv, Sk, dv]
     out = torch.empty((b, sq, hkv, g, dv), dtype=v.dtype, device=v.device)
-    for start in range(0, sq, q_chunk):
+    # the last chunk first: under the causal mask a chunk's key range, and
+    # so its score buffers, grow with its start, and taken from the last
+    # each chunk's buffers fit in the blocks the one before it freed
+    for start in reversed(range(0, sq, q_chunk)):
         n = min(q_chunk, sq - start)
         kend = min(sk, q_offset + start + n) if causal else sk
         qi = q[:, start:start + n].float().permute(0, 2, 3, 1, 4) \
@@ -223,17 +235,86 @@ def _decode_softmax(s: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.softmax(s, dim=-1)
 
 
-def gqa_decode(params: dict, cfg: GQAConfig, x: torch.Tensor, cache: dict,
-               pos: torch.Tensor):
-    """One-token decode.  x [B, 1, d]; cache ``{k, v}`` [B, Smax, Hkv, dh];
-    ``pos`` [B] the current lengths.  Writes the new key and value at
-    ``[b, pos[b]]`` of the cache IN PLACE (the reference returns a new
-    cache) and attends over positions ``<= pos[b]`` -> (y [B, 1, d], the
-    same cache dict).  One kv head at a time: its slice of the cache is a
-    strided batch of matrices, so no copy of the cache is made."""
+def seq_shards(mesh, smax: Optional[int]) -> int:
+    """The ``model`` ranks a decode cache of ``smax`` positions is split
+    over at ``mesh`` (1: whole on this rank).  A mesh whose ``model`` axis
+    has several ranks needs ``smax``, since a rank holds a slice."""
+    if mesh is None or mesh.size("model") == 1:
+        return 1
+    if smax is None:
+        raise ValueError("decode at a mesh with a model axis of "
+                         f"{mesh.size('model')} ranks needs the cache's "
+                         "whole length smax")
+    return mesh.seq_shards(smax)
+
+
+def _shard_write(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 base: int) -> None:
+    """Writes ``new[b]`` at ``[b, pos[b] - base]`` of this shard's cache
+    slice ``c`` for the rows whose position it owns, in place; every other
+    row re-writes its entry at the clamped position, as the reference
+    does (no value changes, and the host never waits for the card)."""
+    li = pos.long() - base
+    own = (li >= 0) & (li < c.shape[1])
+    li = li.clamp(0, c.shape[1] - 1)
+    bidx = torch.arange(c.shape[0], device=c.device)
+    own = own.view((-1,) + (1,) * (new.dim() - 1))
+    c.index_put_((bidx, li), torch.where(own, new.to(c.dtype), c[bidx, li]))
+
+
+def _shard_mask(s: torch.Tensor, pos: torch.Tensor, base: int) -> None:
+    """The keys of this shard past ``pos[b]`` at -1e30, in place."""
+    kpos = base + torch.arange(s.shape[-1], device=s.device)
+    mask = kpos[None, :] > pos[:, None]
+    s.masked_fill_(mask.view((s.shape[0],) + (1,) * (s.dim() - 2)
+                             + (s.shape[-1],)), NEG)
+
+
+def _flash_combine(s: torch.Tensor, group):
+    """s [B, ..., S_loc] fp32 masked scores -> (e = exp(s - m), l) with
+    ``m`` the max over every shard's keys (``pmax``) and ``l`` the sum of
+    ``e`` over them (``psum``).  A shard with every key masked gives e of
+    exactly 0 (m is finite: position 0 is always attended)."""
+    m = dist.all_reduce_max(s.amax(dim=-1), group)
+    e = torch.exp(s - m[..., None])
+    return e, dist.all_reduce_sum(e.sum(dim=-1), group)
+
+
+def _flash_decode_body(qg, k_c, v_c, k_new, v_new, pos, *, group,
+                       index: int, smax: int, n_shards: int):
+    """The reference's ``_flash_decode_body`` on one ``model`` rank: the
+    cache S-sharded over ``group``, this rank shard ``index``; the update
+    lands only in the owning shard; the softmax combines with small
+    all-reduces.  qg [B, kv, g, dh] (every rank the same); k_c / v_c this
+    rank's [B, S_loc, kv, dh], updated in place -> (o [B, kv, g, dh] in
+    v_c's dtype, k_c, v_c)."""
+    b, kv, g, dh = qg.shape
+    base = index * (smax // n_shards)
+    _shard_write(k_c, k_new, pos, base)
+    _shard_write(v_c, v_new, pos, base)
+    q = (qg * _scalar_in(1.0 / dh ** 0.5, qg.dtype)).to(k_c.dtype)
+    s = torch.empty((b, kv, g, k_c.shape[1]), dtype=torch.float32,
+                    device=qg.device)
+    for j in range(kv):
+        s[:, j] = _bmm_f32(q[:, j], k_c[:, :, j].transpose(1, 2))
+    _shard_mask(s, pos, base)
+    e, l = _flash_combine(s, group)
+    del s
+    num = torch.empty((b, kv, g, v_c.shape[-1]), dtype=torch.float32,
+                      device=qg.device)
+    for j in range(kv):
+        num[:, j] = torch.bmm(e[:, j].to(v_c.dtype), v_c[:, :, j])
+    num = dist.all_reduce_sum(num, group)
+    o = num / l.clamp(min=1e-30)[..., None]
+    return o.to(v_c.dtype), k_c, v_c
+
+
+def _gqa_qkv(params: dict, cfg: GQAConfig, x: torch.Tensor,
+             pos: torch.Tensor):
+    """A decode step's query [B, 1, H, dh] and new key and value [B, 1,
+    Hkv, dh]: the projections, the qk norms, the rope at ``pos``."""
     b = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // kv
     q = (x @ params["wq"]).view(b, 1, h, dh)
     k_new = (x @ params["wk"]).view(b, 1, kv, dh)
     v_new = (x @ params["wv"]).view(b, 1, kv, dh)
@@ -243,7 +324,32 @@ def gqa_decode(params: dict, cfg: GQAConfig, x: torch.Tensor, cache: dict,
     cos, sin = cm.rope_angles(pos[:, None], dh, cfg.rope_base)
     q = cm.apply_rope(q, cos[:, :, None], sin[:, :, None])
     k_new = cm.apply_rope(k_new, cos[:, :, None], sin[:, :, None])
+    return q, k_new, v_new
 
+
+def gqa_decode(params: dict, cfg: GQAConfig, x: torch.Tensor, cache: dict,
+               pos: torch.Tensor, mesh=None, smax: Optional[int] = None):
+    """One-token decode.  x [B, 1, d]; cache ``{k, v}`` [B, Smax, Hkv, dh]
+    (at a ``mesh`` that splits ``smax`` positions, this rank's slice
+    [B, smax / n, Hkv, dh]: module docstring); ``pos`` [B] the current
+    lengths.  Writes the new key and value at ``[b, pos[b]]`` of the cache
+    IN PLACE (the reference returns a new cache) and attends over
+    positions ``<= pos[b]`` -> (y [B, 1, d], the same cache dict).  One
+    kv head at a time: its slice of the cache is a strided batch of
+    matrices, so no copy of the cache is made."""
+    b = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // kv
+    q, k_new, v_new = _gqa_qkv(params, cfg, x, pos)
+    n = seq_shards(mesh, smax)
+    if n > 1:
+        DECODE_PATHS["flash"] += 1
+        o, _, _ = _flash_decode_body(
+            q.view(b, kv, g, dh), cache["k"], cache["v"], k_new[:, 0],
+            v_new[:, 0], pos, group=mesh.model_group,
+            index=mesh.model_index, smax=smax, n_shards=n)
+        return o.view(b, 1, h * dh) @ params["wo"], cache
+    DECODE_PATHS["whole"] += 1
     k_c, v_c = cache["k"], cache["v"]
     bidx = torch.arange(b, device=x.device)
     pidx = pos.long()
@@ -311,35 +417,84 @@ def mla_apply(params: dict, cfg: MLAConfig, x: torch.Tensor,
     return y
 
 
+def _mla_flash_body(q_abs, q_rope, ckv_c, kr_c, ckv_new, kr_new, pos, *,
+                    group, index: int, smax: int, n_shards: int,
+                    scale: float):
+    """The reference's ``_mla_flash_body`` on one ``model`` rank: the
+    latent-cache flash-decode, scores and context both in the kv_lora
+    latent space, combined over the S-shards of ``group`` with small
+    all-reduces.  q_abs [B, H, L], q_rope [B, H, dh_rope] fp32; ckv_c /
+    kr_c this rank's [B, S_loc, ...], updated in place -> (ctx [B, H, L]
+    fp32, ckv_c, kr_c)."""
+    base = index * (smax // n_shards)
+    _shard_write(ckv_c, ckv_new, pos, base)
+    _shard_write(kr_c, kr_new, pos, base)
+    s = _bmm_f32(q_abs.to(ckv_c.dtype), ckv_c.transpose(1, 2))
+    s += _bmm_f32(q_rope.to(kr_c.dtype), kr_c.transpose(1, 2))
+    s *= scale
+    _shard_mask(s, pos, base)
+    e, l = _flash_combine(s, group)
+    del s
+    num = dist.all_reduce_sum(_bmm_f32(e.to(ckv_c.dtype), ckv_c), group)
+    return num / l.clamp(min=1e-30)[..., None], ckv_c, kr_c
+
+
 def mla_decode(params: dict, cfg: MLAConfig, x: torch.Tensor, cache: dict,
-               pos: torch.Tensor):
+               pos: torch.Tensor, mesh=None, smax: Optional[int] = None):
     """Latent-cache decode in the absorbed form: the nope score is
     ``(q_nope W_uk^T) . ckv`` (``q_abs`` in fp32), the context stays in
-    the latent space and meets ``W_uv`` in fp32.  The cache is updated IN
-    PLACE at ``[b, pos[b]]`` and returned (the reference returns a new
+    the latent space and meets ``W_uv`` in fp32.  The cache (this rank's
+    slice at a ``mesh`` that splits ``smax``: module docstring) is updated
+    IN PLACE at ``[b, pos[b]]`` and returned (the reference returns a new
     one) -> (y [B, 1, d], cache)."""
     b = x.shape[0]
+    q_abs, qr, ckv_new, kr_new = _mla_absorbed(params, cfg, x, pos)
+    scale = mla_scale(cfg)
+    ckv_c, kr_c = cache["ckv"], cache["kr"]
+    n = seq_shards(mesh, smax)
+    if n > 1:
+        DECODE_PATHS["flash"] += 1
+        ctx, _, _ = _mla_flash_body(
+            q_abs, qr, ckv_c, kr_c, ckv_new, kr_new, pos,
+            group=mesh.model_group, index=mesh.model_index, smax=smax,
+            n_shards=n, scale=scale)
+    else:
+        DECODE_PATHS["whole"] += 1
+        bidx = torch.arange(b, device=x.device)
+        pidx = pos.long()
+        ckv_c.index_put_((bidx, pidx), ckv_new.to(ckv_c.dtype))
+        kr_c.index_put_((bidx, pidx), kr_new.to(kr_c.dtype))
+        s = _bmm_f32(q_abs.to(ckv_c.dtype), ckv_c.transpose(1, 2))
+        s += _bmm_f32(qr.to(kr_c.dtype), kr_c.transpose(1, 2))
+        s *= scale
+        p = _decode_softmax(s, pos)
+        del s
+        ctx = _bmm_f32(p.to(ckv_c.dtype), ckv_c)             # [B, H, L]
+    return _mla_out(params, cfg, ctx, x.dtype), cache
+
+
+def _mla_absorbed(params: dict, cfg: MLAConfig, x: torch.Tensor,
+                  pos: torch.Tensor):
+    """A decode step's absorbed query ``q_abs`` [B, H, L] = q_nope W_uk^T
+    and rope query [B, H, dh_rope] (both fp32), and its new latent entry
+    ``ckv`` [B, L] and ``kr`` [B, dh_rope]."""
     h = cfg.n_heads
     q_nope, q_rope, ckv_new, kr_new = _mla_qkv(params, cfg, x, pos[:, None])
     w_uk = params["w_uk"].view(cfg.kv_lora, h, cfg.dh_nope)
     q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(),
-                         w_uk.float())                       # [B, H, L]
-    scale = (cfg.dh_nope + cfg.dh_rope) ** -0.5
-    qr = q_rope[:, 0].float()
+                         w_uk.float())
+    return q_abs, q_rope[:, 0].float(), ckv_new[:, 0], kr_new[:, 0]
 
-    ckv_c, kr_c = cache["ckv"], cache["kr"]
-    bidx = torch.arange(b, device=x.device)
-    pidx = pos.long()
-    ckv_c.index_put_((bidx, pidx), ckv_new[:, 0].to(ckv_c.dtype))
-    kr_c.index_put_((bidx, pidx), kr_new[:, 0].to(kr_c.dtype))
-    s = _bmm_f32(q_abs.to(ckv_c.dtype), ckv_c.transpose(1, 2))
-    s += _bmm_f32(qr.to(kr_c.dtype), kr_c.transpose(1, 2))
-    s *= scale
-    p = _decode_softmax(s, pos)
-    del s
-    ctx = _bmm_f32(p.to(ckv_c.dtype), ckv_c)                 # [B, H, L]
+
+def mla_scale(cfg: MLAConfig) -> float:
+    return (cfg.dh_nope + cfg.dh_rope) ** -0.5
+
+
+def _mla_out(params: dict, cfg: MLAConfig, ctx: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The latent context [B, H, L] (fp32) through W_uv (fp32) and ``wo``
+    -> y [B, 1, d] in ``dtype``."""
+    b, h = ctx.shape[0], cfg.n_heads
     w_uv = params["w_uv"].view(cfg.kv_lora, h, cfg.dv)
     o = torch.einsum("bhl,lhd->bhd", ctx, w_uv.float())
-    y = o.reshape(b, 1, h * cfg.dv).to(x.dtype) @ params["wo"]
-    return y, cache
-
+    return o.reshape(b, 1, h * cfg.dv).to(dtype) @ params["wo"]

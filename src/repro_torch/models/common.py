@@ -157,25 +157,56 @@ DRAW_CHUNK = 1 << 26
 
 
 def draw_params(specs: dict, *, generator: torch.Generator, device,
-                dtype: torch.dtype) -> dict:
+                dtype: torch.dtype, keep: Optional[dict] = None) -> dict:
     """``{path: ParamSpec}`` -> ``{path: tensor}`` on ``device``, in
     ``specs``' order: each tensor allocated once in its dtype and filled in
     place, ``DRAW_CHUNK`` elements of fp32 draws at a time (whole rows of
-    its last axis)."""
+    its last axis).  ``keep`` ``{path: (dim, start, stop)}`` keeps only
+    ``[start, stop)`` of that leaf's axis ``dim`` (not its last): every
+    row is still drawn, so the kept part holds the whole leaf's values and
+    every later leaf the same draws (a rank's share of the experts)."""
     out = {}
     for path, spec in specs.items():
-        t = torch.empty(spec.shape, dtype=spec.dtype or dtype, device=device)
+        cut = (keep or {}).get(path)
+        shape = list(spec.shape)
+        if cut:
+            shape[cut[0]] = cut[2] - cut[1]
+        t = torch.empty(shape, dtype=spec.dtype or dtype, device=device)
         if spec.scale is None:
             t.fill_(1)
         else:
-            rows = t.view(-1, spec.shape[-1])
-            step = max(1, DRAW_CHUNK // spec.shape[-1])
-            for i in range(0, rows.shape[0], step):
-                part = rows[i:i + step]
-                part.copy_(normal_init(part.shape, spec.scale,
-                                       generator=generator, device=device))
+            last = spec.shape[-1]
+            rows = t.view(-1, last)
+            n_rows = math.prod(spec.shape[:-1])
+            ranges = _kept_rows(spec.shape, cut) if cut \
+                else [(0, n_rows, 0)]
+            step = max(1, DRAW_CHUNK // last)
+            for i in range(0, n_rows, step):
+                part = normal_init((min(step, n_rows - i), last), spec.scale,
+                                   generator=generator, device=device)
+                for lo, hi, at in ranges:
+                    a, b = max(lo, i), min(hi, i + part.shape[0])
+                    if a < b:
+                        rows[at + a - lo:at + b - lo].copy_(
+                            part[a - i:b - i])
         out[path] = t
     return out
+
+
+def _kept_rows(shape: tuple, cut: tuple) -> list:
+    """The rows (of the last axis) of a leaf of ``shape`` that ``cut``
+    ``(dim, start, stop)`` keeps, as ``(first, end, at)`` runs: rows
+    ``[first, end)`` of the whole leaf land at row ``at`` of the kept
+    one."""
+    dim, start, stop = cut
+    if not 0 <= dim < len(shape) - 1:
+        raise ValueError(f"a cut keeps part of an axis before the last, "
+                         f"not axis {dim} of {tuple(shape)}")
+    inner = math.prod(shape[dim + 1:-1])
+    n = shape[dim]
+    return [((o * n + start) * inner, (o * n + stop) * inner,
+             o * (stop - start) * inner)
+            for o in range(math.prod(shape[:dim]))]
 
 
 def sub(params: dict, prefix: str) -> dict:

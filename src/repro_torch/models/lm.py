@@ -19,13 +19,29 @@ leaf of its own, so that no gradient of a whole stack is ever made.
 Serving: ``lm_backbone`` and ``lm_logits`` (prefill), ``lm_prefill``
 (prefill writing the decode caches), ``lm_decode_step`` (decode, caches
 updated in place) and the caches' shapes (``decode_cache_specs``,
-``make_decode_caches``).  Training: ``lm_loss`` (next-token cross
-entropy over sequence chunks, ``_chunked_xent``; the MoE's aux loss;
-DeepSeek-V3's multi-token prediction, ``_mtp_loss``), differentiated by
-``train/train_step.py``.  With ``cfg.remat`` each layer of a
-differentiated forward runs under ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint``): only its input is kept, and its
-activations are recomputed in the backward.
+``make_decode_caches``).  Each takes a ``mesh`` (``launch/mesh.make_mesh``
+over a ``torch.distributed`` world, ``(data, model)``) and then runs this
+rank's part of the reference's sharded serving: the batch's rows split
+over ``data`` where it divides them (``Mesh.batch_rows``; the inputs are
+the whole batch on every rank, the outputs this rank's rows), the decode
+caches split over ``model`` along the sequence where ``model`` divides
+their ``smax`` positions (``models/attention.py``'s flash-decode; the
+caches are this rank's slices, ``decode_cache_specs(..., mesh)``), the
+MoE's experts split over ``model`` (``models/moe.py``; in decode the
+batch is gathered over ``data`` first, as the reference replicates it
+there).  Everything else, the dense layers, the prefill attention and the
+vocabulary tables, runs whole on every ``model`` rank for its rows: the
+reference shards them by GSPMD constraints (``mi.shard``, the
+parameters' ``Boxed`` specs), which place memory and change no value, so
+this is a departure in memory, not in values.  The dense weights'
+FSDP / tensor-parallel placement is ROADMAP queue 1, item 15.4.
+
+Training: ``lm_loss`` (next-token cross entropy over sequence chunks,
+``_chunked_xent``; the MoE's aux loss; DeepSeek-V3's multi-token
+prediction, ``_mtp_loss``), differentiated by ``train/train_step.py``.
+With ``cfg.remat`` each layer of a differentiated forward runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): only its
+input is kept, and its activations are recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import distributed as dist
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_mod
@@ -138,22 +155,48 @@ def param_specs(cfg: LMConfig) -> dict:
     return dict(sorted(specs.items(), key=lambda kv: kv[0].split("/")))
 
 
-def param_bytes(cfg: LMConfig) -> int:
-    return sum(ShapeDtype(s.shape, s.dtype or cfg.torch_dtype).nbytes
-               for s in param_specs(cfg).values())
+def param_bytes(cfg: LMConfig, mesh=None) -> int:
+    """The parameters' bytes (at a ``mesh``, this rank's share)."""
+    cuts = expert_cuts(cfg, mesh)
+    total = 0
+    for path, spec in param_specs(cfg).items():
+        shape = list(spec.shape)
+        if path in cuts:
+            dim, start, stop = cuts[path]
+            shape[dim] = stop - start
+        total += ShapeDtype(tuple(shape), spec.dtype or cfg.torch_dtype).nbytes
+    return total
 
 
-def lm_init(cfg: LMConfig, *, seed: int = 0, device="cuda") -> dict:
+def expert_cuts(cfg: LMConfig, mesh=None) -> dict:
+    """``{path: (1, start, stop)}``: the experts of each MoE stack
+    (``[L, E, ...]``) this rank of ``mesh`` holds, ``E / n`` of them for a
+    ``model`` axis of n; empty with no mesh, one ``model`` rank or no
+    MoE."""
+    if mesh is None or cfg.moe is None or mesh.size("model") == 1:
+        return {}
+    n, e = mesh.size("model"), cfg.moe.n_experts
+    if e % n:
+        raise ValueError(f"{e} experts do not split over {n} model ranks")
+    e_loc = e // n
+    cut = (1, mesh.model_index * e_loc, (mesh.model_index + 1) * e_loc)
+    return {f"moe_layers/moe/{w}": cut
+            for w in ("w_gate", "w_up", "w_down")}
+
+
+def lm_init(cfg: LMConfig, *, seed: int = 0, device="cuda",
+            mesh=None) -> dict:
     """Random weights of ``cfg`` on ``device``, from a generator seeded
     ``seed`` there: every matrix a truncated normal scaled by 1/sqrt(fan
     in) (the embedding by 0.02), every norm's gain ones, as the reference
     draws them (from another stream: the two packages draw different
-    numbers)."""
+    numbers).  At a ``mesh``, this rank's share (``expert_cuts``) of the
+    same draws."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return cm.draw_params(param_specs(cfg), generator=gen, device=device,
-                          dtype=cfg.torch_dtype)
+                          dtype=cfg.torch_dtype, keep=expert_cuts(cfg, mesh))
 
 
 def layer_view(params: dict, key: str, i: int) -> dict:
@@ -200,10 +243,11 @@ def _attn_apply(p: dict, cfg: LMConfig, a: torch.Tensor,
 
 
 def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor, use_moe: bool,
-                 return_cache: bool = False, taps: Optional[list] = None):
+                 return_cache: bool = False, taps: Optional[list] = None,
+                 mesh=None):
     """Pre-norm block -> (x, (aux, dropped)) and, with ``return_cache``, the
     layer's attention cache.  ``taps``, where given, gets each MoE layer's
-    ``(input, output, dropped)``."""
+    body ``(tokens, output, dropped)`` (``moe.moe_apply``)."""
     a = cm.rms_norm(x, p["ln1"])
     out = _attn_apply(cm.sub(p, "attn"), cfg, a, return_cache)
     attn_out, cache = out if return_cache else (out, None)
@@ -213,9 +257,8 @@ def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor, use_moe: bool,
     h = cm.rms_norm(x, p["ln2"])
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if use_moe:
-        y, aux, dropped = moe_mod.moe_apply(cm.sub(p, "moe"), cfg.moe, h)
-        if taps is not None:
-            taps.append((h, y, dropped))
+        y, aux, dropped = moe_mod.moe_apply(cm.sub(p, "moe"), cfg.moe, h,
+                                            mesh, taps=taps)
     else:
         y, aux, dropped = _ffn_apply(cm.sub(p, "ffn"), cfg, h), zero, zero
     x = x + y
@@ -225,19 +268,31 @@ def _layer_apply(p: dict, cfg: LMConfig, x: torch.Tensor, use_moe: bool,
 # ---------------------------------------------------------------------------
 # forward: prefill, training
 # ---------------------------------------------------------------------------
+def _rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a batch given whole (module docstring)."""
+    return tokens if mesh is None else tokens[mesh.batch_rows(len(tokens))]
+
+
 def lm_backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
                 caches: Optional[dict] = None,
-                taps: Optional[list] = None):
+                taps: Optional[list] = None, mesh=None,
+                smax: Optional[int] = None):
     """tokens [B, S] -> (hidden [B, S, d] before the final norm, (aux,
     dropped) summed over the MoE layers).  With ``caches`` (the decode
     caches, ``make_decode_caches``, at least S long) every layer's cache
     is written into ``[:, :, :S]`` of its stack.  Under autograd with
     ``cfg.remat`` every layer is checkpointed (module docstring); ``taps``
-    then stays empty (a recomputed layer would tap twice)."""
-    x = params["embed"][tokens.long()]
+    then stays empty (a recomputed layer would tap twice).  At a ``mesh``
+    the hidden states are this rank's rows', and ``caches`` this rank's
+    slices of caches of ``smax`` positions (module docstring)."""
+    x = params["embed"][_rows(tokens, mesh).long()]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     s = tokens.shape[1]
+    lo, hi = 0, s
+    if caches is not None and mesh is not None:
+        _, seq = cache_slices(mesh, len(tokens), smax)
+        lo, hi = min(s, seq.start), min(s, seq.stop)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for kind, key in STACKS:
         if key + "/ln1" not in params:
@@ -245,16 +300,17 @@ def lm_backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
         for i, p in enumerate(layers(params, key)):
             if remat:
                 x, (a, d) = checkpoint(_layer_apply, p, cfg, x,
-                                       kind == "moe", use_reentrant=False,
+                                       kind == "moe", False, None, mesh,
+                                       use_reentrant=False,
                                        preserve_rng_state=False)
             elif caches is None:
                 x, (a, d) = _layer_apply(p, cfg, x, kind == "moe",
-                                         taps=taps)
+                                         taps=taps, mesh=mesh)
             else:
                 x, (a, d), c = _layer_apply(p, cfg, x, kind == "moe", True,
-                                            taps)
+                                            taps, mesh)
                 for name, t in c.items():
-                    caches[kind][name][i, :, :s] = t
+                    caches[kind][name][i, :, :hi - lo] = t[:, lo:hi]
             aux, dropped = aux + a, dropped + d
     return x, (aux, dropped)
 
@@ -344,57 +400,91 @@ def _mtp_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
-               cache_len: int):
+               cache_len: int, mesh=None, taps: Optional[list] = None):
     """Prefill that leaves the decode caches behind: tokens [B, S] ->
     (the last position's logits [B, V], caches of ``cache_len`` positions
-    holding the S prompt positions, zeros past them)."""
+    holding the S prompt positions, zeros past them).  At a ``mesh``, this
+    rank's rows' logits and its slices of the caches.  ``taps`` as
+    ``lm_backbone``'s."""
     caches = make_decode_caches(cfg, tokens.shape[0], cache_len,
-                                tokens.device)
-    h, _ = lm_backbone(params, cfg, tokens, caches=caches)
+                                tokens.device, mesh)
+    h, _ = lm_backbone(params, cfg, tokens, caches=caches, taps=taps,
+                       mesh=mesh, smax=cache_len)
     return lm_logits(params, cfg, h[:, -1:])[:, 0], caches
 
 
 def _layer_decode(p: dict, cfg: LMConfig, x, cache: dict, pos,
-                  use_moe: bool):
+                  use_moe: bool, mesh=None, smax: Optional[int] = None,
+                  taps: Optional[list] = None, split: bool = False):
     a = cm.rms_norm(x, p["ln1"])
     ap = cm.sub(p, "attn")
     if cfg.attn_type == "mla":
-        y, cache = attn.mla_decode(ap, cfg.mla_cfg(), a, cache, pos)
+        y, cache = attn.mla_decode(ap, cfg.mla_cfg(), a, cache, pos, mesh,
+                                   smax)
     else:
-        y, cache = attn.gqa_decode(ap, cfg.gqa_cfg(), a, cache, pos)
+        y, cache = attn.gqa_decode(ap, cfg.gqa_cfg(), a, cache, pos, mesh,
+                                   smax)
     x = x + y
     h = cm.rms_norm(x, p["ln2"])
-    if use_moe:
-        y, _, _ = moe_mod.moe_apply(cm.sub(p, "moe"), cfg.moe, h)
-    else:
-        y = _ffn_apply(cm.sub(p, "ffn"), cfg, h)
+    if not use_moe:
+        return x + _ffn_apply(cm.sub(p, "ffn"), cfg, h), cache
+    mp = cm.sub(p, "moe")
+    if mesh is None or mesh.group is None:
+        y, _, _ = moe_mod.moe_apply(mp, cfg.moe, h, taps=taps)
+        return x + y, cache
+    # the reference replicates a decode step's tokens on every rank: a
+    # batch split over data is gathered for the MoE, this rank's rows kept
+    b = h.shape[0]
+    if split:
+        h = dist.all_gather(h, mesh.data_group, dim=0)
+    y, _, _ = moe_mod.moe_apply(mp, cfg.moe, h, mesh, decode=True,
+                                taps=taps)
+    if split:
+        y = y[mesh.data_index * b:(mesh.data_index + 1) * b]
     return x + y, cache
 
 
 def lm_decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
-                   pos: torch.Tensor, caches: dict):
+                   pos: torch.Tensor, caches: dict, mesh=None,
+                   smax: Optional[int] = None, taps: Optional[list] = None):
     """One-token decode.  token [B] int; pos [B] the current lengths;
     ``caches`` ``{'dense': {k, v or ckv, kr: [Ld, B, Smax, ...]}, 'moe':
     ...}``.  Each layer writes its new entry into its slice of the stacks IN
     PLACE (the reference returns new caches) -> (logits [B, V], the same
-    caches)."""
-    x = params["embed"][token.long()[:, None]]
+    caches).  At a ``mesh``: ``token`` and ``pos`` the whole batch, the
+    caches this rank's slices of caches of ``smax`` positions
+    (``decode_cache_specs(..., mesh)``), the logits this rank's rows'
+    (module docstring).  ``taps`` gets each MoE layer's body tokens,
+    output and dropped share."""
+    b = len(token)
+    pos = _rows(pos, mesh)
+    x = params["embed"][_rows(token, mesh).long()[:, None]]
+    split = len(pos) < b
     for kind, key in STACKS:
         if kind not in caches:
             continue
         for i, p in enumerate(layers(params, key)):
             view = {name: t[i] for name, t in caches[kind].items()}
-            x, _ = _layer_decode(p, cfg, x, view, pos, kind == "moe")
+            x, _ = _layer_decode(p, cfg, x, view, pos, kind == "moe", mesh,
+                                 smax, taps, split)
     return lm_logits(params, cfg, x)[:, 0], caches
 
 
-def decode_cache_specs(cfg: LMConfig, batch: int, s_max: int) -> dict:
+def decode_cache_specs(cfg: LMConfig, batch: int, s_max: int,
+                       mesh=None) -> dict:
     """The decode caches' shapes and dtypes (the reference's
     ``make_decode_cache_specs`` without its shardings):
     ``{'dense' / 'moe': {k, v: [L, B, Smax, Hkv, dh]}}`` for GQA,
-    ``{ckv: [L, B, Smax, kv_lora], kr: [L, B, Smax, dh_rope]}`` for MLA."""
+    ``{ckv: [L, B, Smax, kv_lora], kr: [L, B, Smax, dh_rope]}`` for MLA.
+    At a ``mesh``, a rank's slice of them: the reference's ``P(None,
+    bspec, 'model', ...)`` gives it ``B / data`` rows where ``data``
+    divides B and ``Smax / n`` positions where the n ``model`` ranks
+    divide Smax (``Mesh.batch_rows``, ``Mesh.seq_shards``)."""
     dt = cfg.torch_dtype
     n_dense = cfg.n_layers - cfg.n_moe_layers
+    if mesh is not None:
+        rows, seq = cache_slices(mesh, batch, s_max)
+        batch, s_max = rows.stop - rows.start, seq.stop - seq.start
 
     def entry(n):
         if cfg.attn_type == "mla":
@@ -413,14 +503,36 @@ def decode_cache_specs(cfg: LMConfig, batch: int, s_max: int) -> dict:
 
 
 def make_decode_caches(cfg: LMConfig, batch: int, s_max: int,
-                       device) -> dict:
+                       device, mesh=None) -> dict:
     """Zeroed decode caches of ``decode_cache_specs`` on ``device``."""
     return {kind: {name: torch.zeros(sd.shape, dtype=sd.dtype, device=device)
                    for name, sd in entry.items()}
-            for kind, entry in decode_cache_specs(cfg, batch, s_max).items()}
+            for kind, entry in decode_cache_specs(cfg, batch, s_max,
+                                                  mesh).items()}
 
 
-def cache_bytes(cfg: LMConfig, batch: int, s_max: int) -> int:
+def cache_slices(mesh, batch: int, s_max: int) -> tuple:
+    """(rows, positions): the slices of whole decode caches [L, B, Smax,
+    ...] that this rank of ``mesh`` holds (``decode_cache_specs``)."""
+    s_loc = s_max // mesh.seq_shards(s_max)
+    seq = slice(0, s_max) if s_loc == s_max else slice(
+        mesh.model_index * s_loc, (mesh.model_index + 1) * s_loc)
+    return mesh.batch_rows(batch), seq
+
+
+def cache_share(caches: dict, mesh) -> dict:
+    """Whole decode caches -> this rank of ``mesh``'s slices of them, each
+    contiguous (a copy, unless the slice is the whole cache)."""
+    out = {}
+    for kind, entry in caches.items():
+        out[kind] = {}
+        for name, t in entry.items():
+            rows, seq = cache_slices(mesh, t.shape[1], t.shape[2])
+            out[kind][name] = t[:, rows, seq].contiguous()
+    return out
+
+
+def cache_bytes(cfg: LMConfig, batch: int, s_max: int, mesh=None) -> int:
     return sum(sd.nbytes for entry in
-               decode_cache_specs(cfg, batch, s_max).values()
+               decode_cache_specs(cfg, batch, s_max, mesh).values()
                for sd in entry.values())

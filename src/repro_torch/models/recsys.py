@@ -66,9 +66,12 @@ from repro_torch.models import embedding_service as es
 NOT_PORTED = ("{arch} is not ported: the port trains and serves the four "
               "recsys archs (din, bst, two_tower, deepfm), graphsage-reddit "
               "and the five LM archs (train_4k, prefill_32k, decode_32k, "
-              "long_500k on one device), and builds and dry-runs every "
-              "cell at one device; the sharded LM paths wait for ROADMAP "
-              "queue 1, item 15.3")
+              "long_500k on one device; their serving sequence-sharded "
+              "and expert-parallel over a torch.distributed world), and "
+              "builds and dry-runs every cell at one device; training "
+              "through the expert-parallel exchange, the dense weights' "
+              "FSDP / tensor-parallel placement and the production mesh "
+              "wait for ROADMAP queue 1, item 15.4")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,10 +15,11 @@ inputs (``flops_<dtype>``), which is why the compute term is a sum.
 
 The reference parses post-SPMD HLO for its collective bytes.  The port
 has no HLO: a ``Tally`` receives the bytes of each call to
-``core/distributed.all_to_all`` and ``all_reduce_sum`` while it is open
-(``note_collective``), and ``collective_bytes`` gives them in the
-reference's dict shape: bytes a kind (``all-to-all``, ``all-reduce``),
-``<kind>_ops`` and ``total``.  A dry tally (the dry-run's) also receives
+``core/distributed.all_to_all``, ``all_gather``, ``all_reduce_sum`` and
+``all_reduce_max`` while it is open (``note_collective``), and
+``collective_bytes`` gives them in the reference's dict shape: bytes a
+kind (``all-to-all``, ``all-gather``, ``all-reduce``), ``<kind>_ops`` and
+``total``.  A dry tally (the dry-run's) also receives
 each hand-written kernel's work from its wrapper's meta route
 (``note_kernel``), and a collective under it is counted and not run.
 

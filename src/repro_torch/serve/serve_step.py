@@ -30,22 +30,24 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models import recsys as rec
 
 
-def lm_decode_fn(cfg):
+def lm_decode_fn(cfg, mesh=None, smax: Optional[int] = None):
     """``step(params, token [B], pos [B], caches) -> (logits [B, V],
     caches)``: one token of decode, the caches written in place at
-    ``pos``."""
+    ``pos``.  At a ``mesh``, this rank's part (``lm.lm_decode_step``): its
+    rows' logits, its slices of caches of ``smax`` positions."""
     @torch.no_grad()
     def step(params, token, pos, caches):
-        return lm_mod.lm_decode_step(params, cfg, token, pos, caches)
+        return lm_mod.lm_decode_step(params, cfg, token, pos, caches, mesh,
+                                     smax)
     return step
 
 
-def lm_prefill_fn(cfg):
+def lm_prefill_fn(cfg, mesh=None):
     """``step(params, tokens [B, S]) -> logits [B, V]`` of the last
-    position."""
+    position (at a ``mesh``, of this rank's rows)."""
     @torch.no_grad()
     def step(params, tokens):
-        h, _ = lm_mod.lm_backbone(params, cfg, tokens)
+        h, _ = lm_mod.lm_backbone(params, cfg, tokens, mesh=mesh)
         return lm_mod.lm_logits(params, cfg, h[:, -1:])[:, 0]
     return step
 

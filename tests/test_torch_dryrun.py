@@ -122,10 +122,13 @@ def test_cli_help_and_refusals(capsys):
         dryrun.main(["--help"])
     assert e.value.code == 0
     assert "--multi-pod" in capsys.readouterr().out
+    refusal = ("FSDP / tensor-parallel placement, the bundles' "
+               "in_shardings / out_shardings and the dry-run at that mesh, "
+               "which wait for ROADMAP queue 1, item 15.4")
     for flag in ("--multi-pod", "--both-meshes"):
-        with pytest.raises(SystemExit, match="item 15.3"):
+        with pytest.raises(SystemExit, match=refusal):
             dryrun.main(["--all", flag])
-    with pytest.raises(SystemExit, match="item 15.3"):
+    with pytest.raises(SystemExit, match=refusal):
         dryrun.run_cell("deepfm", "serve_p99", write=False,
                         mesh=mesh_mod.make_production_mesh())
     prod = mesh_mod.make_production_mesh(multi_pod=True)

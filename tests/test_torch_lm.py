@@ -773,8 +773,9 @@ def test_launchers_refuse_lm_training():
     """What still refuses once LM training is ported: the train launcher
     trains an LM's train_4k only, and points a serving cell to the serve
     launcher, for every LM arch; an arch the port lacks names what the port
-    runs (the cell builder and dry-run among it) and what waits (the
-    sharded LM paths) in ROADMAP."""
+    runs (the cell builder and dry-run, the sharded LM serving among it)
+    and what waits (training through the expert-parallel exchange, the
+    dense weights' placement, the production mesh) in ROADMAP."""
     for arch in ARCHS:
         for shape in ("prefill_32k", "decode_32k", "long_500k"):
             with pytest.raises(SystemExit, match=f"{shape} is not a train "
@@ -784,8 +785,13 @@ def test_launchers_refuse_lm_training():
                                    "--smoke", "--device", "cpu"])
     for launcher in (launch_train, launch_serve):
         with pytest.raises(SystemExit, match="qwen3-15b is not ported.*five "
-                           "LM archs \\(train_4k, prefill_32k.*builds and "
-                           "dry-runs every cell.*the sharded LM paths wait "
-                           "for ROADMAP queue 1, item 15\\.3"):
+                           "LM archs \\(train_4k, prefill_32k.*serving "
+                           "sequence-sharded and expert-parallel over a "
+                           "torch.distributed world.*builds and dry-runs "
+                           "every cell.*training through the "
+                           "expert-parallel exchange, the dense weights' "
+                           "FSDP / tensor-parallel placement and the "
+                           "production mesh wait for ROADMAP queue 1, item "
+                           "15\\.4"):
             launcher.main(["--arch", "qwen3-15b", "--smoke", "--device",
                            "cpu"])
